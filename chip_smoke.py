@@ -1,0 +1,465 @@
+#!/usr/bin/env python3
+"""Chip check of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+Run from the root of a checkout, on a machine with an NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases (each prints what it found and its seconds; any failure exits
+non-zero):
+
+1. environment: python/torch/CUDA versions, the card's name and power
+   limit as ``nvidia-smi`` reports them, capability (9, 0);
+2. build: every ``src/repro_torch/csrc/*.cu`` with ``nvcc`` (in parallel);
+3. kernel against its plain version on the card: ``hermes_select`` at
+   W ∈ {100, 1000}, R ∈ {1, 8}, N ∈ {1, 256}, random and edge states,
+   exactly equal; CUDA-event times of both at the main path's shape
+   (replayed from a CUDA graph, and as called from Python) beside the
+   bytes bound;
+4. the main path at the paper's large-cluster size (fig4 quick sweep):
+   ``simulate_many`` on ``cuda`` for Hermes, E/LL/PS, E/LOC/PS and late
+   binding (W=100 × 12 cores, 96 slots, ms-trace with 50 functions,
+   loads 0.5/0.7/0.9/0.97, N=12 000, seed 1); the kernel's launch count
+   is zeroed just before the Hermes run and must equal N just after;
+   4b. a short profiled Hermes run: device busy and idle share, kernel
+   launches per arrival, the costliest host-side ops;
+5. kernel path against plain path end to end (N=2000, same cluster): both
+   on the card, equal in every plane; the same case on the CPU, equal
+   integer planes and floats within 1e-9; then every policy of phase 4,
+   card against CPU, at N=300 on the same cluster and on an overloaded
+   4 × 3-core cluster (rejections, evictions, the late-binding queue).
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
+checkout, it exits non-zero and prints no result.  Every number also
+goes into one ``report {...}`` line (JSON after the word), printed
+whether or not a phase failed.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+#: H100 SXM device-memory rate (NVIDIA data sheet), bytes/s
+HBM_BYTES_PER_S = 3.35e12
+LOADS = (0.5, 0.7, 0.9, 0.97)
+N_MAIN = 12_000
+N_CHECK = 2_000
+N_PROFILE = 100
+N_SHORT = 300
+SEED = 1
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class Phase:
+    def __init__(self, name: str, report: dict):
+        self.name, self.report = name, report
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        log(f"== {self.name}")
+        return self
+
+    def __exit__(self, *exc):
+        s = time.perf_counter() - self.t0
+        self.report.setdefault("phase_s", {})[self.name] = s
+        log(f"== {self.name}: {'ok' if exc[0] is None else 'FAILED'} "
+            f"in {s:.2f} s")
+        return False
+
+
+def environment(torch, report):
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    cap = torch.cuda.get_device_capability(0)
+    log(f"device 0: {torch.cuda.get_device_name(0)}, capability {cap}, "
+        f"{torch.cuda.device_count()} visible")
+    check(cap == (9, 0), f"needs a Hopper card (9, 0), got {cap}")
+    report["card"] = card
+
+
+def build(report):
+    from repro_torch.kernels import _build
+    secs = _build.build_all()
+    for name, s in secs.items():
+        log(f"built {name}.cu in {s:.2f} s")
+        ptxas = _build.library_path(name).with_suffix(".log").read_text()
+        for line in ptxas.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {line.strip()}")
+    report["build_s"] = secs
+
+
+def _states(torch, gen, R, N, W, cores, slots, kind):
+    """``active [R, W]``, ``warm_cols [R, N, W]`` for one state kind."""
+    if kind == "random":
+        active = gen.integers(0, slots + 1, (R, W))
+    elif kind == "full":
+        active = gen.integers(slots, slots + 1, (R, W))
+    elif kind == "no-core":
+        active = gen.integers(cores, slots, (R, W))
+    else:  # "ties": equal loads, no warm executor anywhere
+        active = gen.integers(3, 4, (R, W))
+    warm = gen.integers(0, 3, (R, N, W)) if kind != "ties" \
+        else gen.integers(0, 1, (R, N, W))
+    as_dev = lambda x: torch.as_tensor(x.astype("int32"), device="cuda")
+    return as_dev(active), as_dev(warm)
+
+
+def _event_ms(torch, run) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def call_ms(torch, fn, iters) -> float:
+    """CUDA-event time per call made from Python, as the engine calls
+    it: for a launch-bound function this is the host's launch time."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    return _event_ms(torch, lambda: [fn() for _ in range(iters)]) / iters
+
+
+def device_ms(torch, fn, iters) -> float:
+    """CUDA-event time per call with ``iters`` calls captured in one CUDA
+    graph and replayed: the card's own time, without Python between."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return _event_ms(torch, lambda: [graph.replay() for _ in range(5)]) \
+        / (5 * iters)
+
+
+def kernel_vs_plain(torch, np, report, cluster):
+    from repro_torch.kernels.hermes_select import kernel as hk
+    from repro_torch.kernels.hermes_select.ref import hermes_select_ref
+    C, S = cluster.cores, cluster.slots
+    gen = np.random.default_rng(SEED)
+    max_err, n_cases = 0, 0
+    for W in (100, 1000):
+        for R in (1, 8):
+            for N in (1, 256):
+                for kind in ("random", "full", "no-core", "ties"):
+                    active, cols = _states(torch, gen, R, N, W, C, S, kind)
+                    ko, ka = hk.hermes_select_batch(active, cols, cores=C,
+                                                    slots=S)
+                    ro, ra = hermes_select_ref(active, cols, cores=C,
+                                               slots=S)
+                    torch.cuda.synchronize()
+                    err = max(int((ko - ro).abs().max()),
+                              int((ka - ra).abs().max()))
+                    check(err == 0, f"hermes_select W={W} R={R} N={N} "
+                                    f"{kind}: kernel != plain (err {err})")
+                    max_err, n_cases = max(max_err, err), n_cases + 1
+    log(f"hermes_select: {n_cases} cases, kernel == plain "
+        f"(max abs err {max_err})")
+
+    timings = []
+    # the main path's shape (R = the fig4 loads, one arrival), then the
+    # largest checked shape
+    for R, N, W in ((len(LOADS), 1, cluster.n_workers), (8, 256, 1000)):
+        active, cols = _states(torch, gen, R, N, W, C, S, "random")
+
+        def kern():
+            return hk.hermes_select_batch(active, cols, cores=C, slots=S)
+
+        def plain():
+            return hermes_select_ref(active, cols, cores=C, slots=S)
+
+        reps = 200 if N == 1 else 5
+        row = dict(R=R, N=N, W=W,
+                   ms=device_ms(torch, kern, reps),
+                   plain_ms=device_ms(torch, plain, reps),
+                   call_ms=call_ms(torch, kern, reps),
+                   plain_call_ms=call_ms(torch, plain, reps),
+                   bytes=4 * (R * W + R * N * W + R * N + R * W))
+        row["bound_ms"] = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        timings.append(row)
+        log(f"hermes_select R={R} N={N} W={W}: kernel {row['ms']:.6f} ms "
+            f"on the card ({row['call_ms']:.6f} ms per call from Python); "
+            f"plain version {row['plain_ms']:.6f} ms "
+            f"({row['plain_call_ms']:.6f} ms per call; not a yardstick); "
+            f"bound {row['bound_ms']:.3e} ms ({row['bytes']} B at "
+            f"3.35 TB/s; launch latency is the real floor)")
+    # cross-check of the kernel's device time, where the profiler sees it
+    active, cols = _states(torch, gen, len(LOADS), 1, cluster.n_workers, C,
+                           S, "random")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(100):
+            hk.hermes_select_batch(active, cols, cores=C, slots=S)
+        torch.cuda.synchronize()
+    dev_us = [e.device_time for e in prof.key_averages()
+              if "hermes_select" in e.key and e.device_time > 0]
+    log(f"profiler device time per hermes_select launch: "
+        f"{(f'{dev_us[0]:.3f} us' if dev_us else 'not seen')}")
+    report["hermes_select"] = dict(cases=n_cases, max_abs_err=max_err,
+                                   timings=timings,
+                                   profiler_device_us=dev_us or None)
+    return max_err, timings[0]
+
+
+def profile_main_path(torch, report, cluster):
+    """Where the main path's time goes: one profiled Hermes run at a
+    short horizon (same cluster and workload generator)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import HERMES, ms_trace, replicate_workload
+    from repro_torch.core.simulator import LoopStats, simulate_many
+
+    wb = replicate_workload(ms_trace, cluster, LOADS, N_PROFILE,
+                            seeds=(SEED,))
+    warm_up(cluster)
+    stats = LoopStats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        simulate_many(HERMES, cluster, wb, device="cuda", stats=stats)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ka = prof.key_averages()
+    kernels = [e for e in ka if e.device_type.name != "CPU"
+               and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    n_kernels = sum(e.count for e in kernels)
+    top = sorted((e for e in ka if e.key.startswith("aten::")),
+                 key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
+    log(f"profiled Hermes N={N_PROFILE}: wall {wall_us / 1e3:.1f} ms "
+        f"(profiler on), device busy {busy_us / 1e3:.1f} ms = "
+        f"{busy_us / wall_us:.3f} of wall, idle share "
+        f"{1 - busy_us / wall_us:.3f}; {n_kernels} kernel launches = "
+        f"{n_kernels / N_PROFILE:.1f} per arrival; "
+        f"{stats.host_syncs} host syncs")
+    for e in top:
+        log(f"  {e.key}: {e.count} calls, self CPU "
+            f"{e.self_cpu_time_total / 1e3:.1f} ms "
+            f"({e.self_cpu_time_total / e.count:.1f} us each)")
+    report["profile"] = dict(
+        n=N_PROFILE, wall_us=wall_us, device_busy_us=busy_us,
+        kernel_launches=n_kernels, host_syncs=stats.host_syncs,
+        advance_iters=stats.advance_iters,
+        top_cpu_ops=[dict(op=e.key, count=e.count,
+                          self_cpu_us=e.self_cpu_time_total) for e in top])
+
+
+def validate(np, out, wb, name):
+    """The reference's invariants (tests/test_simulator.py)."""
+    R, N = wb.arrival.shape
+    check(out.response.shape == (R, N) and out.worker.dtype == np.int32,
+          f"{name}: bad output shape/dtype")
+    done = ~out.rejected
+    check(bool(np.isfinite(out.response[done]).all()),
+          f"{name}: an accepted invocation never completed")
+    check(bool((out.response[done] >= wb.service[done] - 1e-6).all()),
+          f"{name}: a response is shorter than its service")
+    for r in range(R):
+        work = wb.service[r][done[r]].sum()
+        check(abs(out.core_time[r] - work) < 1e-6 * work,
+              f"{name}: core-time {out.core_time[r]} != work {work}")
+
+
+def warm_up(cluster):
+    """Short runs that keep first-use costs (lazy CUDA module loads)
+    out of the timed ones."""
+    from repro_torch.core import HERMES, LATE_BINDING, ms_trace
+    from repro_torch.core.simulator import simulate_many
+    wl = ms_trace(cluster, LOADS[-1], 50, seed=SEED)
+    for policy in (HERMES, LATE_BINDING):
+        simulate_many(policy, cluster, [wl], device="cuda")
+
+
+def main_path(torch, np, report, cluster):
+    from repro_torch.core import (E_LL_PS, E_LOC_PS, HERMES, LATE_BINDING,
+                                  ms_trace, replicate_workload,
+                                  summarize_batch_sim)
+    from repro_torch.core.simulator import LoopStats, simulate_many
+    from repro_torch.kernels.hermes_select import kernel as hk
+
+    wb = replicate_workload(ms_trace, cluster, LOADS, N_MAIN, seeds=(SEED,))
+    warm_up(cluster)
+    runs = {}
+    launches = None
+    for policy in (HERMES, E_LL_PS, E_LOC_PS, LATE_BINDING):
+        stats = LoopStats()
+        torch.cuda.synchronize()
+        if policy == HERMES:
+            hk.hermes_select_batch.launches = 0
+        t0 = time.perf_counter()
+        out = simulate_many(policy, cluster, wb, device="cuda", stats=stats)
+        wall = time.perf_counter() - t0
+        if policy == HERMES:
+            launches = hk.hermes_select_batch.launches
+            check(launches == N_MAIN, f"hermes_select launched {launches} "
+                                      f"times, expected N={N_MAIN}")
+        validate(np, out, wb, policy.name)
+        summ = summarize_batch_sim(out, wb)
+        per_load = [dict(load=load, slow_p99=s.slow_p99,
+                         cold_frac=s.cold_frac, n_rejected=s.n_rejected)
+                    for load, s in zip(LOADS, summ.per_rep)]
+        runs[policy.name] = dict(
+            wall_s=wall, us_per_arrival=wall / N_MAIN * 1e6,
+            advance_iters=stats.advance_iters, pop_iters=stats.pop_iters,
+            host_syncs=stats.host_syncs, per_load=per_load)
+        log(f"{policy.name}: {wall:.2f} s ({wall / N_MAIN * 1e6:.1f} us per "
+            f"arrival), {stats.advance_iters} advance iters, "
+            f"{stats.pop_iters} queue pops, {stats.host_syncs} host syncs")
+        for row in per_load:
+            log(f"  load {row['load']}: p99 slowdown {row['slow_p99']:.3f}, "
+                f"cold {row['cold_frac']:.4f}, rejected {row['n_rejected']}")
+    log(f"hermes_select launches in the Hermes run: {launches} (N={N_MAIN})")
+    report["main_path"] = dict(n=N_MAIN, loads=LOADS, seed=SEED,
+                               hermes_launches=launches, runs=runs)
+    return launches
+
+
+def card_vs_cpu(np, card, cpu, what: str) -> float:
+    """Integer planes equal, floats within 1e-9 s; returns the gap."""
+    for p in ("cold", "rejected", "worker"):
+        check(np.array_equal(getattr(card, p), getattr(cpu, p)),
+              f"{what}: card != CPU in {p}")
+    gap = 0.0
+    for p in ("response", "server_time", "core_time", "end_time"):
+        a = np.nan_to_num(getattr(card, p), nan=-1.0)
+        b = np.nan_to_num(getattr(cpu, p), nan=-1.0)
+        gap = max(gap, float(np.abs(a - b).max()))
+    check(gap <= 1e-9, f"{what}: card vs CPU float gap {gap} > 1e-9")
+    return gap
+
+
+def end_to_end(torch, np, report, cluster):
+    from repro_torch.core import (E_LL_PS, E_LOC_PS, HERMES, LATE_BINDING,
+                                  ClusterCfg, ms_trace, replicate_workload,
+                                  stack_workloads, synth_workload)
+    from repro_torch.core.simulator import LoopStats, simulate_many
+
+    wb = replicate_workload(ms_trace, cluster, LOADS, N_CHECK, seeds=(SEED,))
+    kern = simulate_many(HERMES, cluster, wb, device="cuda",
+                         backend="kernel")
+    plain = simulate_many(HERMES, cluster, wb, device="cuda",
+                          backend="torch")
+    planes = ("response", "cold", "rejected", "worker", "server_time",
+              "core_time", "end_time")
+    for p in planes:
+        check(np.array_equal(getattr(kern, p), getattr(plain, p),
+                             equal_nan=p == "response"),
+              f"kernel path != plain path in {p}")
+    log(f"N={N_CHECK}: kernel path == plain path on the card, all planes")
+    cpu = simulate_many(HERMES, cluster, wb, device="cpu")
+    gaps = {f"{HERMES.name} N={N_CHECK}": card_vs_cpu(np, kern, cpu,
+                                                      HERMES.name)}
+    log(f"N={N_CHECK}: {HERMES.name} card == CPU in integer planes, max "
+        f"float gap {gaps[f'{HERMES.name} N={N_CHECK}']}")
+
+    # every policy of phase 4, card against CPU: the fig4 cluster at a
+    # short horizon, and an overloaded 4x3-core cluster where rejections,
+    # evictions and the late-binding queue occur
+    tiny = ClusterCfg(n_workers=4, cores=3, capacity_factor=2,
+                      cold_start_penalty=0.25)
+    cases = (
+        ("fig4", cluster, replicate_workload(ms_trace, cluster, LOADS,
+                                             N_SHORT, seeds=(SEED,))),
+        ("overload", tiny, stack_workloads(
+            synth_workload(tiny, load, N_SHORT, n_functions=5,
+                           hot_fraction=0.8, seed=SEED)
+            for load in (1.3, 3.0, 6.0))))
+    for label, cl, wbs in cases:
+        for policy in (HERMES, E_LL_PS, E_LOC_PS, LATE_BINDING):
+            stats = LoopStats()
+            card = simulate_many(policy, cl, wbs, device="cuda",
+                                 stats=stats)
+            ref = simulate_many(policy, cl, wbs, device="cpu")
+            key = f"{policy.name} {label} N={N_SHORT}"
+            gaps[key] = card_vs_cpu(np, card, ref, key)
+            log(f"{key}: card == CPU in integer planes, max float gap "
+                f"{gaps[key]}; {int(card.rejected.sum())} rejected, "
+                f"{stats.pop_iters} queue pops")
+    report["end_to_end"] = dict(n=N_CHECK, n_short=N_SHORT,
+                                card_vs_cpu_max_gap=gaps)
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print("chip_smoke: run it from the root of a checkout of the repo",
+              file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card",
+              file=sys.stderr)
+        return 2
+    import numpy as np
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import PAPER_LARGE
+
+    report = {}
+    try:
+        with Phase("1 environment", report):
+            environment(torch, report)
+        with Phase("2 build", report):
+            build(report)
+        with Phase("3 kernel vs plain", report):
+            max_err, t = kernel_vs_plain(torch, np, report, PAPER_LARGE)
+        with Phase("4 main path", report):
+            launches = main_path(torch, np, report, PAPER_LARGE)
+        with Phase("4b profile of the main path", report):
+            profile_main_path(torch, report, PAPER_LARGE)
+        with Phase("5 kernel path vs plain path", report):
+            end_to_end(torch, np, report, PAPER_LARGE)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    finally:
+        log("report " + json.dumps(report, separators=(",", ":")))
+    print(json.dumps({"kernels": [{
+        "name": "hermes_select", "route": "cuda",
+        "source": "src/repro_torch/csrc/hermes_select.cu",
+        "replaces": "src/repro/kernels/hermes_select/kernel.py:66",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": "bytes", "library_ms": None}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,31 @@
+"""Core of the port: cluster, policy taxonomy, workloads, metrics.
+
+The engine lives in :mod:`repro_torch.core.simulator` (imported on its
+own, as in the reference).
+"""
+from .cluster import ClusterCfg, PAPER_LARGE, PAPER_SMALL, PAPER_TESTBED
+from .metrics import (BatchSummary, Stat, Summary, summarize,
+                      summarize_batch, summarize_batch_sim, summarize_sim)
+from .taxonomy import (Binding, LoadBalance, PolicySpec, WorkerSched,
+                       parse_policy, FIG2_POLICIES, EVAL_POLICIES, HERMES,
+                       LATE_BINDING, E_LL_PS, E_LL_FCFS, E_LL_SRPT, E_LOC_PS,
+                       E_LOC_FCFS, E_R_PS, E_R_FCFS)
+from .workload import (AZURE_MU, AZURE_SIGMA, WORKLOADS, Workload,
+                       WorkloadBatch, bimodal_exec, homogeneous_exec,
+                       lognormal_mean, ms_representative, ms_trace,
+                       multi_balanced, replicate_workload, single_function,
+                       stack_workloads, synth_workload, validate_workload)
+
+__all__ = [
+    "ClusterCfg", "PAPER_LARGE", "PAPER_SMALL", "PAPER_TESTBED",
+    "BatchSummary", "Stat", "Summary", "summarize", "summarize_batch",
+    "summarize_batch_sim", "summarize_sim",
+    "Binding", "LoadBalance", "PolicySpec", "WorkerSched", "parse_policy",
+    "FIG2_POLICIES", "EVAL_POLICIES", "HERMES", "LATE_BINDING", "E_LL_PS",
+    "E_LL_FCFS", "E_LL_SRPT", "E_LOC_PS", "E_LOC_FCFS", "E_R_PS", "E_R_FCFS",
+    "AZURE_MU", "AZURE_SIGMA", "WORKLOADS", "Workload", "WorkloadBatch",
+    "bimodal_exec", "homogeneous_exec", "lognormal_mean",
+    "ms_representative", "ms_trace", "multi_balanced", "replicate_workload",
+    "single_function", "stack_workloads", "synth_workload",
+    "validate_workload",
+]

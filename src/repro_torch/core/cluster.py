@@ -1,0 +1,64 @@
+"""Cluster configuration (counterpart of ``repro/core/cluster.py``)."""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+
+class ClusterCfg(NamedTuple):
+    """A homogeneous cluster of ``n_workers`` machines.
+
+    Each worker has ``cores`` CPU cores and hosts up to
+    ``capacity_factor × cores`` invocations (running + waiting), the
+    OpenWhisk memory-capacity model of the paper (§3.2, §6.1).
+    ``cold_start_penalty`` is added to an invocation's service time when
+    the chosen worker holds no warm executor for its function.
+
+    ``lifecycle`` and ``fleet`` mirror the reference's fields so that a
+    config carries across unchanged; this slice runs only the default
+    ``None`` of each and :meth:`validate` refuses anything else.
+    """
+
+    n_workers: int = 4
+    cores: int = 12
+    capacity_factor: int = 8
+    cold_start_penalty: float = 0.0
+    lifecycle: Optional[Any] = None
+    fleet: Optional[Any] = None
+
+    @property
+    def slots(self) -> int:
+        """Max invocations (running + queued) a worker can host."""
+        return self.capacity_factor * self.cores
+
+    @property
+    def total_cores(self) -> int:
+        return self.n_workers * self.cores
+
+    def validate(self) -> "ClusterCfg":
+        """Reject impossible or not-yet-ported configs with named errors."""
+        if int(self.n_workers) <= 0:
+            raise ValueError(
+                f"ClusterCfg.n_workers must be positive, got "
+                f"{self.n_workers}")
+        if int(self.cores) <= 0:
+            raise ValueError(
+                f"ClusterCfg.cores must be positive, got {self.cores}")
+        if int(self.capacity_factor) <= 0:
+            raise ValueError(
+                f"ClusterCfg.capacity_factor must be positive, got "
+                f"{self.capacity_factor}")
+        if self.lifecycle is not None:
+            raise NotImplementedError(
+                "ClusterCfg.lifecycle is not ported yet (ROADMAP queue 1, "
+                "'Lifecycle'); leave it None")
+        if self.fleet is not None:
+            raise NotImplementedError(
+                "ClusterCfg.fleet is not ported yet (ROADMAP queue 1, "
+                "'Fleet'); leave it None")
+        return self
+
+
+# Setups used in the paper.
+PAPER_SMALL = ClusterCfg(n_workers=4, cores=12)      # §3.3, Fig 2/3
+PAPER_LARGE = ClusterCfg(n_workers=100, cores=12)    # §3.5, Fig 4
+PAPER_TESTBED = ClusterCfg(n_workers=8, cores=12)    # §6, 8 invokers

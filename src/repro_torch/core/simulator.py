@@ -1,0 +1,375 @@
+"""Discrete-event policy simulator on torch tensors.
+
+Counterpart of ``repro/core/simulator.py`` (the plain configuration:
+lifecycle, fleet, telemetry, timeline and streaming off; early and late
+binding).  The reference runs a ``lax.scan`` over arrivals under
+``jax.vmap``; here the replication axis ``R`` is written out as the
+leading axis of every state tensor and the scan is a Python loop:
+
+* per arrival, ``advance`` fast-forwards every replication to the
+  arrival time, one completion per iteration (the earliest-finishing
+  slot, lowest flat index on ties), then the balancer picks a worker
+  (early binding) or the controller queues (late binding);
+* a batched ``lax.while_loop`` runs its body on every replication but
+  keeps the new state only where that replication's predicate holds, and
+  a batched ``lax.cond`` evaluates both branches and selects.  The port
+  does the same with :func:`_merge`, so rows whose loop has ended never
+  take the garbage their body computed;
+* completions that did not happen scatter into the scratch index ``N``
+  of the per-arrival planes and the pad column ``F`` of ``warm``, as in
+  the reference, so every replication executes the same ops.
+
+Each loop iteration reads one boolean back to the host (``go.any()``).
+Pass a :class:`LoopStats` to count iterations and those syncs.
+
+State (``R`` replications × ``W`` workers × ``S`` slots):
+
+==============  ========  =====================================
+``remaining``   f64       remaining work; ``inf`` in empty slots
+``task_arr``    f64       arrival time of the occupying task
+``task_idx``    i32       arrival index (doubles as FCFS seq); -1 empty
+``warm``        i32       ``[R, W, F+1]`` idle warm executors (+1 pad col)
+``q``           i32       ``[R, N]`` late-binding FIFO ring
+``resp`` …      f64 …     ``[R, N+1]`` per-arrival planes (last = scratch)
+==============  ========  =====================================
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.policy import resolve
+
+from .cluster import ClusterCfg
+from .taxonomy import PolicySpec
+from .workload import Workload, WorkloadBatch, stack_workloads
+
+EPS = 1e-9
+_BIG_TIME = 1e18
+_F64, _I32, _I64 = torch.float64, torch.int32, torch.int64
+
+
+@dataclasses.dataclass(frozen=True)
+class SimOutput:
+    response: np.ndarray
+    cold: np.ndarray
+    rejected: np.ndarray
+    worker: np.ndarray
+    server_time: float
+    core_time: float
+    end_time: float
+    #: the reference's in-engine metrics; None until telemetry is ported
+    telemetry: None = None
+    #: provisioned core-seconds: ``end_time × total_cores`` (fixed fleet)
+    prov_core_s: float = 0.0
+    #: the reference's flight-recorder planes; None until ported
+    timeline: None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchSimOutput:
+    """Results of ``R`` stacked workload replications (leading axis R)."""
+
+    response: np.ndarray     # [R, N] f64
+    cold: np.ndarray         # [R, N] bool
+    rejected: np.ndarray     # [R, N] bool
+    worker: np.ndarray       # [R, N] i32
+    server_time: np.ndarray  # [R] f64
+    core_time: np.ndarray    # [R] f64
+    end_time: np.ndarray     # [R] f64
+    telemetry: None = None
+    prov_core_s: np.ndarray | None = None   # [R] f64
+    timeline: None = None
+
+    @property
+    def n_reps(self) -> int:
+        return int(self.response.shape[0])
+
+    def rep(self, r: int) -> SimOutput:
+        """The ``r``-th replication as a plain :class:`SimOutput`."""
+        return SimOutput(
+            response=self.response[r], cold=self.cold[r],
+            rejected=self.rejected[r], worker=self.worker[r],
+            server_time=float(self.server_time[r]),
+            core_time=float(self.core_time[r]),
+            end_time=float(self.end_time[r]),
+            prov_core_s=0.0 if self.prov_core_s is None
+            else float(self.prov_core_s[r]))
+
+    def __getitem__(self, sl: slice) -> "BatchSimOutput":
+        """A sub-batch over a slice of the replication axis."""
+        return BatchSimOutput(
+            response=self.response[sl], cold=self.cold[sl],
+            rejected=self.rejected[sl], worker=self.worker[sl],
+            server_time=self.server_time[sl], core_time=self.core_time[sl],
+            end_time=self.end_time[sl],
+            prov_core_s=None if self.prov_core_s is None
+            else self.prov_core_s[sl])
+
+
+@dataclasses.dataclass
+class LoopStats:
+    """Host-side counts of one engine run (the caller creates and passes
+    one; the engine adds to it)."""
+
+    arrivals: int = 0
+    advance_iters: int = 0     # completion-drain iterations
+    pop_iters: int = 0         # late-binding dispatches from the queue
+    host_syncs: int = 0        # device→host reads of a loop predicate
+
+
+def _merge(mask: torch.Tensor, new: dict, old: dict) -> dict:
+    """Per replication, ``new`` where ``mask [R]`` holds, else ``old``."""
+    out = {}
+    for k, v in new.items():
+        o = old[k]
+        if v is o:
+            out[k] = v
+        else:
+            m = mask.view((-1,) + (1,) * (v.dim() - 1))
+            out[k] = torch.where(m, v, o)
+    return out
+
+
+def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
+                  n_functions: int, n_reps: int, device: torch.device,
+                  backend: str):
+    """The batched engine for (policy, cluster, N, F, R) on ``device``.
+
+    Returns ``run(arrivals, funcs, services, u_lb, homes, stats) -> state``
+    over ``[R, N]`` / ``[R, F]`` tensors on ``device``.
+    """
+    W, C, S = cluster.n_workers, cluster.cores, cluster.slots
+    F, N, R = n_functions, n_arrivals, n_reps
+    Q = N  # the late-binding controller queue can hold every arrival
+    res = resolve(policy, cluster, device=device, backend=backend)
+    late = res.late
+    select = res.select
+    rows = torch.arange(R, device=device)
+    arrival_ids = torch.arange(N, device=device)
+    pen = torch.tensor(float(cluster.cold_start_penalty), dtype=_F64,
+                       device=device)
+    no_pen = torch.zeros((), dtype=_F64, device=device)
+
+    def any_(go: torch.Tensor, stats: LoopStats) -> bool:
+        stats.host_syncs += 1
+        return bool(go.any())
+
+    def rates_of(st):
+        if late:
+            return (st["task_idx"] >= 0).to(_F64)
+        return res.rates(st["task_idx"], st["remaining"])
+
+    def place(st, tid, w, f, svc_nom, t_arr):
+        """Place arrival ``tid [R]`` (fn ``f``, nominal service
+        ``svc_nom``, arrival ``t_arr``) on worker ``w [R]`` (valid)."""
+        row = st["task_idx"][rows, w]                          # [R, S]
+        active_w = (row >= 0).sum(dim=1)
+        warm_row = st["warm"][rows, w]                         # [R, F+1]
+        warm_cnt = warm_row[rows, f]
+        is_cold = warm_cnt == 0
+        idle = warm_row[:, :F].sum(dim=1)
+        need_evict = is_cold & (active_w + idle >= S)
+        victim = warm_row[:, :F].argmax(dim=1)
+        warm = st["warm"].index_put(
+            (rows, w, f), warm_cnt - (~is_cold).to(_I32))
+        warm = warm.index_put(
+            (rows, w, victim), warm[rows, w, victim] - need_evict.to(_I32))
+        slot = (row < 0).to(_I32).argmax(dim=1)
+        svc = svc_nom + torch.where(is_cold, pen, no_pen)
+        return dict(
+            st,
+            remaining=st["remaining"].index_put((rows, w, slot), svc),
+            task_arr=st["task_arr"].index_put((rows, w, slot), t_arr),
+            task_idx=st["task_idx"].index_put((rows, w, slot),
+                                              tid.to(_I32)),
+            warm=warm,
+            cold=st["cold"].index_put((rows, tid), is_cold),
+            worker_of=st["worker_of"].index_put((rows, tid), w.to(_I32)))
+
+    def n_active(st):
+        return (st["task_idx"] >= 0).sum(dim=2)                # [R, W] i64
+
+    def pop_all(st, funcs, services, arrivals, stats):
+        """Dispatch queued invocations while any worker has a free core."""
+        def cond(st):
+            return (st["q_tail"] > st["q_head"]) & \
+                (n_active(st).amin(dim=1) < C)
+
+        go = cond(st)
+        while any_(go, stats):
+            w = n_active(st).argmin(dim=1)
+            arr = st["q"][rows, (st["q_head"] % Q).to(_I64)].to(_I64)
+            new = place(st, arr, w, funcs[rows, arr], services[rows, arr],
+                        arrivals[rows, arr])
+            new["q_head"] = st["q_head"] + 1
+            st = _merge(go, new, st)
+            stats.pop_iters += 1
+            go = cond(st)
+        return st
+
+    def advance(st, dt, funcs, services, arrivals, stats):
+        """Fast-forward every replication by ``dt [R]`` seconds."""
+        def cond(st, dt_left):
+            active = st["task_idx"] >= 0
+            pending = (active & (st["remaining"] <= EPS)).flatten(1).any(1)
+            go = active.flatten(1).any(1) & ((dt_left > 0) | pending)
+            if late:
+                go = go | ((st["q_tail"] > st["q_head"])
+                           & (active.sum(dim=2).amin(dim=1) < C))
+            return go
+
+        def body(st, dt_left):
+            if late:
+                st = pop_all(st, funcs, services, arrivals, stats)
+            task_idx, remaining = st["task_idx"], st["remaining"]
+            active = task_idx >= 0
+            rates = rates_of(st)
+            t_done = torch.where(rates > 0, remaining / rates, torch.inf)
+            flat = t_done.view(R, W * S)
+            tmin = flat.amin(dim=1)
+            tau = torch.minimum(dt_left, tmin)
+            tau = torch.where(torch.isfinite(tau) & (tau > 0), tau, 0.0)
+            # occupancy integrals (constant over tau)
+            n_w = active.sum(dim=2)
+            server_time = st["server_time"] + tau * (n_w > 0).sum(dim=1)
+            core_time = st["core_time"] + tau * n_w.clamp(max=C).sum(dim=1)
+            now = st["now"] + tau
+            remaining = remaining - rates * tau[:, None, None]
+            # complete the argmin slot only (idx N / col F are scratch)
+            j = flat.argmin(dim=1)
+            wj, sj = j // S, j % S
+            tid = task_idx[rows, wj, sj]
+            completed = (tmin <= dt_left) | \
+                ((tid >= 0) & (st["remaining"][rows, wj, sj] <= EPS))
+            resp_val = now - st["task_arr"][rows, wj, sj]
+            f_j = funcs[rows, tid.clamp(min=0).to(_I64)]
+            resp = st["resp"].index_put(
+                (rows, torch.where(completed, tid.to(_I64), N)),
+                torch.where(completed, resp_val, 0.0))
+            w_pad = torch.where(completed, wj, 0)
+            f_pad = torch.where(completed, f_j, F)
+            warm = st["warm"].index_put(
+                (rows, w_pad, f_pad),
+                st["warm"][rows, w_pad, f_pad] + completed.to(_I32))
+            warm[:, :, F] = 0
+            remaining = remaining.index_put(
+                (rows, wj, sj),
+                torch.where(completed, torch.inf, remaining[rows, wj, sj]))
+            task_idx = task_idx.index_put(
+                (rows, wj, sj), torch.where(completed, -1, tid))
+            return dict(st, remaining=remaining, task_idx=task_idx,
+                        warm=warm, now=now, resp=resp,
+                        server_time=server_time,
+                        core_time=core_time), dt_left - tau
+
+        dt_left = dt
+        go = cond(st, dt_left)
+        while any_(go, stats):
+            new, new_dt = body(st, dt_left)
+            st = _merge(go, new, st)
+            dt_left = torch.where(go, new_dt, dt_left)
+            stats.advance_iters += 1
+            go = cond(st, dt_left)
+        if late:
+            st = pop_all(st, funcs, services, arrivals, stats)
+        return st
+
+    def step(st, i, arrivals, funcs, services, u_lb, homes, stats):
+        t_i, f_i = arrivals[:, i], funcs[:, i]
+        tid = arrival_ids[i].expand(R)
+        st = advance(st, t_i - st["now"], funcs, services, arrivals, stats)
+        st = dict(st, now=t_i)
+        active = n_active(st).to(_I32)
+        if late:
+            placed = place(st, tid, active.argmin(dim=1), f_i,
+                           services[:, i], t_i)
+            queued = dict(
+                st,
+                q=st["q"].index_put((rows, (st["q_tail"] % Q).to(_I64)),
+                                    tid.to(_I32)),
+                q_tail=st["q_tail"] + 1)
+            return _merge(active.amin(dim=1) < C, placed, queued)
+        warm_col = st["warm"][rows, :, f_i]                    # [R, W]
+        w = select(active, warm_col, f_i, homes, u_lb[:, i], i)
+        st = dict(st, rejected=st["rejected"].index_put((rows, tid),
+                                                         w < 0))
+        placed = place(st, tid, w.clamp(min=0).to(_I64), f_i,
+                       services[:, i], t_i)
+        return _merge(w >= 0, placed, st)
+
+    def run(arrivals, funcs, services, u_lb, homes, stats):
+        def full(shape, value, dtype):
+            return torch.full(shape, value, dtype=dtype, device=device)
+
+        st = {
+            "remaining": full((R, W, S), torch.inf, _F64),
+            "task_arr": full((R, W, S), 0.0, _F64),
+            "task_idx": full((R, W, S), -1, _I32),
+            "warm": full((R, W, F + 1), 0, _I32),
+            "q": full((R, Q), 0, _I32),
+            "q_head": full((R,), 0, _I32),
+            "q_tail": full((R,), 0, _I32),
+            "now": full((R,), 0.0, _F64),
+            "resp": full((R, N + 1), torch.nan, _F64),
+            "cold": full((R, N + 1), False, torch.bool),
+            "rejected": full((R, N + 1), False, torch.bool),
+            "worker_of": full((R, N + 1), -1, _I32),
+            "server_time": full((R,), 0.0, _F64),
+            "core_time": full((R,), 0.0, _F64),
+        }
+        for i in range(N):
+            st = step(st, i, arrivals, funcs, services, u_lb, homes, stats)
+            stats.arrivals += 1
+        return advance(st, full((R,), _BIG_TIME, _F64), funcs, services,
+                       arrivals, stats)
+
+    return run
+
+
+def simulate_many(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
+                  device=None, backend: str = "auto",
+                  stats: LoopStats | None = None) -> BatchSimOutput:
+    """Run ``R`` stacked replications in lockstep on ``device``.
+
+    ``workloads`` is a :class:`WorkloadBatch` or a sequence of
+    :class:`Workload` sharing one ``(N, F)`` shape.  ``device=None`` is
+    CUDA (raises :class:`~repro_torch.device.NoCudaDeviceError` without
+    a card).  ``backend`` is ``"auto"`` (the ``hermes_select`` kernel for
+    ``H``), ``"kernel"`` or ``"torch"`` (plain tensor code throughout).
+    """
+    dev = resolve_device(device)
+    wb = workloads if isinstance(workloads, WorkloadBatch) \
+        else stack_workloads(workloads)
+    run = _build_engine(policy, cluster, wb.n, wb.n_functions, wb.n_reps,
+                        dev, backend)
+
+    def put(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=dev)
+
+    st = run(put(wb.arrival, _F64), put(wb.func, _I64),
+             put(wb.service, _F64), put(wb.u_lb, _F64),
+             put(wb.func_home, _I32), LoopStats() if stats is None else stats)
+    n = wb.n
+    end = st["now"].cpu().numpy()
+    return BatchSimOutput(
+        response=st["resp"][:, :n].cpu().numpy(),
+        cold=st["cold"][:, :n].cpu().numpy(),
+        rejected=st["rejected"][:, :n].cpu().numpy(),
+        worker=st["worker_of"][:, :n].cpu().numpy(),
+        server_time=st["server_time"].cpu().numpy(),
+        core_time=st["core_time"].cpu().numpy(),
+        end_time=end,
+        prov_core_s=end * cluster.n_workers * cluster.cores)
+
+
+def simulate(policy: PolicySpec, cluster: ClusterCfg, wl: Workload, *,
+             device=None, backend: str = "auto",
+             stats: LoopStats | None = None) -> SimOutput:
+    """Run one workload: :func:`simulate_many` with ``R = 1``."""
+    return simulate_many(policy, cluster, [wl], device=device,
+                         backend=backend, stats=stats).rep(0)

@@ -1,0 +1,127 @@
+"""Port-side policy table and :func:`resolve`.
+
+Counterpart of ``repro/policy/registry.py``, keyed by the same names.
+The reference's registry is open (``register_balancer``); the port keeps
+a fixed table of what it has ported so far.  A balancer the reference
+registers but the port does not have yet parses as a policy name and
+raises :class:`NotPortedError` when resolved.
+
+Backends: ``"torch"`` runs every balancer as plain tensor code;
+``"kernel"`` sends a balancer that has a hand-written kernel (today
+``H``, through :mod:`repro_torch.kernels.hermes_select`) to it and runs
+the others as plain tensor code; ``"auto"`` is ``"kernel"`` for early
+binding, mirroring the reference's ``default_backend``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+from repro_torch.device import resolve_device
+
+from . import balancers, scheds
+
+BACKENDS = ("torch", "kernel")
+
+#: name -> (plain factory, kernel factory or None)
+BALANCERS = {
+    "LOC": (balancers.loc, None),
+    "R": (balancers.random_pick, None),
+    "LL": (balancers.least_loaded, None),
+    "H": (balancers.hybrid, balancers.hybrid_kernel),
+}
+#: balancers the reference registers that are not ported yet
+NOT_PORTED = ("JSQ2", "RR", "HIKU", "DD", "SWARM")
+SCHEDS = {"PS": scheds.ps, "FCFS": scheds.fcfs, "SRPT": scheds.srpt}
+#: binding name -> late?
+BINDINGS = {"E": False, "L": True}
+
+
+class NotPortedError(NotImplementedError):
+    """A policy component the reference has and the port does not yet."""
+
+
+def _name(x) -> str:
+    return str(getattr(x, "value", x)).strip().upper()
+
+
+def check_binding(name) -> bool:
+    """Return whether binding ``name`` is late; named error if unknown."""
+    key = _name(name)
+    if key not in BINDINGS:
+        raise ValueError(f"unknown binding {key!r}; registered bindings: "
+                         f"{', '.join(sorted(BINDINGS))}")
+    return BINDINGS[key]
+
+
+def check_balancer(name) -> str:
+    key = _name(name)
+    if key not in BALANCERS and key not in NOT_PORTED:
+        raise ValueError(
+            f"unknown load balancer {key!r}; registered balancers: "
+            f"{', '.join(sorted((*BALANCERS, *NOT_PORTED)))}")
+    return key
+
+
+def check_sched(name) -> str:
+    key = _name(name)
+    if key not in SCHEDS:
+        raise ValueError(f"unknown worker scheduler {key!r}; registered "
+                         f"schedulers: {', '.join(sorted(SCHEDS))}")
+    return key
+
+
+@dataclasses.dataclass(frozen=True)
+class ResolvedPolicy:
+    """A policy resolved against one backend, cluster shape and device.
+
+    ``select``/``rates`` are ``None`` for late binding: the engine owns
+    the controller queue, places on ``argmin(active)`` and runs every
+    dispatched task at rate 1.
+    """
+
+    spec: object
+    backend: str
+    late: bool
+    select: Optional[Callable]
+    rates: Optional[Callable]
+
+
+def default_backend(policy) -> str:
+    """The backend ``backend="auto"`` picks: the kernel where one exists."""
+    if check_binding(policy.binding):
+        return "torch"
+    key = check_balancer(policy.balance)
+    has_kernel = key in BALANCERS and BALANCERS[key][1] is not None
+    return "kernel" if has_kernel else "torch"
+
+
+def resolve(policy, cluster, device=None, backend: str = "auto"
+            ) -> ResolvedPolicy:
+    """Resolve ``policy`` (a PolicySpec or ``"T/LB/S"`` text) into batched
+    callables for ``cluster`` on ``device`` (``None`` = CUDA)."""
+    if isinstance(policy, str):
+        from repro_torch.core.taxonomy import parse_policy
+        policy = parse_policy(policy)
+    dev = resolve_device(device)
+    cluster.validate()
+    if backend == "auto":
+        backend = default_backend(policy)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; choose from "
+                         f"{BACKENDS} or 'auto'")
+    if check_binding(policy.binding):
+        return ResolvedPolicy(spec=policy, backend=backend, late=True,
+                              select=None, rates=None)
+    key = check_balancer(policy.balance)
+    if key in NOT_PORTED:
+        raise NotPortedError(
+            f"balancer {key!r} is registered in the reference but not "
+            f"ported to repro_torch yet (ROADMAP queue 1, item 1)")
+    make_plain, make_kernel = BALANCERS[key]
+    make = make_kernel if backend == "kernel" and make_kernel else make_plain
+    C, S, W = int(cluster.cores), int(cluster.slots), int(cluster.n_workers)
+    return ResolvedPolicy(
+        spec=policy, backend=backend, late=False,
+        select=make(C, S, W, dev),
+        rates=SCHEDS[check_sched(policy.sched)](C, dev))
