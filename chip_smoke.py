@@ -19,7 +19,7 @@ non-zero):
 4. the main path at the paper's large-cluster size (fig4 quick sweep):
    ``simulate_many`` on ``cuda`` for Hermes, E/LL/PS, E/LOC/PS and late
    binding (W=100 × 12 cores, 96 slots, ms-trace with 50 functions,
-   loads 0.5/0.7/0.9/0.97, N=12 000, seed 1); the kernel's launch count
+   loads 0.5/0.7/0.9/0.97, N=4000, seed 1); the kernel's launch count
    is zeroed just before the Hermes run and must equal N just after;
    4b. a short profiled Hermes run: device busy and idle share, kernel
    launches per arrival, the costliest host-side ops;
@@ -27,9 +27,35 @@ non-zero):
    on the card, equal in every plane; the same case on the CPU, equal
    integer planes and floats within 1e-9; then every policy of phase 4,
    card against CPU, at N=300 on the same cluster and on an overloaded
-   4 × 3-core cluster (rejections, evictions, the late-binding queue).
+   4 × 3-core cluster (rejections, evictions, the late-binding queue);
+6. the attention kernels against their plain versions on the card, in f32
+   (atol = rtol = 1e-4: the same f32 math in another summation order) and
+   bf16 (2e-2, ``tests/test_kernels.py``'s bf16 tolerance: the output is
+   rounded to bf16): ``flash_attention`` at ``tests/test_kernels.py``'s
+   shapes, qwen3-14b (GQA) and granite-20b (MQA) attention and the served
+   prompt shapes; ``decode_attention`` at ``tests/test_kernels.py``'s
+   shapes and the served cache (S_max = 2048, pos ∈ {0, 776, 2047});
+   CUDA-event times of the kernel, the plain version and
+   ``F.scaled_dot_product_attention`` (the library yardstick, used nowhere
+   in the port) beside each kernel's bound;
+7. the serving path at full width: a ``HermesFrontend`` on ``cuda`` (2
+   workers × 2 cores, ``max_len`` 2048) serving ``olmo-1b`` (seed 0) and
+   ``musicgen-large`` (seed 1) with ``attn_impl="pallas"``, 12 alternating
+   requests, prompts of 200-1500 tokens (``default_rng(1)``), 32 new
+   tokens each; the three launch counts are zeroed just before and must
+   be Σ L × (requests + cold starts) for ``flash_attention``,
+   Σ L × (32 × requests + cold starts) for ``decode_attention`` and 12 for
+   ``hermes_select``; 7b. a profiled stretch of decode steps: the device's
+   busy and idle share and its costliest kernels;
+8. prefill plus 16 teacher-forced decode steps through the cache against
+   the plain path's full forward (``attn_impl="naive"``, same parameters)
+   over the same 793 tokens, for both models at full width: in f32 within
+   1e-4 × max |logit|, and in the served bf16 within 6e-2 × max |logit|
+   (``tests/test_models.py``'s bf16 tolerance between attention
+   implementations, scaled to the logits).
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+TF32 is off for matrix products and cuDNN throughout.  The line before the
+last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
 checkout, it exits non-zero and prints no result.  Every number also
 goes into one ``report {...}`` line (JSON after the word), printed
@@ -46,8 +72,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), flop/s
+BF16_FLOPS_PER_S = 989e12
 LOADS = (0.5, 0.7, 0.9, 0.97)
-N_MAIN = 12_000
+#: the fig4 quick depth is 12 000; cut to keep the whole check inside its
+#: time as later slices add paths
+N_MAIN = 4_000
 N_CHECK = 2_000
 N_PROFILE = 100
 N_SHORT = 300
@@ -415,6 +445,324 @@ def end_to_end(torch, np, report, cluster):
                                 card_vs_cpu_max_gap=gaps)
 
 
+# -- attention and serving (phases 6-8) --------------------------------------
+
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: (B, S, H, KV, Dh): tests/test_kernels.py's shapes, qwen3-14b (GQA) and
+#: granite-20b (MQA) attention, and the served prompt shapes
+FLASH_CASES = ((2, 256, 4, 2, 64), (1, 128, 8, 8, 128), (2, 256, 4, 1, 128),
+               (1, 192, 6, 2, 32), (1, 777, 40, 8, 128), (1, 777, 48, 1, 128),
+               (1, 777, 16, 16, 128), (1, 1500, 16, 16, 128),
+               (1, 777, 32, 32, 64))
+#: (B, S_max, H, KV, Dh, pos): tests/test_kernels.py's shapes with its
+#: draw of pos (None), the GQA/MQA heads, and the served cache
+DECODE_CASES = ((2, 512, 4, 2, 64, None), (3, 256, 8, 1, 128, None),
+                (1, 2048, 40, 8, 128, 776), (1, 2048, 48, 1, 128, 776),
+                *((1, 2048, 16, 16, 128, p) for p in (0, 776, 2047)),
+                *((1, 2048, 32, 32, 64, p) for p in (0, 776, 2047)))
+#: the timed shapes (bf16, as served): the headline of each kernel first
+FLASH_TIMED = ((1, 777, 16, 16, 128), (1, 1500, 16, 16, 128),
+               (1, 777, 32, 32, 64), (1, 1500, 32, 32, 64))
+DECODE_TIMED = ((1, 2048, 16, 16, 128, 776), (1, 2048, 16, 16, 128, 2047),
+                (1, 2048, 32, 32, 64, 776), (1, 2048, 32, 32, 64, 2047))
+SERVED = (("olmo-1b", 0), ("musicgen-large", 1))
+N_REQUESTS = 12
+N_NEW = 32
+MAX_LEN = 2048
+PROMPT_MIN, PROMPT_MAX = 200, 1500
+CHECK_PROMPT, CHECK_STEPS = 777, 16
+#: phase 8's bound on max |Δ logit| / max |logit| for each dtype
+MODEL_TOL = {"float32": 1e-4, "bfloat16": 6e-2}
+
+
+def _bound(flops: float, nbytes: float):
+    """The least time the card could take: (ms, "operations" | "bytes")."""
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def _flash_inputs(torch, gen, case, dt):
+    B, S, H, KV, Dh = case
+    return [torch.randn((B, S, n, Dh), generator=gen, device="cuda").to(dt)
+            for n in (H, KV, KV)]
+
+
+def _decode_inputs(torch, gen, np, case, dt):
+    B, S, H, KV, Dh, pos = case
+    q = torch.randn((B, H, Dh), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((B, S, KV, Dh), generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    p = np.random.default_rng(0).integers(1, S, B) if pos is None \
+        else np.full(B, pos)
+    return q, k, v, torch.as_tensor(p, dtype=torch.int32, device="cuda")
+
+
+def attention_kernels(torch, np, report):
+    """Phase 6: both attention kernels against their plain versions, and
+    their times beside the plain version, SDPA and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = []
+    for dtype, tol in ATTN_TOL.items():
+        dt = getattr(torch, dtype)
+        for case in FLASH_CASES:
+            q, k, v = _flash_inputs(torch, gen, case, dt)
+            got, want = fk.flash_attention(q, k, v), flash_attention_ref(q, k, v)
+            cases.append(("flash_attention", dtype, case, got, want, tol))
+        for case in DECODE_CASES:
+            q, k, v, pos = _decode_inputs(torch, gen, np, case, dt)
+            got = dk.decode_attention(q, k, v, pos)
+            want = decode_attention_ref(q, k, v, pos)
+            cases.append(("decode_attention", dtype, case, got, want, tol))
+    torch.cuda.synchronize()
+    errs = {"flash_attention": {}, "decode_attention": {}}
+    for name, dtype, case, got, want, tol in cases:
+        err = float((got.float() - want.float()).abs().max())
+        ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol))
+        errs[name][f"{dtype} {case}"] = err
+        log(f"{name} {dtype} {case}: max abs err {err:.3e} "
+            f"({'ok' if ok else 'FAILED'} at atol = rtol = {tol})")
+        check(ok, f"{name} {dtype} {case}: kernel != plain (err {err})")
+
+    def sdpa(q, k, v, causal):
+        return F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
+
+    timings = {"flash_attention": [], "decode_attention": []}
+    dt, size = torch.bfloat16, 2
+    for case in FLASH_TIMED:
+        B, S, H, KV, Dh = case
+        q, k, v = _flash_inputs(torch, gen, case, dt)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        got = fk.flash_attention(q, k, v)
+        row = dict(case=case, dtype="bfloat16",
+                   max_abs_err=float((got.float() - flash_attention_ref(
+                       q, k, v).float()).abs().max()),
+                   ms=device_ms(torch, lambda: fk.flash_attention(q, k, v),
+                                20),
+                   call_ms=call_ms(torch, lambda: fk.flash_attention(q, k, v),
+                                   20),
+                   plain_ms=device_ms(torch, lambda: flash_attention_ref(
+                       q, k, v), 10),
+                   library_ms=device_ms(torch, lambda: sdpa(qh, kh, vh, True),
+                                        20))
+        row["bound_ms"], row["bound_by"] = _bound(
+            2 * B * H * S * S * Dh, size * B * S * Dh * (2 * H + 2 * KV))
+        timings["flash_attention"].append(row)
+    for case in DECODE_TIMED:
+        B, S, H, KV, Dh, pos = case
+        q, k, v, p = _decode_inputs(torch, gen, np, case, dt)
+        qh = q[:, :, None].contiguous()
+        kh, vh = (x[:, :pos + 1].transpose(1, 2).contiguous() for x in (k, v))
+        got = dk.decode_attention(q, k, v, p)
+        row = dict(case=case, dtype="bfloat16",
+                   max_abs_err=float((got.float() - decode_attention_ref(
+                       q, k, v, p).float()).abs().max()),
+                   ms=device_ms(torch, lambda: dk.decode_attention(
+                       q, k, v, p), 50),
+                   call_ms=call_ms(torch, lambda: dk.decode_attention(
+                       q, k, v, p), 50),
+                   plain_ms=device_ms(torch, lambda: decode_attention_ref(
+                       q, k, v, p), 20),
+                   library_ms=device_ms(torch, lambda: sdpa(qh, kh, vh,
+                                                            False), 50))
+        row["bound_ms"], row["bound_by"] = _bound(
+            4 * B * H * (pos + 1) * Dh,
+            size * (2 * B * (pos + 1) * KV * Dh + 2 * B * H * Dh) + 4 * B)
+        timings["decode_attention"].append(row)
+    for name, rows in timings.items():
+        for row in rows:
+            log(f"{name} bf16 {row['case']}: kernel {row['ms']:.4f} ms on "
+                f"the card ({row['call_ms']:.4f} ms per call from Python), "
+                f"plain {row['plain_ms']:.4f} ms, SDPA "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}); CUDA-graph replay, CUDA events")
+    report["attention"] = dict(max_abs_err=errs, timings=timings)
+    return timings
+
+
+def serving_path(torch, np, report):
+    """Phase 7: 12 requests through ``HermesFrontend`` at full width."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.hermes_select import kernel as hk
+    from repro_torch.serving.backends import (HermesFrontend, Invocation,
+                                              ModelRegistry)
+    reg = ModelRegistry()
+    cfgs = {}
+    for name, seed in SERVED:
+        cfgs[name] = dataclasses.replace(configs.get(name), attn_impl="pallas")
+        reg.register(name, cfgs[name], seed=seed)
+    fe = HermesFrontend(reg, n_workers=2, cores=2, max_len=MAX_LEN,
+                        device="cuda")
+    rng = np.random.default_rng(1)
+    invs = []
+    for i in range(N_REQUESTS):
+        name = SERVED[i % 2][0]
+        S = int(rng.integers(PROMPT_MIN, PROMPT_MAX + 1))
+        invs.append(Invocation(func=name, n_new=N_NEW,
+                               prompt=rng.integers(0, cfgs[name].vocab, S)))
+    counters = {"flash_attention": fk.flash_attention,
+                "decode_attention": dk.decode_attention,
+                "hermes_select": hk.hermes_select_batch}
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    rows, colds = [], []
+    t0 = time.perf_counter()
+    for inv in invs:
+        fe.dispatch(inv)
+        row = dict(func=inv.func, prompt=len(inv.prompt), worker=inv.worker,
+                   cold=inv.cold, response_ms=inv.response_s * 1e3,
+                   prefill_ms=inv.prefill_s * 1e3,
+                   decode_ms_per_token=inv.decode_s / N_NEW * 1e3)
+        if inv.cold:
+            ex = fe.workers[inv.worker].warm[inv.func]
+            row["cold_start_s"] = ex.cold_start_s
+            colds.append(inv.func)
+        rows.append(row)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+    for row, inv in zip(rows, invs):
+        log(f"{row['func']} prompt {row['prompt']}: worker {row['worker']}, "
+            f"{'cold' if row['cold'] else 'warm'}, response "
+            f"{row['response_ms']:.1f} ms, prefill {row['prefill_ms']:.2f} ms, "
+            f"decode {row['decode_ms_per_token']:.3f} ms per token"
+            + (f"; cold start {row['cold_start_s']:.3f} s"
+               if row["cold"] else ""))
+        vocab = cfgs[inv.func].vocab
+        check(inv.tokens.shape == (N_NEW,) and bool(
+            ((inv.tokens >= 0) & (inv.tokens < vocab)).all()),
+            f"{inv.func}: bad tokens {inv.tokens}")
+    L = {n: c.n_layers for n, c in cfgs.items()}
+    want = {
+        "flash_attention": sum(L[i.func] for i in invs) + sum(
+            L[f] for f in colds),
+        "decode_attention": sum(N_NEW * L[i.func] for i in invs) + sum(
+            L[f] for f in colds),
+        "hermes_select": N_REQUESTS}
+    log(f"{N_REQUESTS} requests in {wall:.2f} s; {len(colds)} cold starts; "
+        f"launches {launches}, expected {want}")
+    for n in want:
+        check(launches[n] == want[n], f"{n} launched {launches[n]} times in "
+                                      f"the serving path, expected {want[n]}")
+    report["serving"] = dict(wall_s=wall, requests=rows, launches=launches,
+                             expected_launches=want)
+    return fe, launches
+
+
+def profile_decode(torch, report, fe):
+    """Phase 7b: where a decode step's time goes, per model."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for name, _ in SERVED:
+        ex = next(w.warm[name] for w in fe.workers if name in w.warm)
+        model, params = ex.model, ex.params
+        toks = torch.zeros((1, CHECK_PROMPT), dtype=torch.long, device="cuda")
+        cache = model.init_cache(1, MAX_LEN)
+        _, cache = model.prefill(params, toks, cache)
+        tok = toks[:, :1]
+        pos = torch.arange(CHECK_PROMPT, CHECK_PROMPT + 8, dtype=torch.int32,
+                           device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(8):      # profiler off: the same steps, rewritten
+            _, cache = model.decode_step(params, tok, cache, pos[i:i + 1])
+        torch.cuda.synchronize()
+        plain_us = (time.perf_counter() - t0) * 1e6
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(8):
+                _, cache = model.decode_step(params, tok, cache, pos[i:i + 1])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type.name != "CPU"
+                   and e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in kernels)
+        top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                     reverse=True)[:6]
+        log(f"{name}: 8 decode steps at pos {CHECK_PROMPT}: wall "
+            f"{plain_us / 8e3:.2f} ms per step with the profiler off, "
+            f"{wall_us / 8e3:.2f} ms with it on; device busy "
+            f"{busy / 8e3:.2f} ms per step = {busy / wall_us:.3f}, idle share "
+            f"{1 - busy / wall_us:.3f}; "
+            f"{sum(e.count for e in kernels) / 8:.0f} kernel launches per step")
+        for e in top:
+            log(f"  {e.key[:70]}: {e.count} calls, "
+                f"{e.self_device_time_total / 8e3:.3f} ms per step")
+        out[name] = dict(wall_us_per_step=wall_us / 8,
+                         wall_us_per_step_profiler_off=plain_us / 8,
+                         busy_us_per_step=busy / 8,
+                         launches_per_step=sum(e.count for e in kernels) / 8,
+                         top=[dict(kernel=e.key, count=e.count,
+                                   us_per_step=e.self_device_time_total / 8)
+                              for e in top])
+    report["decode_profile"] = out
+
+
+def prefill_decode_vs_forward(torch, np, report):
+    """Phase 8: the kernel path's prefill and decode steps through the
+    cache against the plain path's full forward over the same tokens."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.transformer import build_model
+    out = {}
+    n = CHECK_PROMPT + CHECK_STEPS
+    for name, seed in SERVED:
+        toks = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, configs.get(name).vocab, (1, n)), device="cuda")
+        for dtype, tol in MODEL_TOL.items():
+            cfg = dataclasses.replace(configs.get(name), attn_impl="pallas",
+                                      dtype=dtype)
+            model = build_model(cfg, "cuda")
+            plain = build_model(dataclasses.replace(cfg, attn_impl="naive"),
+                                "cuda")
+            params = model.init(
+                torch.Generator(device="cuda").manual_seed(seed))
+            want = plain.forward(params, toks)[0][:, CHECK_PROMPT - 1:]
+            cache = model.init_cache(1, MAX_LEN)
+            logits, cache = model.prefill(params, toks[:, :CHECK_PROMPT],
+                                          cache)
+            got = [logits]
+            for i in range(CHECK_PROMPT, n):
+                logits, cache = model.decode_step(
+                    params, toks[:, i:i + 1], cache,
+                    torch.full((1,), i, dtype=torch.int32, device="cuda"))
+                got.append(logits)
+            got = torch.cat(got, dim=1).float()
+            want = want.float()
+            check(got.shape == want.shape and bool(got.isfinite().all()),
+                  f"{name} {dtype}: logits {tuple(got.shape)} vs "
+                  f"{tuple(want.shape)} or not finite")
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            log(f"{name} {dtype}: prefill of {CHECK_PROMPT} + {CHECK_STEPS} "
+                f"decode steps vs the plain forward over {n} tokens: max "
+                f"|Δ| {err:.4e}, max |logit| {scale:.4f}, ratio "
+                f"{err / scale:.3e} (bound {tol:g})")
+            check(err <= tol * scale, f"{name} {dtype}: kernel path != plain "
+                                      f"forward ({err} > {tol} × {scale})")
+            out[f"{name} {dtype}"] = dict(max_abs_err=err, max_abs_logit=scale,
+                                          bound=tol)
+            del params, cache
+            torch.cuda.empty_cache()
+    report["prefill_decode_vs_forward"] = out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run it from the root of a checkout of the repo",
@@ -429,7 +777,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import PAPER_LARGE
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     report = {}
+    t_start = time.perf_counter()
     try:
         with Phase("1 environment", report):
             environment(torch, report)
@@ -443,18 +794,40 @@ def main() -> int:
             profile_main_path(torch, report, PAPER_LARGE)
         with Phase("5 kernel path vs plain path", report):
             end_to_end(torch, np, report, PAPER_LARGE)
+        with Phase("6 attention kernels vs plain", report):
+            attn_t = attention_kernels(torch, np, report)
+        with Phase("7 serving path at full width", report):
+            frontend, serve_launches = serving_path(torch, np, report)
+        with Phase("7b profile of decode steps", report):
+            profile_decode(torch, report, frontend)
+        del frontend
+        torch.cuda.empty_cache()
+        with Phase("8 prefill and decode vs full forward", report):
+            prefill_decode_vs_forward(torch, np, report)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
+        report["total_s"] = time.perf_counter() - t_start
         log("report " + json.dumps(report, separators=(",", ":")))
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "hermes_select", "route": "cuda",
         "source": "src/repro_torch/csrc/hermes_select.cu",
         "replaces": "src/repro/kernels/hermes_select/kernel.py:66",
         "launches": launches, "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}]}))
+        "bound_by": "bytes", "library_ms": None}]
+    for name, line in (("flash_attention", 63), ("decode_attention", 60)):
+        row = attn_t[name][0]    # the headline shape: olmo-1b, bf16
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}/kernel.py:{line}",
+            "launches": serve_launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,3 +5,7 @@ Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.  The reference package stays the yardstick: the
 ``tests/test_torch_*.py`` suite holds each module against it.
 """
+
+
+class NotPortedError(NotImplementedError):
+    """A component the reference has and the port does not have yet."""

@@ -1,18 +1,22 @@
 """The state carried across from the reference package.
 
-The system has no weights: its state is the workload and the cluster.
+The simulator has no weights: its state is the workload and the cluster.
 These constructors take the reference's ``Workload`` / ``WorkloadBatch``
 / ``ClusterCfg`` fields as numpy arrays and plain values (never the
 reference's objects, which the port does not import), so that one case
-can be fed identically to both packages.
+can be fed identically to both packages.  The served models do have
+weights: :func:`params_from_reference` carries the reference's parameter
+tree across bit for bit.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.cluster import ClusterCfg
 from repro_torch.core.workload import (Workload, WorkloadBatch,
                                        validate_workload)
+from repro_torch.device import resolve_device
 
 
 def workload_from_arrays(arrival, func, service, u_lb, func_home,
@@ -54,3 +58,34 @@ def cluster_from_fields(n_workers: int, cores: int, capacity_factor: int,
                       capacity_factor=int(capacity_factor),
                       cold_start_penalty=float(cold_start_penalty)
                       ).validate()
+
+
+def params_from_reference(cfg, tree, device=None) -> dict:
+    """The port's parameters from the reference's tree as numpy arrays.
+
+    ``tree`` is ``{"embed": {...}, "layers": {...}, "final_norm"}`` with
+    every leaf of ``"layers"`` stacked on a leading ``L`` axis (what the
+    reference's ``init`` returns, converted leaf by leaf with
+    ``np.asarray``).  The result holds one dict per layer; every tensor
+    keeps its dtype and values bit for bit.  ``device=None`` is CUDA.
+    """
+    dev = resolve_device(device)
+    n_layers = int(cfg.n_layers)
+
+    def walk(node, layer=None, path=""):
+        if isinstance(node, dict):
+            return {k: walk(v, layer, f"{path}/{k}")
+                    for k, v in node.items()}
+        a = np.asarray(node)
+        if layer is not None:
+            if a.shape[:1] != (n_layers,):
+                raise ValueError(f"params_from_reference: {path} has shape "
+                                 f"{a.shape}, expected a leading "
+                                 f"L={n_layers}")
+            a = a[layer]
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+    return {"embed": walk(tree["embed"]),
+            "layers": [walk(tree["layers"], i, "layers")
+                       for i in range(n_layers)],
+            "final_norm": walk(tree["final_norm"])}

@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+from repro_torch import NotPortedError
 from repro_torch.device import resolve_device
 
 from . import balancers, scheds
@@ -35,10 +36,6 @@ NOT_PORTED = ("JSQ2", "RR", "HIKU", "DD", "SWARM")
 SCHEDS = {"PS": scheds.ps, "FCFS": scheds.fcfs, "SRPT": scheds.srpt}
 #: binding name -> late?
 BINDINGS = {"E": False, "L": True}
-
-
-class NotPortedError(NotImplementedError):
-    """A policy component the reference has and the port does not yet."""
 
 
 def _name(x) -> str:
