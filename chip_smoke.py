@@ -42,17 +42,33 @@ non-zero):
    workers × 2 cores, ``max_len`` 2048) serving ``olmo-1b`` (seed 0) and
    ``musicgen-large`` (seed 1) with ``attn_impl="pallas"``, 12 alternating
    requests, prompts of 200-1500 tokens (``default_rng(1)``), 32 new
-   tokens each; the three launch counts are zeroed just before and must
+   tokens each; all five launch counts are zeroed just before and must
    be Σ L × (requests + cold starts) for ``flash_attention``,
-   Σ L × (32 × requests + cold starts) for ``decode_attention`` and 12 for
-   ``hermes_select``; 7b. a profiled stretch of decode steps: the device's
+   Σ L × (32 × requests + cold starts) for ``decode_attention``, 12 for
+   ``hermes_select`` and 0 for the scans; 7b. a profiled stretch of decode steps: the device's
    busy and idle share and its costliest kernels;
 8. prefill plus 16 teacher-forced decode steps through the cache against
    the plain path's full forward (``attn_impl="naive"``, same parameters)
    over the same 793 tokens, for both models at full width: in f32 within
    1e-4 × max |logit|, and in the served bf16 within 6e-2 × max |logit|
    (``tests/test_models.py``'s bf16 tolerance between attention
-   implementations, scaled to the logits).
+   implementations, scaled to the logits);
+9. the scan kernels against their plain chunked forms on the card:
+   ``rwkv6_wkv`` and ``mamba2_ssd`` at ``tests/test_kernels.py``'s shapes
+   and chunks, the served shapes (B = 1, T ∈ {8, 777, 1500}) and one
+   nonzero carry-in state, in f32 (y and state within 1e-4, and within
+   2e-3 of the per-step oracle) and with bf16 activations (y within 2e-2,
+   the f32 state within 2e-3); CUDA-graph times of both beside the plain
+   version and the bound at T ∈ {777, 1500};
+10. the recurrent serving path at full width: a fresh ``HermesFrontend``
+    serving ``rwkv6-3b`` (seed 2) and ``zamba2-2.7b`` (seed 3) as in
+    phase 7 (prompts from ``default_rng(2)``), with the exact launch
+    counts of all five kernels; 10b. a profiled stretch of their decode
+    steps;
+11. phase 8's check for both recurrent models: prefill runs the scan
+    kernels over the prompt and hands their final state to the plain step
+    recurrence, the full forward runs the kernels over all tokens (and the
+    plain attention for zamba2's shared block).
 
 TF32 is off for matrix products and cuDNN throughout.  The line before the
 last is ``{"kernels": [...]}``; the last line is
@@ -74,6 +90,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), flop/s
 BF16_FLOPS_PER_S = 989e12
+#: H100 SXM special-function throughput, exp/s: 16 SFU lanes per SM
+#: (Hopper architecture white paper) × 132 SMs × 1.98 GHz boost clock
+SFU_PER_S = 16 * 132 * 1.98e9
 LOADS = (0.5, 0.7, 0.9, 0.97)
 #: the fig4 quick depth is 12 000; cut to keep the whole check inside its
 #: time as later slices add paths
@@ -445,27 +464,34 @@ def end_to_end(torch, np, report, cluster):
                                 card_vs_cpu_max_gap=gaps)
 
 
-# -- attention and serving (phases 6-8) --------------------------------------
+# -- attention and serving (phases 6-8, and 10-11 for the recurrent models) --
 
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: (B, S, H, KV, Dh): tests/test_kernels.py's shapes, qwen3-14b (GQA) and
-#: granite-20b (MQA) attention, and the served prompt shapes
+#: granite-20b (MQA) attention, and the served prompt shapes (zamba2-2.7b's
+#: shared attention at Dh = 80 among them)
 FLASH_CASES = ((2, 256, 4, 2, 64), (1, 128, 8, 8, 128), (2, 256, 4, 1, 128),
                (1, 192, 6, 2, 32), (1, 777, 40, 8, 128), (1, 777, 48, 1, 128),
                (1, 777, 16, 16, 128), (1, 1500, 16, 16, 128),
-               (1, 777, 32, 32, 64))
+               (1, 777, 32, 32, 64), (1, 777, 32, 32, 80),
+               (1, 1500, 32, 32, 80))
 #: (B, S_max, H, KV, Dh, pos): tests/test_kernels.py's shapes with its
-#: draw of pos (None), the GQA/MQA heads, and the served cache
+#: draw of pos (None), the GQA/MQA heads, and the served caches
 DECODE_CASES = ((2, 512, 4, 2, 64, None), (3, 256, 8, 1, 128, None),
                 (1, 2048, 40, 8, 128, 776), (1, 2048, 48, 1, 128, 776),
                 *((1, 2048, 16, 16, 128, p) for p in (0, 776, 2047)),
-                *((1, 2048, 32, 32, 64, p) for p in (0, 776, 2047)))
+                *((1, 2048, 32, 32, 64, p) for p in (0, 776, 2047)),
+                *((1, 2048, 32, 32, 80, p) for p in (0, 776, 2047)))
 #: the timed shapes (bf16, as served): the headline of each kernel first
 FLASH_TIMED = ((1, 777, 16, 16, 128), (1, 1500, 16, 16, 128),
-               (1, 777, 32, 32, 64), (1, 1500, 32, 32, 64))
+               (1, 777, 32, 32, 64), (1, 1500, 32, 32, 64),
+               (1, 777, 32, 32, 80), (1, 1500, 32, 32, 80))
 DECODE_TIMED = ((1, 2048, 16, 16, 128, 776), (1, 2048, 16, 16, 128, 2047),
-                (1, 2048, 32, 32, 64, 776), (1, 2048, 32, 32, 64, 2047))
+                (1, 2048, 32, 32, 64, 776), (1, 2048, 32, 32, 64, 2047),
+                (1, 2048, 32, 32, 80, 776), (1, 2048, 32, 32, 80, 2047))
 SERVED = (("olmo-1b", 0), ("musicgen-large", 1))
+#: phase 10's models and weight seeds
+RECURRENT = (("rwkv6-3b", 2), ("zamba2-2.7b", 3))
 N_REQUESTS = 12
 N_NEW = 32
 MAX_LEN = 2048
@@ -475,9 +501,13 @@ CHECK_PROMPT, CHECK_STEPS = 777, 16
 MODEL_TOL = {"float32": 1e-4, "bfloat16": 6e-2}
 
 
-def _bound(flops: float, nbytes: float):
-    """The least time the card could take: (ms, "operations" | "bytes")."""
-    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+def _bound(flops: float, nbytes: float, exps: float = 0.0):
+    """The least time the card could take for bf16 operands: (ms,
+    "operations" | "bytes").  The products run at the tensor cores' peak
+    and the exps on the special-function units beside them; the bytes at
+    the memory rate."""
+    t_ops = max(flops / BF16_FLOPS_PER_S, exps / SFU_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
 
@@ -588,33 +618,58 @@ def attention_kernels(torch, np, report):
     return timings
 
 
-def serving_path(torch, np, report):
-    """Phase 7: 12 requests through ``HermesFrontend`` at full width."""
-    import dataclasses
-
-    from repro_torch import configs
+def _counters():
+    """Every kernel wrapper, by name: each counts its own launches."""
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.hermes_select import kernel as hk
+    from repro_torch.kernels.mamba2_ssd import kernel as sk
+    from repro_torch.kernels.rwkv6_wkv import kernel as wk
+    return {"hermes_select": hk.hermes_select_batch,
+            "flash_attention": fk.flash_attention,
+            "decode_attention": dk.decode_attention,
+            "rwkv6_wkv": wk.wkv6, "mamba2_ssd": sk.ssd}
+
+
+def launches_per_call(cfg):
+    """({kernel: launches per prefill}, {kernel: launches per decode step})
+    of one model: every T > 1 scan and attention is a kernel under
+    ``attn_impl="pallas"``; one-token scans are the plain step."""
+    L = cfg.n_layers
+    if cfg.family == "rwkv6":
+        return {"rwkv6_wkv": L}, {}
+    if cfg.family == "hybrid":
+        n_attn = L // cfg.hybrid_attn_every
+        return ({"mamba2_ssd": L, "flash_attention": n_attn},
+                {"decode_attention": n_attn})
+    return {"flash_attention": L}, {"decode_attention": L}
+
+
+def serving_path(torch, np, report, served, prompt_seed, key):
+    """Phases 7 and 10: 12 requests through ``HermesFrontend`` at full
+    width, with every kernel's launches counted over the run."""
+    import dataclasses
+
+    from repro_torch import configs
     from repro_torch.serving.backends import (HermesFrontend, Invocation,
                                               ModelRegistry)
     reg = ModelRegistry()
     cfgs = {}
-    for name, seed in SERVED:
+    for name, seed in served:
         cfgs[name] = dataclasses.replace(configs.get(name), attn_impl="pallas")
         reg.register(name, cfgs[name], seed=seed)
+        log(f"{name}: {cfgs[name].n_params() * 4 / 1e9:.2f} GB of f32 "
+            f"weights (seed {seed})")
     fe = HermesFrontend(reg, n_workers=2, cores=2, max_len=MAX_LEN,
                         device="cuda")
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(prompt_seed)
     invs = []
     for i in range(N_REQUESTS):
-        name = SERVED[i % 2][0]
+        name = served[i % 2][0]
         S = int(rng.integers(PROMPT_MIN, PROMPT_MAX + 1))
         invs.append(Invocation(func=name, n_new=N_NEW,
                                prompt=rng.integers(0, cfgs[name].vocab, S)))
-    counters = {"flash_attention": fk.flash_attention,
-                "decode_attention": dk.decode_attention,
-                "hermes_select": hk.hermes_select_batch}
+    counters = _counters()
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
@@ -645,28 +700,32 @@ def serving_path(torch, np, report):
         check(inv.tokens.shape == (N_NEW,) and bool(
             ((inv.tokens >= 0) & (inv.tokens < vocab)).all()),
             f"{inv.func}: bad tokens {inv.tokens}")
-    L = {n: c.n_layers for n, c in cfgs.items()}
-    want = {
-        "flash_attention": sum(L[i.func] for i in invs) + sum(
-            L[f] for f in colds),
-        "decode_attention": sum(N_NEW * L[i.func] for i in invs) + sum(
-            L[f] for f in colds),
-        "hermes_select": N_REQUESTS}
+    # a request is one prefill and N_NEW decode steps; a cold start's
+    # warm-up is one prefill and one step
+    want = {n: 0 for n in counters}
+    want["hermes_select"] = N_REQUESTS
+    for func, steps in [(i.func, N_NEW) for i in invs] + \
+            [(f, 1) for f in colds]:
+        per_prefill, per_step = launches_per_call(cfgs[func])
+        for n, k in per_prefill.items():
+            want[n] += k
+        for n, k in per_step.items():
+            want[n] += steps * k
     log(f"{N_REQUESTS} requests in {wall:.2f} s; {len(colds)} cold starts; "
         f"launches {launches}, expected {want}")
     for n in want:
         check(launches[n] == want[n], f"{n} launched {launches[n]} times in "
                                       f"the serving path, expected {want[n]}")
-    report["serving"] = dict(wall_s=wall, requests=rows, launches=launches,
-                             expected_launches=want)
+    report[key] = dict(wall_s=wall, requests=rows, launches=launches,
+                       expected_launches=want)
     return fe, launches
 
 
-def profile_decode(torch, report, fe):
-    """Phase 7b: where a decode step's time goes, per model."""
+def profile_decode(torch, report, fe, served, key):
+    """Phases 7b and 10b: where a decode step's time goes, per model."""
     from torch.profiler import ProfilerActivity, profile
     out = {}
-    for name, _ in SERVED:
+    for name, _ in served:
         ex = next(w.warm[name] for w in fe.workers if name in w.warm)
         model, params = ex.model, ex.params
         toks = torch.zeros((1, CHECK_PROMPT), dtype=torch.long, device="cuda")
@@ -710,19 +769,21 @@ def profile_decode(torch, report, fe):
                          top=[dict(kernel=e.key, count=e.count,
                                    us_per_step=e.self_device_time_total / 8)
                               for e in top])
-    report["decode_profile"] = out
+    report[key] = out
 
 
-def prefill_decode_vs_forward(torch, np, report):
-    """Phase 8: the kernel path's prefill and decode steps through the
-    cache against the plain path's full forward over the same tokens."""
+def prefill_decode_vs_forward(torch, np, report, served, key):
+    """Phases 8 and 11: the kernel path's prefill and decode steps through
+    the cache against the full forward over the same tokens, whose
+    attention is the plain path (``attn_impl="naive"``; rwkv6 has none,
+    and its forward runs the scan kernel over all tokens)."""
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.models.transformer import build_model
     out = {}
     n = CHECK_PROMPT + CHECK_STEPS
-    for name, seed in SERVED:
+    for name, seed in served:
         toks = torch.as_tensor(np.random.default_rng(seed).integers(
             0, configs.get(name).vocab, (1, n)), device="cuda")
         for dtype, tol in MODEL_TOL.items():
@@ -760,7 +821,175 @@ def prefill_decode_vs_forward(torch, np, report):
                                           bound=tol)
             del params, cache
             torch.cuda.empty_cache()
-    report["prefill_decode_vs_forward"] = out
+    report[key] = out
+
+
+# -- recurrent scans and serving (phases 9-11) ------------------------------
+
+#: phase 9's tolerances: y and the f32 state against the plain chunked form
+#: on the same inputs (f32: the same math in another order; bf16: y is
+#: rounded to bf16), and f32 against the per-step oracle (tests/test_kernels
+#: .py:70's 2e-3: another algorithm)
+SCAN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-3)}
+ORACLE_TOL = 2e-3
+#: (B, T, H, K, chunk, carry-in): tests/test_kernels.py's WKV shapes and
+#: chunks (and its model-path case), rwkv6-3b's served shapes (H = 40,
+#: K = 64, chunk 32; a cold start's 8 tokens and ragged prompts) and one
+#: nonzero carry-in state
+WKV_CASES = (*((B, T, H, 64, c, False) for B, T, H in ((2, 128, 3),
+                                                       (1, 64, 2))
+               for c in (16, 32)),
+             (1, 96, 2, 64, 32, False),
+             *((1, T, 40, 64, 32, False) for T in (8, 777, 1500)),
+             (1, 777, 40, 64, 32, True))
+#: (B, T, H, P, N, chunk, carry-in): tests/test_kernels.py's SSD shapes and
+#: chunks, zamba2-2.7b's served shapes (H = 80, P = N = 64, chunk 128) and
+#: one nonzero carry-in state
+SSD_CASES = (*((B, T, H, P, N, c, False)
+               for B, T, H, P, N in ((2, 128, 4, 32, 16), (1, 64, 2, 16, 8))
+               for c in (32, 64)),
+             *((1, T, 80, 64, 64, 128, False) for T in (8, 777, 1500)),
+             (1, 777, 80, 64, 64, 128, True))
+#: the timed served shapes (bf16 activations), the headline first
+SCAN_TIMED_T = (777, 1500)
+def _chunk_lens(T, chunk):
+    c = min(chunk, T)
+    return [min(c, T - t0) for t0 in range(0, T, c)]
+
+
+def wkv_work(B, T, H, K, chunk, size, carry):
+    """(flops, exps, bytes) a WKV call needs: the strict lower triangle's
+    pairwise decays and products per chunk, r·exp(lx), k·exp(lc−li) and
+    the state products; r, k, v, lw read once, y and the state written
+    once (and the carry-in read)."""
+    flops = exps = 0
+    for L in _chunk_lens(T, chunk):
+        pairs = L * (L - 1) // 2
+        exps += pairs * K + 2 * L * K + K
+        flops += (3 * pairs * K + 3 * L * K + 2 * (pairs + L) * K
+                  + 4 * L * K * K + 2 * K * K + 2 * L * K)
+    nbytes = (B * T * H * K * (4 * size + 4) + H * K * 4
+              + B * H * K * K * 4 * (2 if carry else 1))
+    return B * H * flops, B * H * exps, nbytes
+
+
+def ssd_work(B, T, H, P, N, chunk, size, carry):
+    """(flops, exps, bytes) an SSD call needs: C·B once per chunk (shared
+    by the heads), the masked scores, M·x, the carry-in C·S and the state
+    update per head; x, dt, B, C read once, y and the state written once
+    (and the carry-in read)."""
+    flops = exps = 0
+    for L in _chunk_lens(T, chunk):
+        pairs = L * (L + 1) // 2
+        flops += 2 * pairs * N + H * (3 * pairs + 2 * pairs * P
+                                      + 4 * L * N * P + 2 * L * P
+                                      + L * N * P + 2 * P * N)
+        exps += H * (pairs + 2 * L + 1)
+    nbytes = (B * T * H * P * 2 * size + B * T * H * 4 + 2 * B * T * N * size
+              + H * 4 + B * H * P * N * 4 * (2 if carry else 1))
+    return B * flops, B * exps, nbytes
+
+
+def _wkv_inputs(torch, gen, case, dt):
+    B, T, H, K, _, carry = case
+    r, k, v = (torch.randn((B, T, H, K), generator=gen, device="cuda")
+               .mul_(0.5).to(dt) for _ in range(3))
+    lw = -torch.exp(torch.randn((B, T, H, K), generator=gen, device="cuda"))
+    u = torch.randn((H, K), generator=gen, device="cuda") * 0.1
+    s0 = torch.randn((B, H, K, K), generator=gen, device="cuda") \
+        if carry else None
+    return r, k, v, lw, u, s0
+
+
+def _ssd_inputs(torch, gen, case, dt):
+    B, T, H, P, N, _, carry = case
+    x = torch.randn((B, T, H, P), generator=gen, device="cuda").to(dt)
+    dt_h = torch.nn.functional.softplus(
+        torch.randn((B, T, H), generator=gen, device="cuda"))
+    bm, cm = (torch.randn((B, T, N), generator=gen, device="cuda")
+              .mul_(0.5).to(dt) for _ in range(2))
+    a = -torch.exp(torch.linspace(-1, 1, H, device="cuda"))
+    h0 = torch.randn((B, H, P, N), generator=gen, device="cuda") \
+        if carry else None
+    return x, dt_h, bm, cm, a, h0
+
+
+def scan_kernels(torch, report):
+    """Phase 9: both scan kernels against their plain chunked forms (and,
+    in f32, the per-step oracles), and their times beside the plain
+    version and the bound at the served shapes."""
+    from repro_torch.kernels.mamba2_ssd import kernel as sk
+    from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked_ref, ssd_ref
+    from repro_torch.kernels.rwkv6_wkv import kernel as wk
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv6_chunked_ref, wkv6_ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    kinds = {
+        "rwkv6_wkv": (WKV_CASES, _wkv_inputs, wk.wkv6, wkv6_chunked_ref,
+                      wkv6_ref),
+        "mamba2_ssd": (SSD_CASES, _ssd_inputs, sk.ssd, ssd_chunked_ref,
+                       ssd_ref)}
+    errs = {name: {} for name in kinds}
+    for name, (cases, make, kern, plain, oracle) in kinds.items():
+        for dtype, (y_tol, s_tol) in SCAN_TOL.items():
+            for case in cases:
+                args = make(torch, gen, case, getattr(torch, dtype))
+                chunk = case[-2]
+                got = kern(*args, chunk=chunk)
+                checks = [("plain", plain(*args, chunk=chunk),
+                           (y_tol, s_tol))]
+                if dtype == "float32":
+                    checks.append(("oracle", oracle(*args),
+                                   (ORACLE_TOL, ORACLE_TOL)))
+                torch.cuda.synchronize()
+                for against, want, tols in checks:
+                    for part, g, w, tol in zip(("y", "state"), got, want,
+                                               tols):
+                        check(g.shape == w.shape and g.dtype == w.dtype,
+                              f"{name} {dtype} {case}: {part} is "
+                              f"{tuple(g.shape)} {g.dtype}, expected "
+                              f"{tuple(w.shape)} {w.dtype}")
+                        err = float((g.float() - w.float()).abs().max())
+                        ok = bool(torch.allclose(g.float(), w.float(),
+                                                 rtol=tol, atol=tol))
+                        errs[name][f"{dtype} {case} {part} vs {against}"] = \
+                            err
+                        log(f"{name} {dtype} {case} {part} vs {against}: "
+                            f"max abs err {err:.3e} "
+                            f"({'ok' if ok else 'FAILED'} at atol = rtol = "
+                            f"{tol})")
+                        check(ok, f"{name} {dtype} {case}: {part} != "
+                                  f"{against} (err {err})")
+
+    timings = {name: [] for name in kinds}
+    dt, size = torch.bfloat16, 2
+    for T in SCAN_TIMED_T:
+        for name, case, work in (
+                ("rwkv6_wkv", (1, T, 40, 64, 32, False), wkv_work),
+                ("mamba2_ssd", (1, T, 80, 64, 64, 128, False), ssd_work)):
+            _, make, kern, plain, _ = kinds[name]
+            args = make(torch, gen, case, dt)
+            chunk = case[-2]
+            got, want = kern(*args, chunk=chunk), plain(*args, chunk=chunk)
+            row = dict(case=case, dtype="bfloat16",
+                       max_abs_err=float((got[0].float() - want[0].float())
+                                         .abs().max()),
+                       ms=device_ms(torch, lambda: kern(*args, chunk=chunk),
+                                    10),
+                       call_ms=call_ms(torch, lambda: kern(*args,
+                                                           chunk=chunk), 10),
+                       plain_ms=device_ms(torch, lambda: plain(
+                           *args, chunk=chunk), 3))
+            flops, exps, nbytes = work(*case[:-1], size, case[-1])
+            row.update(flops=flops, exps=exps, bytes=nbytes)
+            row["bound_ms"], row["bound_by"] = _bound(flops, nbytes, exps)
+            timings[name].append(row)
+            log(f"{name} bf16 {case}: kernel {row['ms']:.4f} ms on the card "
+                f"({row['call_ms']:.4f} ms per call from Python), plain "
+                f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}: {flops:.3e} flop, {exps:.3e} exp, "
+                f"{nbytes} B); CUDA-graph replay, CUDA events")
+    report["scans"] = dict(max_abs_err=errs, timings=timings)
+    return timings
 
 
 def main() -> int:
@@ -797,13 +1026,29 @@ def main() -> int:
         with Phase("6 attention kernels vs plain", report):
             attn_t = attention_kernels(torch, np, report)
         with Phase("7 serving path at full width", report):
-            frontend, serve_launches = serving_path(torch, np, report)
+            frontend, serve_launches = serving_path(
+                torch, np, report, SERVED, 1, "serving")
         with Phase("7b profile of decode steps", report):
-            profile_decode(torch, report, frontend)
+            profile_decode(torch, report, frontend, SERVED, "decode_profile")
         del frontend
         torch.cuda.empty_cache()
         with Phase("8 prefill and decode vs full forward", report):
-            prefill_decode_vs_forward(torch, np, report)
+            prefill_decode_vs_forward(torch, np, report, SERVED,
+                                      "prefill_decode_vs_forward")
+        with Phase("9 scan kernels vs plain", report):
+            scan_t = scan_kernels(torch, report)
+        with Phase("10 recurrent serving at full width", report):
+            frontend, rec_launches = serving_path(
+                torch, np, report, RECURRENT, 2, "recurrent_serving")
+        with Phase("10b profile of recurrent decode steps", report):
+            profile_decode(torch, report, frontend, RECURRENT,
+                           "recurrent_decode_profile")
+        del frontend
+        torch.cuda.empty_cache()
+        with Phase("11 recurrent prefill and decode vs full forward",
+                   report):
+            prefill_decode_vs_forward(torch, np, report, RECURRENT,
+                                      "recurrent_prefill_decode_vs_forward")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -817,16 +1062,27 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "library_ms": None}]
-    for name, line in (("flash_attention", 63), ("decode_attention", 60)):
-        row = attn_t[name][0]    # the headline shape: olmo-1b, bf16
+    # the headline shape of each: olmo-1b's attention, rwkv6-3b's and
+    # zamba2-2.7b's scans at T = 777, bf16; launches from the path that
+    # serves them (phase 7 for attention, phase 10 for the scans)
+    for name, path, rows, n in (
+            ("flash_attention", "flash_attention/kernel.py:63",
+             attn_t["flash_attention"], serve_launches),
+            ("decode_attention", "decode_attention/kernel.py:60",
+             attn_t["decode_attention"], serve_launches),
+            ("rwkv6_wkv", "rwkv6_wkv/kernel.py:66", scan_t["rwkv6_wkv"],
+             rec_launches),
+            ("mamba2_ssd", "mamba2_ssd/kernel.py:60", scan_t["mamba2_ssd"],
+             rec_launches)):
+        row = rows[0]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": f"src/repro/kernels/{name}/kernel.py:{line}",
-            "launches": serve_launches[name],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "replaces": f"src/repro/kernels/{path}",
+            "launches": n[name], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

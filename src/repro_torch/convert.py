@@ -63,11 +63,12 @@ def cluster_from_fields(n_workers: int, cores: int, capacity_factor: int,
 def params_from_reference(cfg, tree, device=None) -> dict:
     """The port's parameters from the reference's tree as numpy arrays.
 
-    ``tree`` is ``{"embed": {...}, "layers": {...}, "final_norm"}`` with
-    every leaf of ``"layers"`` stacked on a leading ``L`` axis (what the
-    reference's ``init`` returns, converted leaf by leaf with
-    ``np.asarray``).  The result holds one dict per layer; every tensor
-    keeps its dtype and values bit for bit.  ``device=None`` is CUDA.
+    ``tree`` is what the reference's ``init`` returns, converted leaf by
+    leaf with ``np.asarray``: ``{"embed", "layers", "final_norm"}`` and,
+    for the hybrid family, ``"shared"``.  Every leaf of ``"layers"`` is
+    stacked on a leading ``L`` axis and is split into one dict per layer;
+    every other top-level subtree is carried whole.  Every tensor keeps its
+    dtype and values bit for bit.  ``device=None`` is CUDA.
     """
     dev = resolve_device(device)
     n_layers = int(cfg.n_layers)
@@ -85,7 +86,6 @@ def params_from_reference(cfg, tree, device=None) -> dict:
             a = a[layer]
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
-    return {"embed": walk(tree["embed"]),
-            "layers": [walk(tree["layers"], i, "layers")
-                       for i in range(n_layers)],
-            "final_norm": walk(tree["final_norm"])}
+    return {k: ([walk(v, i, "layers") for i in range(n_layers)]
+                if k == "layers" else walk(v, path=k))
+            for k, v in tree.items()}

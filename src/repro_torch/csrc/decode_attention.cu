@@ -27,7 +27,7 @@
 //   * one warp per query head reduces a chunk's max and sum with shuffles.
 // Known limit: at B = 1 the grid is only KV blocks (16 for olmo-1b, 32 for
 // musicgen-large) on 132 SMs, so one block streams a head's whole prefix;
-// a split-KV pass with a combine is later work.  Head dims 32, 64 and 128
+// a split-KV pass with a combine is later work.  Head dims 32, 64, 80 and 128
 // and G <= 64 are built; the wrapper
 // (repro_torch/kernels/decode_attention/kernel.py) refuses anything else.
 
@@ -221,6 +221,9 @@ int dispatch_dh(const void* q, const void* k, const void* v, const int* pos,
                            group, st, scale, stream);
     case 64:
       return launch<T, 64>(q, k, v, pos, o, batch, seq_max, n_kv_heads,
+                           group, st, scale, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, pos, o, batch, seq_max, n_kv_heads,
                            group, st, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, pos, o, batch, seq_max, n_kv_heads,

@@ -33,7 +33,8 @@
 //     tx + 16*j and output columns tx + 16*c; a row's max and sum are
 //     reduced over its 16 threads with shuffles;
 //   * m, l and acc stay in registers across the key tiles.
-// Head dims 32, 64 and 128 are built; the wrapper
+// Head dims 32, 64, 80 (zamba2's shared attention) and 128 are built
+// (at 80, BK = 64: 19,648 floats of shared memory); the wrapper
 // (repro_torch/kernels/flash_attention/kernel.py) refuses any other.
 
 #include <cuda_bf16.h>
@@ -245,6 +246,9 @@ int dispatch_dh(const void* q, const void* k, const void* v, void* o,
                                scale, stream);
     case 64:
       return launch<T, 64, 64>(q, k, v, o, batch, seq, n_heads, group, st,
+                               scale, stream);
+    case 80:
+      return launch<T, 80, 64>(q, k, v, o, batch, seq, n_heads, group, st,
                                scale, stream);
     case 128:
       return launch<T, 128, 32>(q, k, v, o, batch, seq, n_heads, group, st,

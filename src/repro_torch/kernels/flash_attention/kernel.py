@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -1,0 +1,24 @@
+"""SSD entry point: the kernel on the card, the plain chunked form for
+tensors on the CPU.
+
+Seq-major API, as the reference's ``ops.ssd``, with the models' optional
+carry-in state; the kernel reads the model's views through strides, so
+nothing is copied.
+"""
+from __future__ import annotations
+
+from . import kernel
+from .ref import ssd_chunked_ref
+
+
+def ssd(x, dt_h, bmat, cmat, a, h0=None, *, chunk: int = 128):
+    """x: ``[B,T,H,P]``; dt_h: ``[B,T,H]``; bmat, cmat: ``[B,T,N]``; a:
+    ``[H]``; h0: ``[B,H,P,N]`` f32 or ``None`` → ``(y [B,T,H,P], state
+    [B,H,P,N])``.
+
+    CPU tensors take the plain chunked form; CUDA tensors launch the
+    kernel, which raises on anything it does not take.
+    """
+    if x.device.type == "cpu":
+        return ssd_chunked_ref(x, dt_h, bmat, cmat, a, h0, chunk)
+    return kernel.ssd(x, dt_h, bmat, cmat, a, h0, chunk=chunk)

@@ -1,0 +1,188 @@
+"""RWKV-6 "Finch" block: data-dependent decay time-mix + channel-mix.
+
+Counterpart of ``repro/models/rwkv6.py``.  The WKV recurrence per head
+(K = V = head_size):
+
+    S_t = diag(w_t) · S_{t-1} + k_tᵀ v_t
+    y_t = r_t · (S_{t-1} + diag(u) · k_tᵀ v_t)
+
+with the data-dependent decay ``w_t = exp(-exp(ŵ_t))``.  Prefill and the
+full forward (T > 1) run the chunked scan through
+:func:`repro_torch.kernels.rwkv6_wkv.ops.wkv6`: the CUDA kernel on the
+card, its plain chunked form on the CPU.  Decode (T == 1) is the plain
+one-step recurrence, as in the reference.
+
+State per layer: the token-shift carries of the time-mix and channel-mix
+and the ``[H, K, K]`` f32 WKV state.  The reference's ``shard`` calls
+have no meaning on one card and are left out.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+from repro_torch.models.layers import dense_init, rmsnorm
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_rwkv_block(gen: torch.Generator, cfg) -> dict:
+    r, D = cfg.rwkv, cfg.d_model
+    F_ = int(r.ff_mult * D)
+    dt = cfg.p_dtype
+    dev = gen.device
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=dt, device=dev)
+
+    def small(shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.01).to(dt)
+
+    tm = {
+        "mu_x": full((D,), 0.5),
+        "mu": full((5, D), 0.5),                          # r,k,v,w,g lerp
+        "mix_w1": dense_init(gen, (D, 5 * r.mix_lora), dt),
+        "mix_w2": small((5, r.mix_lora, D)),
+        "wr": dense_init(gen, (D, D), dt),
+        "wk": dense_init(gen, (D, D), dt),
+        "wv": dense_init(gen, (D, D), dt),
+        "wg": dense_init(gen, (D, D), dt),
+        "wo": dense_init(gen, (D, D), dt),
+        "decay_base": full((D,), -4.0),                   # ŵ bias
+        "decay_w1": dense_init(gen, (D, r.decay_lora), dt),
+        "decay_w2": small((r.decay_lora, D)),
+        "bonus": full((D,), 0.0),                         # u, per channel
+        "ln_scale": full((D,), 1.0),                      # per-head groupnorm
+        "ln_bias": full((D,), 0.0),
+    }
+    cm = {
+        "mu_k": full((D,), 0.5),
+        "mu_r": full((D,), 0.5),
+        "wk": dense_init(gen, (D, F_), dt),
+        "wv": dense_init(gen, (F_, D), dt),
+        "wr": dense_init(gen, (D, D), dt),
+    }
+    return {"tm": tm, "cm": cm, "ln1": full((D,), 0.0),
+            "ln2": full((D,), 0.0)}
+
+
+def init_rwkv_state(cfg, batch: int, n_layers: int | None = None,
+                    device=None) -> dict:
+    """``{"tm_shift", "cm_shift": [L, B, D]`` in ``act_dtype``, ``"wkv":
+    [L, B, H, K, K]`` f32}: zeros, the reference's layout."""
+    D = cfg.d_model
+    K = cfg.rwkv.head_size
+    H = D // K
+    L = n_layers if n_layers is not None else cfg.n_layers
+    return {
+        "tm_shift": torch.zeros((L, batch, D), dtype=cfg.act_dtype,
+                                device=device),
+        "cm_shift": torch.zeros((L, batch, D), dtype=cfg.act_dtype,
+                                device=device),
+        "wkv": torch.zeros((L, batch, H, K, K), dtype=torch.float32,
+                           device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# WKV — chunked (prefill) and stepwise (decode)
+# ---------------------------------------------------------------------------
+
+def wkv_chunked(r, k, v, lw, u, s0, chunk: int = 32):
+    """Chunked WKV scan.  r, k, v: ``[B,T,H,K]``; lw: ``[B,T,H,K]`` f32
+    log-decay (≤ 0); u: ``[H,K]`` f32; s0: ``[B,H,K,K]`` f32 carry-in →
+    ``(y [B,T,H,K], s_out)``."""
+    return wkv_ops.wkv6(r, k, v, lw, u, s0, chunk=chunk)
+
+
+def wkv_step(r, k, v, lw, u, s):
+    """Single-token WKV.  r, k, v, lw: ``[B,H,K]``; s: ``[B,H,K,V]`` f32."""
+    rf, kf, vf = (x.float() for x in (r, k, v))
+    kv = kf[..., :, None] * vf[..., None, :]               # [B,H,K,V]
+    y = torch.einsum("bhk,bhkv->bhv",
+                     rf, s + u[None].float()[..., None] * kv)
+    s_new = s * torch.exp(lw.float())[..., None] + kv
+    return y.to(r.dtype), s_new
+
+
+# ---------------------------------------------------------------------------
+# Block forward
+# ---------------------------------------------------------------------------
+
+def _shifted(x, shift_in):
+    """``x`` moved one step later, ``shift_in`` in the first row."""
+    return torch.cat([shift_in[:, None], x[:, :-1]], dim=1)
+
+
+def _ddlerp(tm, x, x_prev):
+    """Data-dependent token-shift interpolation (RWKV-6) → ``[5, B, T, D]``
+    (the r, k, v, w, g inputs)."""
+    B, T, D = x.shape
+    dt = x.dtype
+    xx = x_prev - x
+    base = x + xx * tm["mu_x"].to(dt)
+    lora = torch.tanh(base @ tm["mix_w1"].to(dt)).reshape(B, T, 5, -1)
+    delta = torch.einsum("btfe,fed->fbtd", lora, tm["mix_w2"].to(dt))
+    return x[None] + xx[None] * (tm["mu"].to(dt)[:, None, None] + delta)
+
+
+def time_mix(cfg, tm, x, shift_in, wkv_in, chunk: int = 32):
+    """x: ``[B,T,D]`` → ``(out, shift_out, wkv_out)``."""
+    B, T, D = x.shape
+    K = cfg.rwkv.head_size
+    H = D // K
+    dt = x.dtype
+    xr, xk, xv, xw, xg = _ddlerp(tm, x, _shifted(x, shift_in))
+    r = xr @ tm["wr"].to(dt)
+    k = xk @ tm["wk"].to(dt)
+    v = xv @ tm["wv"].to(dt)
+    g = F.silu(xg @ tm["wg"].to(dt))
+    # the decay LoRA and ŵ are f32, as in the reference
+    w_hat = tm["decay_base"].float() + (
+        xw.float() @ tm["decay_w1"].float()) @ tm["decay_w2"].float()
+    lw = -torch.exp(w_hat)                                 # log w ≤ 0
+
+    hs = (B, T, H, K)
+    r_, k_, v_, lw_ = (a.reshape(hs) for a in (r, k, v, lw))
+    u = tm["bonus"].float().reshape(H, K)
+    if T == 1:
+        y, s_out = wkv_step(r_[:, 0], k_[:, 0], v_[:, 0], lw_[:, 0], u,
+                            wkv_in)
+        y = y[:, None]
+    else:
+        y, s_out = wkv_chunked(r_, k_, v_, lw_, u, wkv_in, chunk)
+    # per-head group norm, then gate and output projection
+    y = y.reshape(B, T, H, K)
+    mu = y.mean(-1, keepdim=True)
+    var = ((y - mu) ** 2).mean(-1, keepdim=True)
+    y = (y - mu) * torch.rsqrt(var + 64e-5)
+    y = y.reshape(B, T, D) * tm["ln_scale"].to(dt) + tm["ln_bias"].to(dt)
+    out = (y.to(dt) * g) @ tm["wo"].to(dt)
+    return out, x[:, -1], s_out
+
+
+def channel_mix(cfg, cm, x, shift_in):
+    """x: ``[B,T,D]`` → ``(out, shift_out)``."""
+    dt = x.dtype
+    xx = _shifted(x, shift_in) - x
+    xk = x + xx * cm["mu_k"].to(dt)
+    xr = x + xx * cm["mu_r"].to(dt)
+    k = torch.square(torch.relu(xk @ cm["wk"].to(dt)))
+    kv = k @ cm["wv"].to(dt)
+    r = torch.sigmoid(xr @ cm["wr"].to(dt))
+    return r * kv, x[:, -1]
+
+
+def rwkv_block(cfg, p, x, state: dict, chunk: int = 32):
+    """One RWKV-6 layer.  state: ``{tm_shift, cm_shift, wkv}`` of this
+    layer → ``(x, new state)``."""
+    h = rmsnorm(x, p["ln1"])
+    att, tm_shift, wkv = time_mix(cfg, p["tm"], h, state["tm_shift"],
+                                  state["wkv"], chunk)
+    x = x + att
+    h = rmsnorm(x, p["ln2"])
+    ff, cm_shift = channel_mix(cfg, p["cm"], h, state["cm_shift"])
+    return x + ff, {"tm_shift": tm_shift, "cm_shift": cm_shift, "wkv": wkv}

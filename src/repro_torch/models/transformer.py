@@ -1,20 +1,25 @@
 """Model assembly: blocks → layer stack (a Python loop) → LM API.
 
-Counterpart of ``repro/models/transformer.py`` for ``family="dense"``
-without MoE or MLA.  ``build_model(cfg, device)`` returns a :class:`Model`
-of plain functions:
+Counterpart of ``repro/models/transformer.py`` for the ``dense`` (without
+MoE or MLA), ``rwkv6`` and ``hybrid`` (zamba2) families.
+``build_model(cfg, device)`` returns a :class:`Model` of plain functions:
 
 * ``init(generator) → params`` — ``{"embed", "layers": [one dict per
-  layer], "final_norm"}`` on the generator's device;
+  layer], "final_norm"}`` (and the hybrid's ``"shared"`` attention block)
+  on the generator's device;
 * ``forward(params, tokens) → (logits, aux)`` — full sequence;
 * ``init_cache / prefill / decode_step`` — the serving path.  The cache
-  is the reference's ``{"k", "v"}`` of ``[L, B, max_len, KV, Dh]``;
-  ``prefill`` and ``decode_step`` write it in place and return it.
+  is the reference's: ``{"k", "v"}`` of ``[L, B, max_len, KV, Dh]``
+  (dense), the recurrent state ``{"tm_shift", "cm_shift", "wkv"}``
+  stacked on ``L`` (rwkv6), or ``{"conv", "ssm"}`` plus the shared
+  block's ``{"attn_k", "attn_v"}`` of ``[L // every, B, max_len, KV, Dh]``
+  (hybrid).  ``prefill`` and ``decode_step`` write it in place and return
+  it.
 
-The reference's ``lax.scan`` over stacked layers is a Python loop here.
-``loss``, remat, ``param_specs`` and ``layer_mode`` belong to training,
-sharding and the roofline and are not ported yet; the ``rwkv6`` and
-``hybrid`` families and ``moe`` / ``mla`` blocks raise
+The reference's ``lax.scan`` over stacked layers is a Python loop here,
+with a static layer index (the reference's unrolled mode).  ``loss``,
+remat, ``param_specs`` and ``layer_mode`` belong to training, sharding
+and the roofline and are not ported yet; ``moe`` and ``mla`` blocks raise
 :class:`NotPortedError`.
 """
 from __future__ import annotations
@@ -26,9 +31,11 @@ import torch
 from repro_torch import NotPortedError
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import rwkv6 as rk
 from repro_torch.models.common import ModelCfg
 from repro_torch.models.layers import (apply_norm, embed, init_embed,
-                                       init_mlp, lm_logits, mlp,
+                                       init_mlp, lm_logits, mlp, rmsnorm,
                                        sinusoidal_at, sinusoidal_pe, zeros)
 
 
@@ -43,15 +50,13 @@ class Model(NamedTuple):
 
 
 def check_ported(cfg: ModelCfg) -> None:
-    """Raise :class:`NotPortedError` for what this slice does not run."""
-    if cfg.family in ("rwkv6", "hybrid"):
-        raise NotPortedError(f"family {cfg.family!r} ({cfg.name}) is not "
-                             f"ported to repro_torch yet")
+    """Raise :class:`NotPortedError` for what the port does not run yet."""
     for part in ("moe", "mla"):
         if getattr(cfg, part) is not None:
             raise NotPortedError(f"{part} blocks ({cfg.name}) are not "
                                  f"ported to repro_torch yet")
-    attn.check_attn_impl(cfg)
+    if cfg.family != "rwkv6":          # rwkv6 has no attention
+        attn.check_attn_impl(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -89,18 +94,83 @@ def dense_block_decode(cfg, p, x, k_cache, v_cache, pos):
 
 
 # ---------------------------------------------------------------------------
+# zamba2 hybrid: the shared attention block
+# ---------------------------------------------------------------------------
+
+def init_hybrid_shared(gen: torch.Generator, cfg) -> dict:
+    return {"ln1": zeros(gen, (cfg.d_model,), cfg.p_dtype),
+            "ln2": zeros(gen, (cfg.d_model,), cfg.p_dtype),
+            "attn": attn.init_attention(gen, cfg),
+            "mlp": init_mlp(gen, cfg)}
+
+
+def shared_attn_block(cfg, sp, x, pos):
+    """Full-seq shared block.  Returns ``(x, (k, v))``."""
+    h = rmsnorm(x, sp["ln1"])
+    q, k, v = attn._qkv(cfg, sp["attn"], h, pos)
+    o = attn.sdpa(cfg, q, k, v)
+    B, S = x.shape[:2]
+    x = x + o.reshape(B, S, cfg.q_dim) @ sp["attn"]["wo"].to(x.dtype)
+    x = x + mlp(cfg, sp["mlp"], rmsnorm(x, sp["ln2"]))
+    return x, (k, v)
+
+
+def shared_attn_decode(cfg, sp, x, k_c, v_c, pos):
+    """One-token shared block; writes this token's k, v into its cache
+    ``k_c``/``v_c`` ``[B, max_len, KV, Dh]`` in place."""
+    h = rmsnorm(x, sp["ln1"])
+    attn.append_kv(cfg, sp["attn"], h, k_c, v_c, pos)
+    x = x + attn.decode_attention(cfg, sp["attn"], h, k_c, v_c, pos)
+    return x + mlp(cfg, sp["mlp"], rmsnorm(x, sp["ln2"]))
+
+
+# ---------------------------------------------------------------------------
 # Model
 # ---------------------------------------------------------------------------
 
 def build_model(cfg: ModelCfg, device=None) -> Model:
-    """The dense LM API of ``cfg`` on ``device`` (``None`` = CUDA)."""
+    """The LM API of ``cfg`` on ``device`` (``None`` = CUDA)."""
     check_ported(cfg)
     dev = resolve_device(device)
+    if cfg.family == "rwkv6":
+        return _build_rwkv(cfg, dev)
+    if cfg.family == "hybrid":
+        return _build_hybrid(cfg, dev)
+    return _build_dense(cfg, dev)
 
+
+def _check_generator(gen: torch.Generator, dev: torch.device) -> None:
+    if gen.device.type != dev.type:
+        raise ValueError(f"init: the generator is on {gen.device}, the "
+                         f"model on {dev}")
+
+
+def _embed_in(cfg, params, tokens):
+    x = embed(cfg, params["embed"], tokens)
+    if cfg.pos == "sinusoidal":
+        x = x + sinusoidal_pe(tokens.shape[1], cfg.d_model,
+                              device=x.device).to(x.dtype)[None]
+    return x
+
+
+def _no_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _layer_state(state: dict, i: int) -> dict:
+    return {k: v[i] for k, v in state.items()}
+
+
+def _write_state(state: dict, i: int, new: dict) -> None:
+    for k, v in new.items():
+        state[k][i].copy_(v)
+
+
+# -- dense ------------------------------------------------------------------
+
+def _build_dense(cfg: ModelCfg, dev: torch.device) -> Model:
     def init(gen: torch.Generator) -> dict:
-        if gen.device.type != dev.type:
-            raise ValueError(f"init: the generator is on {gen.device}, the "
-                             f"model on {dev}")
+        _check_generator(gen, dev)
         return {
             "embed": init_embed(gen, cfg),
             "layers": [init_dense_block(gen, cfg)
@@ -114,15 +184,8 @@ def build_model(cfg: ModelCfg, device=None) -> Model:
         return apply_norm(cfg, x, params["final_norm"]
                           if cfg.norm == "rmsnorm" else None)
 
-    def _embed_in(params, tokens):
-        x = embed(cfg, params["embed"], tokens)
-        if cfg.pos == "sinusoidal":
-            x = x + sinusoidal_pe(tokens.shape[1], cfg.d_model,
-                                  device=x.device).to(x.dtype)[None]
-        return x
-
     def _stack(params, tokens, cache=None):
-        x = _embed_in(params, tokens)
+        x = _embed_in(cfg, params, tokens)
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         for i, p_l in enumerate(params["layers"]):
             x, (k, v) = dense_block(cfg, p_l, x, pos)
@@ -134,8 +197,7 @@ def build_model(cfg: ModelCfg, device=None) -> Model:
 
     def forward(params, tokens):
         x = _stack(params, tokens)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return lm_logits(cfg, params["embed"], x), aux
+        return lm_logits(cfg, params["embed"], x), _no_aux(x)
 
     def init_cache(batch: int, max_len: int) -> dict:
         return attn.init_kv_cache(cfg, batch, max_len, device=dev)
@@ -156,6 +218,130 @@ def build_model(cfg: ModelCfg, device=None) -> Model:
             x = dense_block_decode(cfg, p_l, x, cache["k"][i],
                                    cache["v"][i], pos)
         x = _final(params, x)
+        return lm_logits(cfg, params["embed"], x), cache
+
+    return Model(cfg, dev, init, forward, init_cache, prefill, decode_step)
+
+
+# -- rwkv6 ------------------------------------------------------------------
+
+def _build_rwkv(cfg: ModelCfg, dev: torch.device) -> Model:
+    def init(gen: torch.Generator) -> dict:
+        _check_generator(gen, dev)
+        return {"embed": init_embed(gen, cfg),
+                "layers": [rk.init_rwkv_block(gen, cfg)
+                           for _ in range(cfg.n_layers)],
+                "final_norm": zeros(gen, (cfg.d_model,), cfg.p_dtype)}
+
+    def _run(params, x, state):
+        """The layer stack from ``state``, which it advances in place."""
+        for i, p_l in enumerate(params["layers"]):
+            x, new = rk.rwkv_block(cfg, p_l, x, _layer_state(state, i),
+                                   chunk=cfg.rwkv.chunk)
+            _write_state(state, i, new)
+        return x
+
+    def forward(params, tokens):
+        x = _embed_in(cfg, params, tokens)
+        x = _run(params, x, rk.init_rwkv_state(cfg, tokens.shape[0],
+                                               device=x.device))
+        x = rmsnorm(x, params["final_norm"])
+        return lm_logits(cfg, params["embed"], x), _no_aux(x)
+
+    def init_cache(batch: int, max_len: int) -> dict:
+        return rk.init_rwkv_state(cfg, batch, device=dev)   # O(1) in max_len
+
+    def prefill(params, tokens, cache):
+        """Logits of the last prompt token; the state advanced over the
+        prompt in place."""
+        x = _run(params, _embed_in(cfg, params, tokens), cache)
+        x = rmsnorm(x[:, -1:], params["final_norm"])
+        return lm_logits(cfg, params["embed"], x), cache
+
+    def decode_step(params, tok, cache, pos):
+        """tok ``[B, 1]`` → logits ``[B, 1, V]``; the state advanced one
+        token in place (``pos`` is not needed)."""
+        x = _run(params, embed(cfg, params["embed"], tok), cache)
+        x = rmsnorm(x, params["final_norm"])
+        return lm_logits(cfg, params["embed"], x), cache
+
+    return Model(cfg, dev, init, forward, init_cache, prefill, decode_step)
+
+
+# -- zamba2 hybrid ----------------------------------------------------------
+
+def _build_hybrid(cfg: ModelCfg, dev: torch.device) -> Model:
+    every = cfg.hybrid_attn_every
+    n_attn = cfg.n_layers // every if every else 0
+
+    def init(gen: torch.Generator) -> dict:
+        _check_generator(gen, dev)
+        return {"embed": init_embed(gen, cfg),
+                "layers": [{"m": m2.init_mamba2(gen, cfg),
+                            "ln": zeros(gen, (cfg.d_model,), cfg.p_dtype)}
+                           for _ in range(cfg.n_layers)],
+                "shared": init_hybrid_shared(gen, cfg),
+                "final_norm": zeros(gen, (cfg.d_model,), cfg.p_dtype)}
+
+    def _run(params, x, state, shared):
+        """Mamba layers from ``state``, which they advance in place; after
+        every ``every``-th layer ``shared(x, ai)`` runs the shared block
+        for its ``ai``-th time."""
+        for li, p_l in enumerate(params["layers"]):
+            y, new = m2.mamba2_block(cfg, p_l["m"], rmsnorm(x, p_l["ln"]),
+                                     _layer_state(state, li))
+            _write_state(state, li, new)
+            x = x + y
+            if every and li % every == every - 1:
+                x = shared(x, li // every)
+        return x
+
+    def forward(params, tokens):
+        x = _embed_in(cfg, params, tokens)
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        x = _run(params, x, m2.init_mamba_state(cfg, tokens.shape[0],
+                                                device=x.device),
+                 lambda x, ai: shared_attn_block(cfg, params["shared"], x,
+                                                 pos)[0])
+        x = rmsnorm(x, params["final_norm"])
+        return lm_logits(cfg, params["embed"], x), _no_aux(x)
+
+    def init_cache(batch: int, max_len: int) -> dict:
+        c = m2.init_mamba_state(cfg, batch, device=dev)
+        c["attn_k"] = torch.zeros(
+            (n_attn, batch, max_len, cfg.n_kv_heads, cfg.head_dim),
+            dtype=cfg.act_dtype, device=dev)
+        c["attn_v"] = torch.zeros_like(c["attn_k"])
+        return c
+
+    def prefill(params, tokens, cache):
+        """Logits of the last prompt token; the state advanced over the
+        prompt and the shared block's k, v written into
+        ``cache["attn_k"/"attn_v"][:, :, :S]``, in place."""
+        S = tokens.shape[1]
+        pos = torch.arange(S, device=tokens.device)
+        state = {k: cache[k] for k in ("conv", "ssm")}
+
+        def shared(x, ai):
+            x, (k, v) = shared_attn_block(cfg, params["shared"], x, pos)
+            cache["attn_k"][ai, :, :S] = k.to(cache["attn_k"].dtype)
+            cache["attn_v"][ai, :, :S] = v.to(cache["attn_v"].dtype)
+            return x
+
+        x = _run(params, _embed_in(cfg, params, tokens), state, shared)
+        x = rmsnorm(x[:, -1:], params["final_norm"])
+        return lm_logits(cfg, params["embed"], x), cache
+
+    def decode_step(params, tok, cache, pos):
+        """tok ``[B, 1]`` at positions ``pos`` ``[B]`` int32 → logits
+        ``[B, 1, V]``; the state advanced one token and the token's k, v
+        written into the shared block's cache, in place."""
+        state = {k: cache[k] for k in ("conv", "ssm")}
+        x = _run(params, embed(cfg, params["embed"], tok), state,
+                 lambda x, ai: shared_attn_decode(
+                     cfg, params["shared"], x, cache["attn_k"][ai],
+                     cache["attn_v"][ai], pos))
+        x = rmsnorm(x, params["final_norm"])
         return lm_logits(cfg, params["embed"], x), cache
 
     return Model(cfg, dev, init, forward, init_cache, prefill, decode_step)

@@ -6,6 +6,9 @@ The shapes, dtypes, decode positions and tolerances are
 bf16 identically on both sides.  The last test holds the CUDA kernels
 against their plain versions and runs only where a card is present.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ from repro.kernels.flash_attention.ops import \
     flash_attention as jax_flash_attention
 from repro.kernels.flash_attention.ref import \
     flash_attention_ref as jax_flash_ref
+from repro_torch import configs
 from repro_torch.kernels.decode_attention import kernel as dk
 from repro_torch.kernels.decode_attention import ops as d_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -127,6 +131,21 @@ def test_wrappers_take_plain_version_only_on_cpu():
         dk.decode_attention(q[:, 0], k, k, pos)
 
 
+def test_head_dims_built_in_both_kernels():
+    """Both CUDA sources instantiate exactly the head dims the wrappers
+    accept, and those cover every served attention (zamba2-2.7b's shared
+    block has Dh = 80)."""
+    csrc = Path(fk.__file__).resolve().parents[2] / "csrc"
+    for name in ("flash_attention", "decode_attention"):
+        src = (csrc / f"{name}.cu").read_text()
+        switch = src[src.index("switch (head_dim)"):]
+        switch = switch[:switch.index("default:")]
+        built = tuple(int(d) for d in re.findall(r"case (\d+):", switch))
+        assert built == fk.HEAD_DIMS, (name, built)
+    for name in ("olmo-1b", "musicgen-large", "zamba2-2.7b"):
+        assert configs.get(name).head_dim in fk.HEAD_DIMS, name
+
+
 def test_cuda_kernels_match_plain_versions():
     """On the card: both kernels against their plain versions at ragged
     and served shapes, f32 at 1e-4 and bf16 at 2e-2."""
@@ -136,14 +155,15 @@ def test_cuda_kernels_match_plain_versions():
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, (dt, _) in DTYPES.items():
         tol = 2e-2 if name == "bf16" else 1e-4
-        for B, S, H, KV, Dh in FLASH_SHAPES + [(1, 777, 16, 16, 128)]:
+        for B, S, H, KV, Dh in FLASH_SHAPES + [(1, 777, 16, 16, 128),
+                                               (1, 777, 32, 32, 80)]:
             q, k, v = (torch.randn((B, S, n, Dh), generator=gen,
                                    device="cuda").to(dt)
                        for n in (H, KV, KV))
             torch.testing.assert_close(
                 fk.flash_attention(q, k, v).float(),
                 flash_attention_ref(q, k, v).float(), rtol=tol, atol=tol)
-        for B, S, H, KV, Dh in DECODE_SHAPES:
+        for B, S, H, KV, Dh in DECODE_SHAPES + [(1, 2048, 32, 32, 80)]:
             q = torch.randn((B, H, Dh), generator=gen, device="cuda").to(dt)
             k, v = (torch.randn((B, S, KV, Dh), generator=gen,
                                 device="cuda").to(dt) for _ in range(2))

@@ -1,0 +1,231 @@
+"""Port recurrent-scan kernels' plain versions against the reference's
+Pallas kernels (interpret mode on the CPU), its models' chunked scans and
+its per-step oracles.
+
+The shapes and chunks are ``tests/test_kernels.py``'s, with its input
+laws; inputs are drawn with numpy.  Tolerances:
+
+* f32 within 1e-4 against the same algorithm in JAX (the per-step
+  oracle against ``wkv6_ref``/``ssd_ref``, the chunked form against the
+  models' ``wkv_chunked``/``ssd_chunked``): the same f32 math in another
+  summation order;
+* f32 within ``tests/test_kernels.py``'s 2e-3 against the interpret-mode
+  Pallas kernel and across algorithms (chunked against per-step);
+* bf16 activations (f32 decay, dt and state) within 6e-2
+  (``tests/test_models.py``'s bf16 tolerance): y is rounded to bf16.
+
+The last test holds the CUDA kernels against their plain versions and
+runs only where a card is present.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.mamba2_ssd.ops import ssd as jax_ssd
+from repro.kernels.mamba2_ssd.ref import ssd_ref as jax_ssd_ref
+from repro.kernels.rwkv6_wkv.ops import wkv6 as jax_wkv6
+from repro.kernels.rwkv6_wkv.ref import wkv6_ref as jax_wkv6_ref
+from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
+from repro.models.rwkv6 import wkv_chunked as jax_wkv_chunked
+from repro_torch.kernels.mamba2_ssd import kernel as sk
+from repro_torch.kernels.mamba2_ssd import ops as s_ops
+from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked_ref, ssd_ref
+from repro_torch.kernels.rwkv6_wkv import kernel as wk
+from repro_torch.kernels.rwkv6_wkv import ops as w_ops
+from repro_torch.kernels.rwkv6_wkv.ref import wkv6_chunked_ref, wkv6_ref
+
+SAME = {"rtol": 1e-4, "atol": 1e-4}
+ACROSS = {"rtol": 2e-3, "atol": 2e-3}
+BF16 = {"rtol": 6e-2, "atol": 6e-2}
+WKV_SHAPES = [(2, 128, 3, 64), (1, 64, 2, 64)]
+SSD_SHAPES = [(2, 128, 4, 32, 16), (1, 64, 2, 16, 8)]
+
+
+def wkv_inputs(shape, seed, state=False):
+    """``tests/test_kernels.py``'s laws: r, k, v ~ N(0, 0.25), lw =
+    -exp(N(0, 1)), u ~ N(0, 0.01); a carry-in state ~ N(0, 1) if asked."""
+    B, T, H, K = shape
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal(shape, np.float32) * 0.5
+               for _ in range(3))
+    lw = -np.exp(rng.standard_normal(shape, np.float32))
+    u = rng.standard_normal((H, K), np.float32) * 0.1
+    s0 = rng.standard_normal((B, H, K, K), np.float32) if state else None
+    return r, k, v, lw, u, s0
+
+
+def ssd_inputs(shape, seed, state=False):
+    """``tests/test_kernels.py``'s laws: x ~ N(0, 1), dt = softplus(N(0,
+    1)), B, C ~ N(0, 0.25), a = -exp(linspace(-1, 1, H)); a carry-in
+    state ~ N(0, 1) if asked."""
+    B, T, H, P, N = shape
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, H, P), np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, T, H), np.float32)))
+    bm, cm = (rng.standard_normal((B, T, N), np.float32) * 0.5
+              for _ in range(2))
+    a = -np.exp(np.linspace(-1, 1, H, dtype=np.float32))
+    h0 = rng.standard_normal((B, H, P, N), np.float32) if state else None
+    return x, dt, bm, cm, a, h0
+
+
+def _t(x, dtype=torch.float32):
+    return None if x is None else torch.from_numpy(x).to(dtype)
+
+
+def _j(x, dtype=jnp.float32):
+    return None if x is None else jnp.asarray(x, dtype)
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _close(got, want, tol):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_f32(g), _f32(w), **tol)
+
+
+# ---------------------------------------------------------------------------
+# WKV-6
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("chunk", [16, 32])
+@pytest.mark.parametrize("shape", WKV_SHAPES, ids=str)
+def test_wkv_plain_matches_pallas_and_oracle(shape, chunk):
+    r, k, v, lw, u, _ = wkv_inputs(shape, shape[1] * shape[2])
+    t_args = [_t(a) for a in (r, k, v, lw, u)]
+    j_args = [_j(a) for a in (r, k, v, lw, u)]
+    step = wkv6_ref(*t_args)
+    chunked = wkv6_chunked_ref(*t_args, chunk=chunk)
+    _close(step, jax_wkv6_ref(*j_args), SAME)
+    zero = jnp.zeros((shape[0], shape[2], shape[3], shape[3]), jnp.float32)
+    _close(chunked, jax_wkv_chunked(*j_args, zero, chunk=chunk), SAME)
+    _close(chunked, jax_wkv6(*j_args, chunk=chunk), ACROSS)
+    _close(chunked, step, ACROSS)
+
+
+@pytest.mark.parametrize("T", [77, 5])
+def test_wkv_plain_ragged_with_carry_in(T):
+    """A ragged tail (T % chunk != 0, and T < chunk) from a nonzero
+    state, against the model's chunked scan and the oracle with ``s0``."""
+    shape = (2, T, 2, 64)
+    r, k, v, lw, u, s0 = wkv_inputs(shape, T, state=True)
+    t_args = [_t(a) for a in (r, k, v, lw, u, s0)]
+    j_args = [_j(a) for a in (r, k, v, lw, u, s0)]
+    chunked = wkv6_chunked_ref(*t_args, chunk=32)
+    assert chunked[0].shape == shape and chunked[1].shape == (2, 2, 64, 64)
+    _close(chunked, jax_wkv_chunked(*j_args, chunk=32), SAME)
+    _close(wkv6_ref(*t_args), jax_wkv6_ref(*j_args), SAME)
+    _close(chunked, jax_wkv6_ref(*j_args), ACROSS)
+
+
+def test_wkv_plain_bf16_matches_model_path():
+    r, k, v, lw, u, s0 = wkv_inputs((1, 96, 2, 64), 3, state=True)
+    got = wkv6_chunked_ref(*(_t(a, torch.bfloat16) for a in (r, k, v)),
+                           *(_t(a) for a in (lw, u, s0)), chunk=32)
+    want = jax_wkv_chunked(*(_j(a, jnp.bfloat16) for a in (r, k, v)),
+                           *(_j(a) for a in (lw, u, s0)), chunk=32)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    _close(got, want, BF16)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=str)
+def test_ssd_plain_matches_pallas_and_oracle(shape, chunk):
+    x, dt, bm, cm, a, _ = ssd_inputs(shape, shape[1] * shape[3])
+    t_args = [_t(z) for z in (x, dt, bm, cm, a)]
+    j_args = [_j(z) for z in (x, dt, bm, cm, a)]
+    step = ssd_ref(*t_args)
+    chunked = ssd_chunked_ref(*t_args, chunk=chunk)
+    _close(step, jax_ssd_ref(*j_args), SAME)
+    B, _, H, P, N = shape
+    zero = jnp.zeros((B, H, P, N), jnp.float32)
+    _close(chunked, jax_ssd_chunked(*j_args, zero, chunk=chunk), SAME)
+    _close(chunked, jax_ssd(*j_args, chunk=chunk), ACROSS)
+    _close(chunked, step, ACROSS)
+
+
+@pytest.mark.parametrize("T", [77, 5])
+def test_ssd_plain_ragged_with_carry_in(T):
+    shape = (2, T, 3, 16, 8)
+    x, dt, bm, cm, a, h0 = ssd_inputs(shape, T, state=True)
+    t_args = [_t(z) for z in (x, dt, bm, cm, a, h0)]
+    j_args = [_j(z) for z in (x, dt, bm, cm, a, h0)]
+    chunked = ssd_chunked_ref(*t_args, chunk=32)
+    assert chunked[0].shape == shape[:4] and chunked[1].shape == (2, 3, 16, 8)
+    _close(chunked, jax_ssd_chunked(*j_args, chunk=32), SAME)
+    _close(ssd_ref(*t_args), jax_ssd_ref(*j_args), SAME)
+    _close(chunked, jax_ssd_ref(*j_args), ACROSS)
+
+
+def test_ssd_plain_bf16_matches_model_path():
+    x, dt, bm, cm, a, h0 = ssd_inputs((1, 96, 2, 32, 16), 4, state=True)
+    got = ssd_chunked_ref(_t(x, torch.bfloat16), _t(dt),
+                          *(_t(z, torch.bfloat16) for z in (bm, cm)),
+                          _t(a), _t(h0), chunk=32)
+    want = jax_ssd_chunked(_j(x, jnp.bfloat16), _j(dt),
+                           *(_j(z, jnp.bfloat16) for z in (bm, cm)),
+                           _j(a), _j(h0), chunk=32)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    _close(got, want, BF16)
+
+
+# ---------------------------------------------------------------------------
+# wrappers and the card
+# ---------------------------------------------------------------------------
+
+def test_wrappers_take_plain_version_only_on_cpu():
+    """``ops`` sends CPU tensors to the plain chunked form (no launch
+    counted); the kernel bindings refuse CPU tensors with a named error."""
+    w_args = [_t(a) for a in wkv_inputs((1, 40, 2, 64), 1, state=True)]
+    s_args = [_t(z) for z in ssd_inputs((1, 40, 2, 16, 8), 1, state=True)]
+    before = (wk.wkv6.launches, sk.ssd.launches)
+    _close(w_ops.wkv6(*w_args, chunk=16),
+           wkv6_chunked_ref(*w_args, chunk=16), {"rtol": 0, "atol": 0})
+    _close(s_ops.ssd(*s_args, chunk=16), ssd_chunked_ref(*s_args, chunk=16),
+           {"rtol": 0, "atol": 0})
+    assert (wk.wkv6.launches, sk.ssd.launches) == before
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        wk.wkv6(*w_args)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sk.ssd(*s_args)
+
+
+def test_cuda_kernels_match_plain_versions():
+    """On the card: both scan kernels against their plain chunked forms,
+    f32 within 1e-4 and bf16 activations within 2e-2 (y) and 2e-3 (the
+    f32 state), at ragged and served shapes, with and without a carry-in
+    state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; python3 chip_smoke.py runs the "
+                    "full check there")
+    for dt, y_tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        s_tol = 1e-4 if dt == torch.float32 else 2e-3
+        for shape, chunk, state in (((2, 128, 3, 64), 16, False),
+                                    ((1, 777, 40, 64), 32, True)):
+            args = [_t(a).cuda() if a is not None else None
+                    for a in wkv_inputs(shape, 0, state)]
+            args[:3] = [a.to(dt) for a in args[:3]]
+            got = wk.wkv6(*args, chunk=chunk)
+            want = wkv6_chunked_ref(*args, chunk=chunk)
+            for g, w, tol in zip(got, want, (y_tol, s_tol)):
+                torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                           atol=tol)
+        for shape, chunk, state in (((2, 128, 4, 32, 16), 32, False),
+                                    ((1, 777, 80, 64, 64), 128, True)):
+            args = [_t(z).cuda() if z is not None else None
+                    for z in ssd_inputs(shape, 0, state)]
+            args[0], args[2], args[3] = (args[i].to(dt) for i in (0, 2, 3))
+            got = sk.ssd(*args, chunk=chunk)
+            want = ssd_chunked_ref(*args, chunk=chunk)
+            for g, w, tol in zip(got, want, (y_tol, s_tol)):
+                torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                           atol=tol)

@@ -1,11 +1,13 @@
 """Port serving backend against the JAX package's ``repro.serving.backends``
-on the smoke configs of the two served models, on the CPU.
+on the smoke configs of the served models (dense: olmo-1b, musicgen-large;
+recurrent: rwkv6-3b, zamba2-2.7b), on the CPU.
 
 * ``Executor.run``: the same greedy tokens at ``dtype="float32"``, with
   the reference's parameters carried across; every step's logits within
   1e-4 (f32 across frameworks, another summation order).
 * ``HermesFrontend``: the same (worker, cold) sequence as the reference's
-  frontend over 6 requests, for ``H``, ``LL`` and ``LOC``, with the same
+  frontend over 6 requests alternating two models (the dense pair, or the
+  recurrent pair), for ``H``, ``LL`` and ``LOC``, with the same
   background loads (one worker slot-full in turn) set on the workers
   before each dispatch.
 """
@@ -26,6 +28,7 @@ from repro_torch.kernels.hermes_select import kernel as hk
 from repro_torch.serving import backends as tb
 
 SERVED = ("olmo-1b", "musicgen-large")
+RECURRENT = ("rwkv6-3b", "zamba2-2.7b")
 F32 = {"rtol": 1e-4, "atol": 1e-4}
 
 
@@ -37,9 +40,9 @@ def _cfgs(name, dtype="float32"):
 
 def _registries(dtype="float32"):
     """A reference registry and a port registry that serve the same
-    parameters (the reference's init at seeds 0 and 1)."""
+    parameters (the reference's init at seeds 0 to 3)."""
     jreg, treg = jb.ModelRegistry(), tb.ModelRegistry()
-    for seed, name in enumerate(SERVED):
+    for seed, name in enumerate(SERVED + RECURRENT):
         jcfg, tcfg = _cfgs(name, dtype)
         jreg.register(name, jcfg, seed=seed)
         _, jparams = jreg.build(name)
@@ -57,7 +60,7 @@ def _prompt(name, vocab, n=21, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, n)
 
 
-@pytest.mark.parametrize("name", SERVED)
+@pytest.mark.parametrize("name", SERVED + RECURRENT)
 def test_executor_matches_reference(name, registries):
     jreg, treg = registries
     jex = jb.Executor(jreg, name, max_len=48)
@@ -98,8 +101,11 @@ def test_executor_refuses_prompt_past_max_len(registries):
                               n_new=5))
 
 
-@pytest.mark.parametrize("balancer", ["H", "LL", "LOC"])
-def test_frontend_decisions_match_reference(balancer, registries,
+@pytest.mark.parametrize("balancer,models", [
+    *(pytest.param(b, SERVED, id=b) for b in ("H", "LL", "LOC")),
+    *(pytest.param(b, RECURRENT, id=f"{b}-recurrent")
+      for b in ("H", "LL", "LOC"))])
+def test_frontend_decisions_match_reference(balancer, models, registries,
                                             monkeypatch):
     """(worker, cold) of 6 alternating requests, with background loads
     drawn per dispatch and set on both frontends' workers.  The reference's
@@ -122,7 +128,7 @@ def test_frontend_decisions_match_reference(balancer, registries,
     rng = np.random.default_rng(3)
     seq = []
     for i in range(6):
-        name = SERVED[i % 2]
+        name = models[i % 2]
         loads = rng.integers(0, 6, 3)
         loads[i % 3] = 16                       # one slot-full worker
         for fe in (jfe, tfe):
