@@ -34,10 +34,13 @@ non-zero):
    rounded to bf16): ``flash_attention`` at ``tests/test_kernels.py``'s
    shapes, qwen3-14b (GQA) and granite-20b (MQA) attention and the served
    prompt shapes; ``decode_attention`` at ``tests/test_kernels.py``'s
-   shapes and the served cache (S_max = 2048, pos ∈ {0, 776, 2047});
-   CUDA-event times of the kernel, the plain version and
+   shapes, two batched caches whose splits span several chunks, and the
+   served cache (S_max = 2048, pos ∈ {0, 776, 2047});
+   both wrappers refuse a cache (or bf16 input) that is not 16-byte
+   aligned; CUDA-event times of the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (the library yardstick, used nowhere
-   in the port) beside each kernel's bound;
+   in the port) beside each kernel's bound and its time before the
+   redesign (``BEFORE_REDESIGN_MS``);
 7. the serving path at full width: a ``HermesFrontend`` on ``cuda`` (2
    workers × 2 cores, ``max_len`` 2048) serving ``olmo-1b`` (seed 0) and
    ``musicgen-large`` (seed 1) with ``attn_impl="pallas"``, 12 alternating
@@ -45,8 +48,10 @@ non-zero):
    tokens each; all five launch counts are zeroed just before and must
    be Σ L × (requests + cold starts) for ``flash_attention``,
    Σ L × (32 × requests + cold starts) for ``decode_attention``, 12 for
-   ``hermes_select`` and 0 for the scans; 7b. a profiled stretch of decode steps: the device's
-   busy and idle share and its costliest kernels;
+   ``hermes_select`` and 0 for the scans; 7b. a profiled stretch of decode
+   steps: the device's busy and idle share, its costliest kernels, and
+   ``decode_attention``'s device time per call inside the step (its split
+   and combine kernels);
 8. prefill plus 16 teacher-forced decode steps through the cache against
    the plain path's full forward (``attn_impl="naive"``, same parameters)
    over the same 793 tokens, for both models at full width: in f32 within
@@ -476,9 +481,12 @@ FLASH_CASES = ((2, 256, 4, 2, 64), (1, 128, 8, 8, 128), (2, 256, 4, 1, 128),
                (1, 777, 32, 32, 64), (1, 777, 32, 32, 80),
                (1, 1500, 32, 32, 80))
 #: (B, S_max, H, KV, Dh, pos): tests/test_kernels.py's shapes with its
-#: draw of pos (None), the GQA/MQA heads, and the served caches
+#: draw of pos (None), the GQA/MQA heads, batched caches whose splits hold
+#: several chunks (the kernel's two-stage ring, with one and with several
+#: p.V units per thread), and the served caches
 DECODE_CASES = ((2, 512, 4, 2, 64, None), (3, 256, 8, 1, 128, None),
                 (1, 2048, 40, 8, 128, 776), (1, 2048, 48, 1, 128, 776),
+                (8, 2048, 32, 8, 128, None), (40, 2048, 16, 1, 128, None),
                 *((1, 2048, 16, 16, 128, p) for p in (0, 776, 2047)),
                 *((1, 2048, 32, 32, 64, p) for p in (0, 776, 2047)),
                 *((1, 2048, 32, 32, 80, p) for p in (0, 776, 2047)))
@@ -489,6 +497,13 @@ FLASH_TIMED = ((1, 777, 16, 16, 128), (1, 1500, 16, 16, 128),
 DECODE_TIMED = ((1, 2048, 16, 16, 128, 776), (1, 2048, 16, 16, 128, 2047),
                 (1, 2048, 32, 32, 64, 776), (1, 2048, 32, 32, 64, 2047),
                 (1, 2048, 32, 32, 80, 776), (1, 2048, 32, 32, 80, 2047))
+#: device times (ms) of the attention kernels before their redesign (the
+#: CUDA-core flash kernel; the decode kernel with one block per KV head) at
+#: the timed shapes above, in order: bf16, CUDA-graph replay, NVIDIA H100
+#: 80GB HBM3 at 700.00 W, as PERF.md §6 records them
+BEFORE_REDESIGN_MS = {
+    "flash_attention": (0.2827, 0.6731, 0.2512, 0.6906, 0.3331, 0.9526),
+    "decode_attention": (0.1212, 0.3057, 0.0715, 0.1804, 0.0839, 0.2109)}
 SERVED = (("olmo-1b", 0), ("musicgen-large", 1))
 #: phase 10's models and weight seeds
 RECURRENT = (("rwkv6-3b", 2), ("zamba2-2.7b", 3))
@@ -551,6 +566,7 @@ def attention_kernels(torch, np, report):
             want = decode_attention_ref(q, k, v, pos)
             cases.append(("decode_attention", dtype, case, got, want, tol))
     torch.cuda.synchronize()
+    refused = misaligned_refused(torch, fk, dk)
     errs = {"flash_attention": {}, "decode_attention": {}}
     for name, dtype, case, got, want, tol in cases:
         err = float((got.float() - want.float()).abs().max())
@@ -608,14 +624,57 @@ def attention_kernels(torch, np, report):
             size * (2 * B * (pos + 1) * KV * Dh + 2 * B * H * Dh) + 4 * B)
         timings["decode_attention"].append(row)
     for name, rows in timings.items():
-        for row in rows:
+        for row, before in zip(rows, BEFORE_REDESIGN_MS[name]):
+            row["before_redesign_ms"] = before
             log(f"{name} bf16 {row['case']}: kernel {row['ms']:.4f} ms on "
-                f"the card ({row['call_ms']:.4f} ms per call from Python), "
+                f"the card ({row['call_ms']:.4f} ms per call from Python; "
+                f"before the redesign {before:.4f} ms, "
+                f"{before / row['ms']:.2f}x), "
                 f"plain {row['plain_ms']:.4f} ms, SDPA "
-                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}); CUDA-graph replay, CUDA events")
-    report["attention"] = dict(max_abs_err=errs, timings=timings)
+                f"{row['library_ms']:.4f} ms "
+                f"({row['ms'] / row['library_ms']:.2f}x), bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                f"{row['ms'] / row['bound_ms']:.1f}x); CUDA-graph replay, "
+                f"CUDA events")
+    report["attention"] = dict(max_abs_err=errs, timings=timings,
+                               refused=refused)
     return timings
+
+
+def misaligned_refused(torch, fk, dk):
+    """Both wrappers refuse a cache (or bf16 input) that their 16-byte
+    copies cannot read: a view one element off a 16-byte boundary, and a
+    row stride that is not a multiple of 8 elements.  Returns the
+    messages."""
+    B, S, KV, Dh = 1, 256, 2, 64
+    shape = (B, S, KV, Dh)
+    flat = torch.zeros(1 + B * S * KV * Dh, dtype=torch.bfloat16,
+                       device="cuda")
+    wide = torch.zeros((B, S, KV, Dh + 1), dtype=torch.bfloat16, device="cuda")
+    good = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+    q = torch.zeros((B, 2 * KV, Dh), dtype=torch.bfloat16, device="cuda")
+    pos = torch.full((B,), S - 1, dtype=torch.int32, device="cuda")
+    cases = {
+        "decode_attention, cache one element off": lambda: dk.decode_attention(
+            q, flat[1:].view(shape), good, pos),
+        "decode_attention, row stride Dh + 1": lambda: dk.decode_attention(
+            q, good, wide[..., :Dh], pos),
+        "flash_attention, k one element off": lambda: fk.flash_attention(
+            good, flat[1:].view(shape), good),
+    }
+    out = {}
+    for what, call in cases.items():
+        before = (dk.decode_attention.launches, fk.flash_attention.launches)
+        try:
+            call()
+        except fk.UnsupportedShapeError as e:
+            out[what] = str(e)
+        check(what in out, f"{what}: the wrapper did not refuse it")
+        check((dk.decode_attention.launches,
+               fk.flash_attention.launches) == before,
+              f"{what}: a refused call counted a launch")
+        log(f"refused as it should be: {what} ({out[what][:60]}...)")
+    return out
 
 
 def _counters():
@@ -762,7 +821,17 @@ def profile_decode(torch, report, fe, served, key):
         for e in top:
             log(f"  {e.key[:70]}: {e.count} calls, "
                 f"{e.self_device_time_total / 8e3:.3f} ms per step")
-        out[name] = dict(wall_us_per_step=wall_us / 8,
+        # decode attention inside the step: split + combine kernels per call
+        attn = [e for e in kernels if "decode_attention" in e.key]
+        calls = sum(e.count for e in attn if "split" in e.key)
+        attn_ms = (sum(e.self_device_time_total for e in attn) / calls / 1e3
+                   if calls else None)
+        if calls:
+            log(f"  decode_attention in the step: {calls // 8} calls per "
+                f"step, {attn_ms:.4f} ms per call (split and combine kernels,"
+                f" profiler device time)")
+        out[name] = dict(decode_attention_ms_per_call=attn_ms,
+                         wall_us_per_step=wall_us / 8,
                          wall_us_per_step_profiler_off=plain_us / 8,
                          busy_us_per_step=busy / 8,
                          launches_per_step=sum(e.count for e in kernels) / 8,

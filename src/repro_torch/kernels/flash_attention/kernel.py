@@ -18,10 +18,13 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (32, 64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: 64-row query tiles on CUDA's y grid axis (at most 65535)
+MAX_SEQ = 65535 * 64
 
 
 class UnsupportedShapeError(ValueError):
-    """The kernel is not built for this head dim, dtype or head grouping."""
+    """The kernel is not built for this head dim, dtype, head grouping or
+    alignment."""
 
 
 @functools.cache
@@ -57,11 +60,27 @@ def check_inputs(name: str, q, kvs, *, q_ndim: int):
                                     f"built; choose from {HEAD_DIMS}")
 
 
+def check_aligned(name: str, xs):
+    """The contract of the kernels' 16-byte copies (``cp.async``): every
+    data pointer 16-byte aligned and every (b, s, h) stride a multiple of
+    8 elements."""
+    for x in xs:
+        if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
+            raise UnsupportedShapeError(
+                f"{name}: needs 16-byte aligned data and (b, s, h) strides "
+                f"that are multiples of 8 elements, got data at "
+                f"{x.data_ptr():#x} with strides {x.stride()}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """Causal attention.  q ``[B,S,H,Dh]``, k/v ``[B,S,KV,Dh]`` on one CUDA
-    device, any (b, s, h) strides, head dim contiguous → o ``[B,S,H,Dh]``
-    (contiguous, q's dtype)."""
+    device, (b, s, h) strides of the caller's choosing, head dim
+    contiguous → o ``[B,S,H,Dh]`` (contiguous, q's dtype).  The bf16
+    kernel copies rows in 16-byte pieces, so there the data must be
+    16-byte aligned and the strides multiples of 8 elements."""
     check_inputs("flash_attention", q, (k, v), q_ndim=4)
+    if q.dtype == torch.bfloat16:
+        check_aligned("flash_attention", (q, k, v))
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     if k.shape != (B, S, KV, Dh) or v.shape != k.shape:
@@ -71,9 +90,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     if KV < 1 or H % KV != 0:
         raise UnsupportedShapeError(f"flash_attention: H={H} is not a "
                                     f"multiple of KV={KV}")
-    if S < 1 or B > 65535 or H > 65535:
-        raise UnsupportedShapeError(f"flash_attention: needs S >= 1 and B, "
-                                    f"H <= 65535, got {tuple(q.shape)}")
+    if not 1 <= S <= MAX_SEQ or B > 65535 or H > 65535:
+        raise UnsupportedShapeError(f"flash_attention: needs 1 <= S <= "
+                                    f"{MAX_SEQ} and B, H <= 65535, got "
+                                    f"{tuple(q.shape)}")
     o = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(x.stride(i) for x in (q, k, v, o) for i in range(3)))

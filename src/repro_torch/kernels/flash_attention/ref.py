@@ -28,3 +28,33 @@ def flash_attention_ref(q, k, v):
     a = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,btkd->bqkgd", a, v.float())
     return o.reshape(B, S, H, Dh).to(q.dtype)
+
+
+def flash_attention_tiled_ref(q, k, v, block=64):
+    """The bf16 kernel's arithmetic in plain torch: key tiles of ``block``
+    rows, an online softmax with f32 m, l and acc, and p rounded to q's
+    dtype before ``p·V`` (l sums the unrounded p).  In f32 the rounding is
+    the identity and this is :func:`flash_attention_ref`'s function; in
+    bf16 it is the kernel's divergence from the Pallas kernel, which keeps
+    p in f32."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    qf = q.float().reshape(B, S, KV, H // KV, Dh)
+    rows = torch.arange(S, device=q.device)
+    m = torch.full((B, KV, H // KV, S), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KV, H // KV, S, Dh), device=q.device)
+    for k0 in range(0, S, block):
+        k1 = min(k0 + block, S)
+        s = torch.einsum("bqkgd,btkd->bkgqt", qf, k[:, k0:k1].float()) \
+            / math.sqrt(Dh)
+        s = torch.where(rows[:, None] >= rows[None, k0:k1], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqt,btkd->bkgqd", p.to(q.dtype).float(), v[:, k0:k1].float())
+        m = m_new
+    o = acc / l.clamp_min(1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh).to(q.dtype)

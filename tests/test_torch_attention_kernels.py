@@ -133,15 +133,18 @@ def test_wrappers_take_plain_version_only_on_cpu():
 
 def test_head_dims_built_in_both_kernels():
     """Both CUDA sources instantiate exactly the head dims the wrappers
-    accept, and those cover every served attention (zamba2-2.7b's shared
-    block has Dh = 80)."""
+    accept, in every ``switch (head_dim)`` (the flash source has one for
+    its f32 kernel and one for its bf16 kernel), and those cover every
+    served attention (zamba2-2.7b's shared block has Dh = 80)."""
     csrc = Path(fk.__file__).resolve().parents[2] / "csrc"
-    for name in ("flash_attention", "decode_attention"):
+    for name, n_switches in (("flash_attention", 2), ("decode_attention", 1)):
         src = (csrc / f"{name}.cu").read_text()
-        switch = src[src.index("switch (head_dim)"):]
-        switch = switch[:switch.index("default:")]
-        built = tuple(int(d) for d in re.findall(r"case (\d+):", switch))
-        assert built == fk.HEAD_DIMS, (name, built)
+        switches = src.split("switch (head_dim)")[1:]
+        assert len(switches) == n_switches, (name, len(switches))
+        for switch in switches:
+            switch = switch[:switch.index("default:")]
+            built = tuple(int(d) for d in re.findall(r"case (\d+):", switch))
+            assert built == fk.HEAD_DIMS, (name, built)
     for name in ("olmo-1b", "musicgen-large", "zamba2-2.7b"):
         assert configs.get(name).head_dim in fk.HEAD_DIMS, name
 
