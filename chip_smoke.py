@@ -10,7 +10,8 @@ non-zero):
 
 1. environment: python/torch/CUDA versions, the card's name and power
    limit as ``nvidia-smi`` reports them, capability (9, 0);
-2. build: every ``src/repro_torch/csrc/*.cu`` with ``nvcc`` (in parallel);
+2. build: every ``src/repro_torch/csrc/*.cu`` with ``nvcc`` (in parallel),
+   each kernel's registers and spills as ``ptxas`` reports them;
 3. kernel against its plain version on the card: ``hermes_select`` at
    W ∈ {100, 1000}, R ∈ {1, 8}, N ∈ {1, 256}, random and edge states,
    exactly equal; CUDA-event times of both at the main path's shape
@@ -32,15 +33,16 @@ non-zero):
    (atol = rtol = 1e-4: the same f32 math in another summation order) and
    bf16 (2e-2, ``tests/test_kernels.py``'s bf16 tolerance: the output is
    rounded to bf16): ``flash_attention`` at ``tests/test_kernels.py``'s
-   shapes, qwen3-14b (GQA) and granite-20b (MQA) attention and the served
-   prompt shapes; ``decode_attention`` at ``tests/test_kernels.py``'s
+   shapes, qwen3-14b (GQA) and granite-20b (MQA) attention, the served
+   prompt shapes and gemma-2b's (Dh = 256, 8 query heads on 1 KV head, S ∈
+   {777, 1500}); ``decode_attention`` at ``tests/test_kernels.py``'s
    shapes, two batched caches whose splits span several chunks, and the
-   served cache (S_max = 2048, pos ∈ {0, 776, 2047});
+   served caches and gemma-2b's (S_max = 2048, pos ∈ {0, 776, 2047});
    both wrappers refuse a cache (or bf16 input) that is not 16-byte
    aligned; CUDA-event times of the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (the library yardstick, used nowhere
    in the port) beside each kernel's bound and its time before the
-   redesign (``BEFORE_REDESIGN_MS``);
+   redesign (``BEFORE_REDESIGN_MS``), gemma-2b's shapes among them;
 7. the serving path at full width: a ``HermesFrontend`` on ``cuda`` (2
    workers × 2 cores, ``max_len`` 2048) serving ``olmo-1b`` (seed 0) and
    ``musicgen-large`` (seed 1) with ``attn_impl="pallas"``, 12 alternating
@@ -54,7 +56,8 @@ non-zero):
    and combine kernels);
 8. prefill plus 16 teacher-forced decode steps through the cache against
    the plain path's full forward (``attn_impl="naive"``, same parameters)
-   over the same 793 tokens, for both models at full width: in f32 within
+   over the same 793 tokens, for both models and for gemma-2b (seed 4,
+   its attention at Dh = 256), at full width: in f32 within
    1e-4 × max |logit|, and in the served bf16 within 6e-2 × max |logit|
    (``tests/test_models.py``'s bf16 tolerance between attention
    implementations, scaled to the logits);
@@ -64,7 +67,9 @@ non-zero):
    nonzero carry-in state, in f32 (y and state within 1e-4, and within
    2e-3 of the per-step oracle) and with bf16 activations (y within 2e-2,
    the f32 state within 2e-3); CUDA-graph times of both beside the plain
-   version and the bound at T ∈ {777, 1500};
+   version, the bound and (for ``mamba2_ssd``) its time before the
+   redesign at T ∈ {777, 1500}, and the device launches per call (kernel
+   nodes of one call captured in a CUDA graph);
 10. the recurrent serving path at full width: a fresh ``HermesFrontend``
     serving ``rwkv6-3b`` (seed 2) and ``zamba2-2.7b`` (seed 3) as in
     phase 7 (prompts from ``default_rng(2)``), with the exact launch
@@ -73,7 +78,8 @@ non-zero):
 11. phase 8's check for both recurrent models: prefill runs the scan
     kernels over the prompt and hands their final state to the plain step
     recurrence, the full forward runs the kernels over all tokens (and the
-    plain attention for zamba2's shared block).
+    plain attention for zamba2's shared block); zamba2-2.7b's ratios beside
+    those read before the SSD kernel's redesign (``BEFORE_RATIO``).
 
 TF32 is off for matrix products and cuDNN throughout.  The line before the
 last is ``{"kernels": [...]}``; the last line is
@@ -155,15 +161,39 @@ def environment(torch, report):
     report["card"] = card
 
 
+def ptxas_resources(text: str) -> list[tuple[str, str, str]]:
+    """(kernel, registers, spills) of each entry function in ``nvcc
+    -Xptxas -v`` output, names demangled where ``c++filt`` is found."""
+    import re
+    import shutil
+    rows, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            rows.append((name, line.split(":", 1)[1].strip(), spill))
+            name = None
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(rows):
+            rows = [(n.replace("(anonymous namespace)::", ""), *r[1:])
+                    for n, r in zip(names, rows)]
+    return rows
+
+
 def build(report):
     from repro_torch.kernels import _build
     secs = _build.build_all()
     for name, s in secs.items():
         log(f"built {name}.cu in {s:.2f} s")
         ptxas = _build.library_path(name).with_suffix(".log").read_text()
-        for line in ptxas.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {line.strip()}")
+        for kernel, regs, spill in ptxas_resources(ptxas):
+            log(f"  {kernel.split('(')[0]}: {regs}; {spill}")
     report["build_s"] = secs
 
 
@@ -473,23 +503,26 @@ def end_to_end(torch, np, report, cluster):
 
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: (B, S, H, KV, Dh): tests/test_kernels.py's shapes, qwen3-14b (GQA) and
-#: granite-20b (MQA) attention, and the served prompt shapes (zamba2-2.7b's
-#: shared attention at Dh = 80 among them)
+#: granite-20b (MQA) attention, the served prompt shapes (zamba2-2.7b's
+#: shared attention at Dh = 80 among them) and gemma-2b's (Dh = 256, 8
+#: query heads on 1 KV head)
 FLASH_CASES = ((2, 256, 4, 2, 64), (1, 128, 8, 8, 128), (2, 256, 4, 1, 128),
                (1, 192, 6, 2, 32), (1, 777, 40, 8, 128), (1, 777, 48, 1, 128),
                (1, 777, 16, 16, 128), (1, 1500, 16, 16, 128),
                (1, 777, 32, 32, 64), (1, 777, 32, 32, 80),
-               (1, 1500, 32, 32, 80))
+               (1, 1500, 32, 32, 80), (1, 777, 8, 1, 256),
+               (1, 1500, 8, 1, 256))
 #: (B, S_max, H, KV, Dh, pos): tests/test_kernels.py's shapes with its
 #: draw of pos (None), the GQA/MQA heads, batched caches whose splits hold
 #: several chunks (the kernel's two-stage ring, with one and with several
-#: p.V units per thread), and the served caches
+#: p.V units per thread), the served caches and gemma-2b's
 DECODE_CASES = ((2, 512, 4, 2, 64, None), (3, 256, 8, 1, 128, None),
                 (1, 2048, 40, 8, 128, 776), (1, 2048, 48, 1, 128, 776),
                 (8, 2048, 32, 8, 128, None), (40, 2048, 16, 1, 128, None),
                 *((1, 2048, 16, 16, 128, p) for p in (0, 776, 2047)),
                 *((1, 2048, 32, 32, 64, p) for p in (0, 776, 2047)),
-                *((1, 2048, 32, 32, 80, p) for p in (0, 776, 2047)))
+                *((1, 2048, 32, 32, 80, p) for p in (0, 776, 2047)),
+                *((1, 2048, 8, 1, 256, p) for p in (0, 776, 2047)))
 #: the timed shapes (bf16, as served): the headline of each kernel first
 FLASH_TIMED = ((1, 777, 16, 16, 128), (1, 1500, 16, 16, 128),
                (1, 777, 32, 32, 64), (1, 1500, 32, 32, 64),
@@ -497,14 +530,25 @@ FLASH_TIMED = ((1, 777, 16, 16, 128), (1, 1500, 16, 16, 128),
 DECODE_TIMED = ((1, 2048, 16, 16, 128, 776), (1, 2048, 16, 16, 128, 2047),
                 (1, 2048, 32, 32, 64, 776), (1, 2048, 32, 32, 64, 2047),
                 (1, 2048, 32, 32, 80, 776), (1, 2048, 32, 32, 80, 2047))
-#: device times (ms) of the attention kernels before their redesign (the
-#: CUDA-core flash kernel; the decode kernel with one block per KV head) at
-#: the timed shapes above, in order: bf16, CUDA-graph replay, NVIDIA H100
-#: 80GB HBM3 at 700.00 W, as PERF.md §6 records them
+#: gemma-2b's shapes (Dh = 256, 8 query heads on 1 KV head), timed after
+#: the served ones; phase 7 does not serve it, and its one-KV-head cache
+#: fills 32 split blocks, not the card
+GEMMA_FLASH_TIMED = ((1, 777, 8, 1, 256), (1, 1500, 8, 1, 256))
+GEMMA_DECODE_TIMED = ((1, 2048, 8, 1, 256, 776), (1, 2048, 8, 1, 256, 2047))
+#: device times (ms) of the kernels before their redesign at the first
+#: timed shapes of each, in order (the attention kernels: the CUDA-core
+#: flash kernel and the decode kernel with one block per KV head; the SSD
+#: scan: one block per (b, h) walking the chunks): bf16,
+#: CUDA-graph replay, NVIDIA H100 80GB HBM3 at 700.00 W, as PERF.md §6
+#: records them.  A shape with none (gemma-2b's) was not built before.
 BEFORE_REDESIGN_MS = {
     "flash_attention": (0.2827, 0.6731, 0.2512, 0.6906, 0.3331, 0.9526),
-    "decode_attention": (0.1212, 0.3057, 0.0715, 0.1804, 0.0839, 0.2109)}
+    "decode_attention": (0.1212, 0.3057, 0.0715, 0.1804, 0.0839, 0.2109),
+    "mamba2_ssd": (0.9536, 1.7331)}
 SERVED = (("olmo-1b", 0), ("musicgen-large", 1))
+#: phase 8's models: the served ones and gemma-2b (Dh = 256, MQA, GeGLU),
+#: which phase 7 does not serve
+CHECKED_DENSE = (*SERVED, ("gemma-2b", 4))
 #: phase 10's models and weight seeds
 RECURRENT = (("rwkv6-3b", 2), ("zamba2-2.7b", 3))
 N_REQUESTS = 12
@@ -514,6 +558,10 @@ PROMPT_MIN, PROMPT_MAX = 200, 1500
 CHECK_PROMPT, CHECK_STEPS = 777, 16
 #: phase 8's bound on max |Δ logit| / max |logit| for each dtype
 MODEL_TOL = {"float32": 1e-4, "bfloat16": 6e-2}
+#: phase 11's ratios before the SSD kernel's redesign (PERF.md §6):
+#: zamba2-2.7b's bf16 ratio is the one a rounding change would move
+BEFORE_RATIO = {"zamba2-2.7b bfloat16": 5.08e-2,
+                "zamba2-2.7b float32": 1.06e-5}
 
 
 def _bound(flops: float, nbytes: float, exps: float = 0.0):
@@ -583,7 +631,7 @@ def attention_kernels(torch, np, report):
 
     timings = {"flash_attention": [], "decode_attention": []}
     dt, size = torch.bfloat16, 2
-    for case in FLASH_TIMED:
+    for case in FLASH_TIMED + GEMMA_FLASH_TIMED:
         B, S, H, KV, Dh = case
         q, k, v = _flash_inputs(torch, gen, case, dt)
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -602,7 +650,7 @@ def attention_kernels(torch, np, report):
         row["bound_ms"], row["bound_by"] = _bound(
             2 * B * H * S * S * Dh, size * B * S * Dh * (2 * H + 2 * KV))
         timings["flash_attention"].append(row)
-    for case in DECODE_TIMED:
+    for case in DECODE_TIMED + GEMMA_DECODE_TIMED:
         B, S, H, KV, Dh, pos = case
         q, k, v, p = _decode_inputs(torch, gen, np, case, dt)
         qh = q[:, :, None].contiguous()
@@ -624,12 +672,15 @@ def attention_kernels(torch, np, report):
             size * (2 * B * (pos + 1) * KV * Dh + 2 * B * H * Dh) + 4 * B)
         timings["decode_attention"].append(row)
     for name, rows in timings.items():
-        for row, before in zip(rows, BEFORE_REDESIGN_MS[name]):
+        befores = BEFORE_REDESIGN_MS[name]
+        for i, row in enumerate(rows):
+            before = befores[i] if i < len(befores) else None
             row["before_redesign_ms"] = before
             log(f"{name} bf16 {row['case']}: kernel {row['ms']:.4f} ms on "
                 f"the card ({row['call_ms']:.4f} ms per call from Python; "
-                f"before the redesign {before:.4f} ms, "
-                f"{before / row['ms']:.2f}x), "
+                + (f"before the redesign {before:.4f} ms, "
+                   f"{before / row['ms']:.2f}x" if before else
+                   "not built before the redesign") + "), "
                 f"plain {row['plain_ms']:.4f} ms, SDPA "
                 f"{row['library_ms']:.4f} ms "
                 f"({row['ms'] / row['library_ms']:.2f}x), bound "
@@ -880,10 +931,13 @@ def prefill_decode_vs_forward(torch, np, report, served, key):
                   f"{tuple(want.shape)} or not finite")
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
+            before = BEFORE_RATIO.get(f"{name} {dtype}")
             log(f"{name} {dtype}: prefill of {CHECK_PROMPT} + {CHECK_STEPS} "
                 f"decode steps vs the plain forward over {n} tokens: max "
                 f"|Δ| {err:.4e}, max |logit| {scale:.4f}, ratio "
-                f"{err / scale:.3e} (bound {tol:g})")
+                f"{err / scale:.3e} (bound {tol:g}"
+                + (f"; before the SSD redesign: {before:.3g})" if before
+                   else ")"))
             check(err <= tol * scale, f"{name} {dtype}: kernel path != plain "
                                       f"forward ({err} > {tol} × {scale})")
             out[f"{name} {dtype}"] = dict(max_abs_err=err, max_abs_logit=scale,
@@ -983,6 +1037,59 @@ def _ssd_inputs(torch, gen, case, dt):
     return x, dt_h, bm, cm, a, h0
 
 
+def device_launches(torch, fn) -> int:
+    """Kernels the card runs per call of ``fn``: the kernel nodes of one
+    call captured in a CUDA graph, counted with libcuda's
+    ``cuGraphGetNodes``.  The wrappers allocate from PyTorch's caching
+    allocator, which adds no node."""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    kernels, kind = 0, ctypes.c_int()
+    for node in nodes:
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        kernels += kind.value == 0     # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
+
+
+def kernel_device_us(torch, fn, calls=10) -> dict:
+    """Mean device time of each kernel that ``fn`` launches once per call
+    (µs per launch, over the launches ``torch.profiler`` recorded in
+    ``calls`` calls after a warm-up call; late in the script it records
+    only some of them, and none may be seen), by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type.name != "CPU" and e.self_device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0].split("<")[0]
+            out[name] = e.self_device_time_total / e.count
+    return out
+
+
 def scan_kernels(torch, report):
     """Phase 9: both scan kernels against their plain chunked forms (and,
     in f32, the per-step oracles), and their times beside the plain
@@ -1049,14 +1156,30 @@ def scan_kernels(torch, report):
                        plain_ms=device_ms(torch, lambda: plain(
                            *args, chunk=chunk), 3))
             flops, exps, nbytes = work(*case[:-1], size, case[-1])
-            row.update(flops=flops, exps=exps, bytes=nbytes)
+            row.update(flops=flops, exps=exps, bytes=nbytes,
+                       device_launches=device_launches(
+                           torch, lambda: kern(*args, chunk=chunk)),
+                       kernel_us=kernel_device_us(
+                           torch, lambda: kern(*args, chunk=chunk)))
             row["bound_ms"], row["bound_by"] = _bound(flops, nbytes, exps)
+            befores = BEFORE_REDESIGN_MS.get(name, ())
+            before = befores[len(timings[name])] \
+                if len(timings[name]) < len(befores) else None
+            row["before_redesign_ms"] = before
             timings[name].append(row)
             log(f"{name} bf16 {case}: kernel {row['ms']:.4f} ms on the card "
-                f"({row['call_ms']:.4f} ms per call from Python), plain "
-                f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}: {flops:.3e} flop, {exps:.3e} exp, "
-                f"{nbytes} B); CUDA-graph replay, CUDA events")
+                f"({row['call_ms']:.4f} ms per call from Python; "
+                + (f"before the redesign {before:.4f} ms, kernel / before "
+                   f"{row['ms'] / before:.3f}; " if before else "")
+                + f"{row['device_launches']} device launches per call), "
+                f"plain {row['plain_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops:.3e} "
+                f"flop, {exps:.3e} exp, {nbytes} B), kernel / bound "
+                f"{row['ms'] / row['bound_ms']:.1f}; CUDA-graph replay, "
+                f"CUDA events; by kernel (profiler device time per "
+                f"launch): " + (", ".join(f"{k} {us:.2f} us" for k, us in
+                                          row["kernel_us"].items())
+                                or "not seen"))
     report["scans"] = dict(max_abs_err=errs, timings=timings)
     return timings
 
@@ -1102,7 +1225,7 @@ def main() -> int:
         del frontend
         torch.cuda.empty_cache()
         with Phase("8 prefill and decode vs full forward", report):
-            prefill_decode_vs_forward(torch, np, report, SERVED,
+            prefill_decode_vs_forward(torch, np, report, CHECKED_DENSE,
                                       "prefill_decode_vs_forward")
         with Phase("9 scan kernels vs plain", report):
             scan_t = scan_kernels(torch, report)

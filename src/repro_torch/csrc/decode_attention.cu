@@ -36,9 +36,9 @@
 //   * each K and V row is read from device memory once for all G query
 //     heads of its KV head.  Scores: Dh/8 lanes share one (head, row) pair,
 //     each lane reading 8 elements (one 16-byte shared load in bf16) and
-//     reducing the dot product with shuffles inside its lane group (4, 8 or
-//     16 lanes; at Dh = 80 the 10 lanes of a row are padded to a group of
-//     16, the last 6 idle in the dot product);
+//     reducing the dot product with shuffles inside its lane group (4, 8,
+//     16 or 32 lanes; at Dh = 80 the 10 lanes of a row are padded to a
+//     group of 16, the last 6 idle in the dot product);
 //   * one warp per query head takes the chunk's max and sum (m, l and the
 //     correction stay in shared memory, f32);
 //   * p.V: each thread owns 8 output elements of one head and sums every
@@ -49,7 +49,10 @@
 //   * a second small kernel, one block per (b, h), merges the splits'
 //     f32 (m, l, acc) partials (a scratch the wrapper allocates) and writes
 //     acc / max(l, 1e-30) in q's dtype.  One call is two device launches.
-// Head dims 32, 64, 80 and 128 and G <= 64 are built; the wrapper
+// At Dh = 256 (gemma-2b: G = 8, the wide path) a bf16 or f32 chunk is 64 KB
+// of K and V, and with two stages and G = 64 the block's shared memory is
+// 213 KB, inside the 227 KB a block may have.
+// Head dims 32, 64, 80, 128 and 256 and G <= 64 are built; the wrapper
 // (repro_torch/kernels/decode_attention/kernel.py) refuses anything else,
 // and a cache whose pointers or (b, s, h) strides are not 16-byte aligned.
 
@@ -65,6 +68,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroup = 64;
 constexpr int kSplitQuantum = 64;  // rows_per_split is a multiple of this
+constexpr int kMaxHeadDim = 256;   // threads of a combine block: one per d
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -117,7 +121,8 @@ struct Tile {
   static constexpr int kChunk = sizeof(T) == 2 ? 64 : 32;
   static constexpr int kSlices = DH / 8;  // 8-element slices of a row
   // lanes that share one (head, row) score: a power of two >= kSlices
-  static constexpr int kLanes = kSlices <= 4 ? 4 : kSlices <= 8 ? 8 : 16;
+  static constexpr int kLanes =
+      kSlices <= 4 ? 4 : kSlices <= 8 ? 8 : kSlices <= 16 ? 16 : 32;
   static constexpr int kGroups = kThreads / kLanes;  // lane groups per block
   static constexpr int kPieces = DH * sizeof(T) / 16;  // 16-byte copies/row
   static constexpr int kPerPiece = 16 / sizeof(T);     // elements per copy
@@ -350,7 +355,7 @@ __global__ void __launch_bounds__(kThreads)
 // reference's online softmax would have carried them.  Empty partials
 // (l = 0) are skipped, so their acc, never written, is never read.
 template <typename T, int DH>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kMaxHeadDim)
     decode_attention_combine_kernel(const float* __restrict__ part_ml,
                                     const float* __restrict__ part_acc,
                                     T* __restrict__ o, int n_split,
@@ -456,6 +461,10 @@ int dispatch_dh(const void* q, const void* k, const void* v, const int* pos,
                            n_split, st, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, pos, o, part_ml, part_acc, batch,
+                            seq_max, n_kv_heads, group, rows_per_split,
+                            n_split, st, scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, pos, o, part_ml, part_acc, batch,
                             seq_max, n_kv_heads, group, rows_per_split,
                             n_split, st, scale, stream);
     default:

@@ -46,7 +46,8 @@
 //     reference's own XLA model path rounds the probabilities to the
 //     activation dtype at the same point.  Shared memory: 3 stages x (K, V)
 //     x 64 x (Dh + 8) bf16, 104 KB at Dh = 128 (the query tile borrows the
-//     last stage); with 205 registers there, two blocks per SM.
+//     last stage); with 205 registers there, two blocks per SM.  At Dh =
+//     256, two stages and a query slot of their own (169 KB, see TcTile).
 //   * f32 (the exactness checks): `flash_attention_simt_kernel`, the
 //     CUDA-core kernel of the port's first version, unchanged in its
 //     arithmetic: q, k, v and p f32 in shared memory, fmaf products, one
@@ -57,8 +58,8 @@
 // sees the most keys); the bf16 kernel's grid is (H, tiles, B), so that
 // the longest tiles of all heads go before any head's shorter ones (25 %
 // faster than (tiles, H, B) at S = 1500, 14 % at S = 777, measured on the
-// H100).  Head dims 32, 64, 80 (zamba2's shared attention) and 128
-// are built for each dtype; the wrapper
+// H100).  Head dims 32, 64, 80 (zamba2's shared attention), 128 and 256
+// (gemma-2b) are built for each dtype; the wrapper
 // (repro_torch/kernels/flash_attention/kernel.py) refuses any other, and
 // bf16 inputs whose pointers or (b, s, h) strides are not 16-byte aligned.
 
@@ -230,7 +231,6 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kTcWarps = 4;                // 16 query rows each
 constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kBKV = 64;                   // key rows per K/V tile
-constexpr int kStages = 3;                 // K/V tiles in flight or ready
 // Two resident blocks per SM.  It sets no tighter register cap than the
 // 255 a thread may have, yet it changes ptxas's choice: without it the
 // compiler holds Dh = 128 to 182 registers (205 with it) and the kernel
@@ -239,6 +239,14 @@ constexpr int kTcMinBlocks = 2;
 
 template <int DH>
 struct TcTile {
+  // Up to Dh = 128: three K/V stages (in flight or ready), the query tile
+  // borrowing the last stage's K slot, its fragments kept in registers.
+  // At Dh = 256 a stage is 67.6 KB and O alone takes 128 f32 registers a
+  // thread: two stages, and the query tile in a slot of its own, its
+  // fragments read from shared memory at each k step (169 KB, one block
+  // per SM)
+  static constexpr int kStages = DH <= 128 ? 3 : 2;
+  static constexpr bool kQInRegs = DH <= 128;
   static constexpr int kLd = DH + 8;       // padded row, bf16 elements
   static constexpr int kKSteps = DH / 16;  // k16 steps of Q.K^T over Dh
   static constexpr int kSTiles = kBKV / 8; // n8 tiles of S per warp
@@ -246,8 +254,8 @@ struct TcTile {
   static constexpr int kPieces = DH / 8;   // 16-byte copies per row
   static constexpr int kStage = 2 * kBKV * kLd;  // K then V, elements
   static constexpr size_t kSmemBytes =
-      kStages * kStage * sizeof(__nv_bfloat16);
-  static_assert(kBQ == kBKV, "the query tile borrows a K slot of the ring");
+      (kStages * kStage + (kQInRegs ? 0 : kBQ * kLd)) * sizeof(__nv_bfloat16);
+  static_assert(kBQ == kBKV, "the query tile is copied as a K tile is");
   static_assert(kStages >= 2, "the ring refills one stage per tile");
 };
 
@@ -339,6 +347,7 @@ __global__ void __launch_bounds__(kTcThreads, kTcMinBlocks)
                               long long o_sh, float scale_log2) {
   using Tl = TcTile<DH>;
   constexpr int LD = Tl::kLd;
+  constexpr int kStages = Tl::kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
 
@@ -368,19 +377,22 @@ __global__ void __launch_bounds__(kTcThreads, kTcMinBlocks)
     }
     cp_async_commit();
   };
-  // the query tile borrows the last stage's K slot until its tile is fetched
-  __nv_bfloat16* q_slot = ring + (kStages - 1) * Tl::kStage;
+  // the query tile borrows the last stage's K slot until its tile is
+  // fetched (or, at Dh = 256, has a slot of its own after the ring)
+  __nv_bfloat16* q_slot =
+      ring + (Tl::kQInRegs ? kStages - 1 : kStages) * Tl::kStage;
   copy_rows<DH>(q_slot, qb, q_ss, q0, seq);
   cp_async_commit();
   for (int t = 0; t < kStages - 1; ++t) fetch(t);
   cp_async_wait<kStages - 1>();
   __syncthreads();
-  uint32_t qf[Tl::kKSteps][4];
-  {
-    const __nv_bfloat16* qs =
-        q_slot + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+  const __nv_bfloat16* q_frag =
+      q_slot + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+  uint32_t qf[Tl::kQInRegs ? Tl::kKSteps : 1][4];
+  if constexpr (Tl::kQInRegs) {
 #pragma unroll
-    for (int ks = 0; ks < Tl::kKSteps; ++ks) ldmatrix_x4(qf[ks], qs + ks * 16);
+    for (int ks = 0; ks < Tl::kKSteps; ++ks)
+      ldmatrix_x4(qf[ks], q_frag + ks * 16);
   }
 
   float acc[Tl::kOTiles][4];
@@ -409,13 +421,20 @@ __global__ void __launch_bounds__(kTcThreads, kTcMinBlocks)
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < Tl::kKSteps; ++kk) {
+      uint32_t qa[4];
+      if constexpr (Tl::kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(qa, q_frag + kk * 16);
+      }
 #pragma unroll
       for (int np = 0; np < Tl::kSTiles / 2; ++np) {
         uint32_t bf[4];
         ldmatrix_x4(bf, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD
                             + kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+        mma_bf16(s[2 * np], qa, bf[0], bf[1]);
+        mma_bf16(s[2 * np + 1], qa, bf[2], bf[3]);
       }
     }
 
@@ -577,6 +596,9 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o,
     case 128:
       return launch_f32<128, 32>(q, k, v, o, batch, seq, n_heads, group, st,
                                  scale, stream);
+    case 256:
+      return launch_f32<256, 32>(q, k, v, o, batch, seq, n_heads, group, st,
+                                 scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -597,6 +619,9 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
                              scale, stream);
     case 128:
       return launch_bf16<128>(q, k, v, o, batch, seq, n_heads, group, st,
+                              scale, stream);
+    case 256:
+      return launch_bf16<256>(q, k, v, o, batch, seq, n_heads, group, st,
                               scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

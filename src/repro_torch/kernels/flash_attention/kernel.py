@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: 64-row query tiles on CUDA's y grid axis (at most 65535)
 MAX_SEQ = 65535 * 64

@@ -1,10 +1,13 @@
 """ctypes binding of the ``mamba2_ssd`` CUDA kernel.
 
-The kernel (``src/repro_torch/csrc/mamba2_ssd.cu``) replaces the Pallas TPU
-kernel ``repro/kernels/mamba2_ssd/kernel.py`` (``ssd_pallas``).
-:func:`ssd` checks its inputs, allocates the outputs, launches on
-PyTorch's current stream and raises if the launch was refused.
-``ssd.launches`` counts its launches.
+The kernels (``src/repro_torch/csrc/mamba2_ssd.cu``: chunk states, state
+passing, outputs) replace the Pallas TPU kernel
+``repro/kernels/mamba2_ssd/kernel.py`` (``ssd_pallas``).  :func:`ssd`
+checks its inputs, picks the head groups of the chunk-parallel passes from
+the shapes alone (:func:`heads_per_block`), allocates the outputs and the
+f32 scratch, launches the three passes on PyTorch's current stream and
+raises if a launch was refused.  ``ssd.launches`` counts its calls
+(three device launches each).
 """
 from __future__ import annotations
 
@@ -21,12 +24,32 @@ from repro_torch.kernels.rwkv6_wkv.kernel import check_activations, check_f32
 MAX_CHUNK = 128
 MAX_HEAD_DIM = 64
 MAX_STATE = 64
+#: most heads one block of the output pass takes in turn
+MAX_HEADS_PER_BLOCK = 8
+#: blocks of the output pass resident on one SM in bf16 (by shared memory
+#: and registers; one in f32)
+OUT_BLOCKS_PER_SM = 2
+
+
+def heads_per_block(n_heads: int, n_chunks: int, batch: int,
+                    n_slots: int) -> int:
+    """Heads each block of the output pass takes, one after the other.
+
+    A block's time grows with its heads (plus about one head's worth of
+    work shared by them: staging B and C, and C·Bᵀ); the call's time with
+    the waves of ``n_slots`` resident blocks that the grid ``(n_chunks,
+    ceil(H / g), B)`` needs.  The g that makes waves × (g + 1) least, the
+    smaller on a tie."""
+    def cost(g):
+        blocks = n_chunks * batch * -(-n_heads // g)
+        return -(-blocks // n_slots) * (g + 1)
+    return min(range(1, min(MAX_HEADS_PER_BLOCK, n_heads) + 1), key=cost)
 
 
 @functools.cache
 def _launcher():
     fn = _build.load("mamba2_ssd").mamba2_ssd_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
@@ -63,8 +86,17 @@ def ssd(x, dt_h, bmat, cmat, a, h0=None, *, chunk: int = 128):
             f"{tuple(x.shape)}, N={N}, chunk={chunk}")
     a = a.contiguous()
     h0 = None if h0 is None else h0.contiguous()
+    n_chunks = -(-T // c)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out_heads = heads_per_block(
+        H, n_chunks, B,
+        n_sms * (OUT_BLOCKS_PER_SM if x.dtype == torch.bfloat16 else 1))
     y = torch.empty((B, T, H, P), dtype=x.dtype, device=dev)
     h_out = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    # U_k from pass 1, overwritten with S_in,k by pass 2
+    states = torch.empty((B, n_chunks, H, P, N), dtype=torch.float32,
+                         device=dev)
+    la_end = torch.empty((B, n_chunks, H), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 13)(
         *x.stride()[:3], *dt_h.stride(), *bmat.stride()[:2],
         *cmat.stride()[:2], *y.stride()[:3])
@@ -73,8 +105,9 @@ def ssd(x, dt_h, bmat, cmat, a, h0=None, *, chunk: int = 128):
         err = _launcher()(x.data_ptr(), dt_h.data_ptr(), bmat.data_ptr(),
                           cmat.data_ptr(), a.data_ptr(),
                           None if h0 is None else h0.data_ptr(),
-                          y.data_ptr(), h_out.data_ptr(), DTYPES[x.dtype], B,
-                          T, H, P, N, c, ctypes.addressof(strides), stream)
+                          y.data_ptr(), h_out.data_ptr(), states.data_ptr(),
+                          la_end.data_ptr(), DTYPES[x.dtype], B, T, H, P, N,
+                          c, out_heads, ctypes.addressof(strides), stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")

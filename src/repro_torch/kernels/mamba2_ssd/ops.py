@@ -17,7 +17,7 @@ def ssd(x, dt_h, bmat, cmat, a, h0=None, *, chunk: int = 128):
     [B,H,P,N])``.
 
     CPU tensors take the plain chunked form; CUDA tensors launch the
-    kernel, which raises on anything it does not take.
+    kernels (three passes), which raise on anything they do not take.
     """
     if x.device.type == "cpu":
         return ssd_chunked_ref(x, dt_h, bmat, cmat, a, h0, chunk)

@@ -4,9 +4,14 @@
   oracle (``repro/kernels/mamba2_ssd/ref.py``);
 * :func:`ssd_chunked_ref` is the chunked 1-semiseparable form, the body of
   the reference's ``repro/models/mamba2.py::ssd_chunked`` in its op order.
-  It computes what the CUDA kernel (``csrc/mamba2_ssd.cu``) computes: the
-  CPU runs it in the model, and the chip check holds the kernel against
-  it.
+  It computes what the CUDA kernels (``csrc/mamba2_ssd.cu``) compute: the
+  CPU runs it in the model, and the chip check holds the kernels against
+  it;
+* :func:`ssd_chunk_parallel_ref` is the kernels' own algorithm: the
+  chunked SSD decomposition's three passes (chunk states, state passing,
+  outputs) with every product cut into bf16 pieces as their tensor-core
+  products cut it, so that the CPU tests check the arithmetic the card
+  runs.
 
 Layouts are seq-major: x ``[B, T, H, P]``; dt_h ``[B, T, H]`` f32 (after
 softplus); bmat, cmat ``[B, T, N]``; a ``[H]`` f32 (negative); the state
@@ -80,3 +85,95 @@ def ssd_chunked_ref(x, dt_h, bmat, cmat, a, h0=None, chunk: int = 128):
         ys.append(y.to(x.dtype))
     y = torch.stack(ys, dim=1).reshape(B, T, H, P)
     return y[:, :T0], h
+
+
+#: bf16 pieces of an f32 input of the kernels' products (f32 activations
+#: only): three carry its 24 bits
+F32_PIECES = 3
+
+
+def _pieces(v: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """``v`` (f32) as ``n`` bf16-representable f32 pieces, largest first:
+    hi = bf16(v), lo = bf16(v - hi), ... (their sum is v to about
+    2^(-8n-1) relative)."""
+    out, rest = [], v
+    for _ in range(n):
+        p = rest.to(torch.bfloat16).float()
+        out.append(p)
+        rest = rest - p
+    return out
+
+
+def _split_einsum(eq: str, a, na: int, b, nb: int) -> torch.Tensor:
+    """``einsum(eq, a, b)`` as bf16 tensor-core products with f32
+    accumulation do it: a and b cut into ``na`` and ``nb`` bf16 pieces,
+    and the piece products (i, j) with i + j < max(na, nb) summed, the
+    smallest first."""
+    pa, pb = _pieces(a.float(), na), _pieces(b.float(), nb)
+    n = max(na, nb)
+    terms = [(i, j) for i in range(na) for j in range(nb) if i + j < n]
+    out = None
+    for i, j in sorted(terms, key=lambda ij: -(ij[0] + ij[1])):
+        t = torch.einsum(eq, pa[i], pb[j])
+        out = t if out is None else out + t
+    return out
+
+
+def ssd_chunk_parallel_ref(x, dt_h, bmat, cmat, a, h0=None,
+                           chunk: int = 128):
+    """The CUDA kernel's three passes in plain torch → ``(y [B,T,H,P],
+    state [B,H,P,N])``, chunk ``min(chunk, T)``, a ragged tail padded as
+    in :func:`ssd_chunked_ref`:
+
+    1. per chunk k, for every chunk at once: ``la`` (cumsum of dt·a),
+       ``U_k = Σ_s e^{la_end − la_s}·dt_s·x_s ⊗ B_s``;
+    2. the state pass, in order over chunks: ``S_in,k = S``,
+       ``S = S·e^{la_end,k} + U_k`` from ``h0`` (or zero);
+    3. per chunk, for every chunk at once: ``CB = C·Bᵀ``, ``M = CB ∘
+       e^{la_t − la_s} ∘ dt_s`` (s ≤ t), ``y = M·x + e^{la_t}·(C·S_inᵀ)``.
+
+    Every product is cut as the kernel's bf16 ``mma`` cuts it: a factor
+    that is f32-valued (``w·x``, ``M``, ``S_in``) into bf16 pieces, hi
+    and lo; an input of the activation type as it is in bf16, in three
+    pieces in f32 (:data:`F32_PIECES`)."""
+    B, T, H, P = x.shape
+    N = bmat.shape[-1]
+    nx = 1 if x.dtype == torch.bfloat16 else F32_PIECES
+    nf = max(2, nx)
+    c = min(chunk, T)
+    T0 = T
+    if T % c:
+        pad = c - T % c
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt_h, bmat, cmat = (F.pad(z, (0, 0, 0, pad))
+                            for z in (dt_h, bmat, cmat))
+        T = T + pad
+    n = T // c
+    xc = x.reshape(B, n, c, H, P).float()
+    dtc = dt_h.reshape(B, n, c, H).float()
+    bc = bmat.reshape(B, n, c, N).float()
+    cc = cmat.reshape(B, n, c, N).float()
+    la = torch.cumsum(dtc * a.float()[None, None, None, :], dim=2)
+    la_end = la[:, :, -1]                                    # [B,n,H]
+    # pass 1: U_k, all chunks at once
+    w = torch.exp(la_end[:, :, None] - la) * dtc             # [B,n,c,H]
+    u = _split_einsum("bkshp,bksn->bkhpn", w[..., None] * xc, nf, bc, nx)
+    # pass 2: the state, in order over chunks
+    s = _zero_state(x, N) if h0 is None else h0.float()
+    s_in = []
+    for k in range(n):
+        s_in.append(s)
+        s = s * torch.exp(la_end[:, k])[:, :, None, None] + u[:, k]
+    s_in = torch.stack(s_in, dim=1)                          # [B,n,H,P,N]
+    # pass 3: y, all chunks at once
+    cb = _split_einsum("bktn,bksn->bkts", cc, nx, bc, nx)
+    t_idx = torch.arange(c, device=x.device)
+    mask = (t_idx[:, None] >= t_idx[None, :])[None, None, :, :, None]
+    dec = torch.exp(torch.where(
+        mask, la[:, :, :, None, :] - la[:, :, None, :, :], 0.0))
+    m = torch.where(mask, cb[..., None] * dec * dtc[:, :, None], 0.0)
+    y = _split_einsum("bktsh,bkshp->bkthp", m, nf, xc, nx)
+    carry = _split_einsum("bktn,bkhpn->bkthp", cc, nx, s_in, nf)
+    y = y + torch.exp(la)[..., None] * carry
+    y = y.to(x.dtype).reshape(B, T, H, P)
+    return y[:, :T0], s

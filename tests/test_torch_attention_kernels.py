@@ -6,6 +6,7 @@ The shapes, dtypes, decode positions and tolerances are
 bf16 identically on both sides.  The last test holds the CUDA kernels
 against their plain versions and runs only where a card is present.
 """
+import dataclasses
 import re
 from pathlib import Path
 
@@ -22,13 +23,15 @@ from repro.kernels.flash_attention.ops import \
     flash_attention as jax_flash_attention
 from repro.kernels.flash_attention.ref import \
     flash_attention_ref as jax_flash_ref
-from repro_torch import configs
+from repro import configs as jconfigs
+from repro_torch import NotPortedError
 from repro_torch.kernels.decode_attention import kernel as dk
 from repro_torch.kernels.decode_attention import ops as d_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.flash_attention import ops as f_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.models.transformer import check_ported
 
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
@@ -134,8 +137,10 @@ def test_wrappers_take_plain_version_only_on_cpu():
 def test_head_dims_built_in_both_kernels():
     """Both CUDA sources instantiate exactly the head dims the wrappers
     accept, in every ``switch (head_dim)`` (the flash source has one for
-    its f32 kernel and one for its bf16 kernel), and those cover every
-    served attention (zamba2-2.7b's shared block has Dh = 80)."""
+    its f32 kernel and one for its bf16 kernel), and those cover the
+    attention of every config of ``repro.configs`` that the port builds
+    (zamba2-2.7b's shared block has Dh = 80, gemma-2b Dh = 256), with
+    query heads per KV head within the decode kernel's ``kMaxGroup``."""
     csrc = Path(fk.__file__).resolve().parents[2] / "csrc"
     for name, n_switches in (("flash_attention", 2), ("decode_attention", 1)):
         src = (csrc / f"{name}.cu").read_text()
@@ -145,8 +150,24 @@ def test_head_dims_built_in_both_kernels():
             switch = switch[:switch.index("default:")]
             built = tuple(int(d) for d in re.findall(r"case (\d+):", switch))
             assert built == fk.HEAD_DIMS, (name, built)
-    for name in ("olmo-1b", "musicgen-large", "zamba2-2.7b"):
-        assert configs.get(name).head_dim in fk.HEAD_DIMS, name
+    max_group = re.search(r"constexpr int kMaxGroup = (\d+);",
+                          (csrc / "decode_attention.cu").read_text())
+    assert int(max_group.group(1)) == dk.MAX_GROUP == 64
+    built = []
+    for name in jconfigs.ARCH_NAMES:
+        cfg = dataclasses.replace(jconfigs.get(name), attn_impl="pallas")
+        try:
+            check_ported(cfg)
+        except NotPortedError:
+            continue
+        built.append(name)
+        if cfg.family == "rwkv6":          # no attention
+            continue
+        assert cfg.head_dim in fk.HEAD_DIMS, (name, cfg.head_dim)
+        assert cfg.n_heads % cfg.n_kv_heads == 0, name
+        assert cfg.n_heads // cfg.n_kv_heads <= dk.MAX_GROUP, name
+    assert {"olmo-1b", "musicgen-large", "zamba2-2.7b", "gemma-2b",
+            "rwkv6-3b"} <= set(built), built
 
 
 def test_cuda_kernels_match_plain_versions():

@@ -30,7 +30,9 @@ from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
 from repro.models.rwkv6 import wkv_chunked as jax_wkv_chunked
 from repro_torch.kernels.mamba2_ssd import kernel as sk
 from repro_torch.kernels.mamba2_ssd import ops as s_ops
-from repro_torch.kernels.mamba2_ssd.ref import ssd_chunked_ref, ssd_ref
+from repro_torch.kernels.mamba2_ssd import ref as s_ref
+from repro_torch.kernels.mamba2_ssd.ref import (ssd_chunk_parallel_ref,
+                                                ssd_chunked_ref, ssd_ref)
 from repro_torch.kernels.rwkv6_wkv import kernel as wk
 from repro_torch.kernels.rwkv6_wkv import ops as w_ops
 from repro_torch.kernels.rwkv6_wkv.ref import wkv6_chunked_ref, wkv6_ref
@@ -176,6 +178,94 @@ def test_ssd_plain_bf16_matches_model_path():
                            _j(a), _j(h0), chunk=32)
     assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
     _close(got, want, BF16)
+
+
+# the CUDA kernel's three passes (chunk states, state passing, outputs) in
+# plain torch: (B, T, H, P, N), chunk, carry-in.  tests/test_kernels.py's
+# shapes and chunks, a cold start's T = 8 (chunk 8), a ragged T with a
+# carry-in state, and zamba2-2.7b's widths (H = 80, P = N = 64) at T = 300
+CHUNK_PARALLEL_CASES = [
+    *((shape, c, False) for shape in SSD_SHAPES for c in (32, 64)),
+    ((1, 8, 3, 16, 8), 8, False),
+    ((2, 77, 3, 16, 8), 32, True),
+    ((1, 300, 80, 64, 64), 128, True),
+]
+
+
+def _bf16_inputs(x, dt, bm, cm, a, h0):
+    return (_t(x, torch.bfloat16), _t(dt), _t(bm, torch.bfloat16),
+            _t(cm, torch.bfloat16), _t(a), _t(h0))
+
+
+@pytest.mark.parametrize("shape, chunk, state", CHUNK_PARALLEL_CASES,
+                         ids=str)
+def test_ssd_chunk_parallel_ref_matches_pallas_and_chunked(shape, chunk,
+                                                          state):
+    """``ssd_chunk_parallel_ref`` (the kernel's passes and its bf16 piece
+    products) against the plain chunked form and the reference: its
+    Pallas kernel in interpret mode where that takes the case (T a
+    multiple of the chunk, no carry-in), else its model's
+    ``ssd_chunked``.  f32 within 1e-4; bf16 activations: y within 2e-2
+    (y is rounded to bf16) and the f32 state within 2e-3."""
+    x, dt, bm, cm, a, h0 = ssd_inputs(shape, shape[1] + shape[2], state)
+    t_args = [_t(z) for z in (x, dt, bm, cm, a, h0)]
+    j_args = [_j(z) for z in (x, dt, bm, cm, a)]
+    got = ssd_chunk_parallel_ref(*t_args, chunk=chunk)
+    assert got[0].shape == shape[:4] and got[0].dtype == torch.float32
+    assert got[1].shape == (shape[0], shape[2], shape[3], shape[4])
+    _close(got, ssd_chunked_ref(*t_args, chunk=chunk), SAME)
+    pallas = not state and shape[1] % chunk == 0
+    if pallas:
+        _close(got, jax_ssd(*j_args, chunk=chunk), SAME)
+    else:
+        _close(got, jax_ssd_chunked(*j_args, _j(h0), chunk=chunk), SAME)
+
+    b_args = _bf16_inputs(x, dt, bm, cm, a, h0)
+    got = ssd_chunk_parallel_ref(*b_args, chunk=chunk)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    jb = [_j(x, jnp.bfloat16), _j(dt), _j(bm, jnp.bfloat16),
+          _j(cm, jnp.bfloat16), _j(a)]
+    for want in (ssd_chunked_ref(*b_args, chunk=chunk),
+                 jax_ssd(*jb, chunk=chunk) if pallas
+                 else jax_ssd_chunked(*jb, _j(h0), chunk=chunk)):
+        np.testing.assert_allclose(_f32(got[0]), _f32(want[0]), rtol=2e-2,
+                                   atol=2e-2)
+        np.testing.assert_allclose(_f32(got[1]), _f32(want[1]), rtol=2e-3,
+                                   atol=2e-3)
+
+
+def test_ssd_chunk_parallel_ref_cuts_products_as_the_kernel():
+    """The piece products: an f32 factor in bf16 hi and lo pieces matches
+    f32 to about 2^-16; three pieces of an f32 input to about 2^-24; one
+    piece of a bf16 input is exact."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((64, 48), np.float32))
+    b = torch.from_numpy(rng.standard_normal((48, 32), np.float32))
+    scale = float((a.abs().double() @ b.abs().double()).max())
+    for na, nb, tol in ((2, 1, 2 ** -15), (3, 3, 2 ** -22)):
+        bb = b if nb > 1 else b.to(torch.bfloat16).float()
+        want = (a.double() @ bb.double()).float()
+        got = s_ref._split_einsum("ik,kj->ij", a, na, bb, nb)
+        assert float((got - want).abs().max()) <= tol * scale, (na, nb)
+    ab, bb = a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float()
+    torch.testing.assert_close(s_ref._split_einsum("ik,kj->ij", ab, 1, bb, 1),
+                               ab @ bb, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("T, chunk", [(8, 128), (777, 128), (1500, 128),
+                                      (64, 32)])
+def test_ssd_heads_per_block_from_shapes(T, chunk):
+    """The output pass's head groups come from the shapes alone: at most
+    :data:`MAX_HEADS_PER_BLOCK` heads a block, and no more waves of
+    resident blocks than one head a block would take."""
+    n_chunks, slots = -(-T // chunk), 2 * 132
+    g = sk.heads_per_block(80, n_chunks, 1, slots)
+    assert 1 <= g <= sk.MAX_HEADS_PER_BLOCK
+    waves = -(-(n_chunks * -(-80 // g)) // slots)
+    assert waves <= -(-(n_chunks * 80) // slots)
+    if n_chunks * 80 <= slots:       # one head a block fits in one wave
+        assert g == 1
+    assert sk.heads_per_block(3, 1, 1, slots) == 1
 
 
 # ---------------------------------------------------------------------------
