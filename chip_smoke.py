@@ -63,13 +63,15 @@ non-zero):
    implementations, scaled to the logits);
 9. the scan kernels against their plain chunked forms on the card:
    ``rwkv6_wkv`` and ``mamba2_ssd`` at ``tests/test_kernels.py``'s shapes
-   and chunks, the served shapes (B = 1, T ∈ {8, 777, 1500}) and one
-   nonzero carry-in state, in f32 (y and state within 1e-4, and within
-   2e-3 of the per-step oracle) and with bf16 activations (y within 2e-2,
-   the f32 state within 2e-3); CUDA-graph times of both beside the plain
-   version, the bound and (for ``mamba2_ssd``) its time before the
-   redesign at T ∈ {777, 1500}, and the device launches per call (kernel
-   nodes of one call captured in a CUDA graph);
+   and chunks, the served shapes (B = 1, T ∈ {8, 777, 1500}), one
+   nonzero carry-in state and, for ``rwkv6_wkv``, strong decay (lw =
+   -exp(N(2, 1)), B = 2, ragged T, a carry-in), in f32 (y and state within
+   1e-4, and within 2e-3 of the per-step oracle) and with bf16
+   activations (y within 2e-2, the f32 state within 2e-3); CUDA-graph
+   times of both beside the plain version, the bound and their times
+   before the redesign at T ∈ {777, 1500}, the device launches per call
+   (kernel nodes of one call captured in a CUDA graph) and each launch's
+   device time;
 10. the recurrent serving path at full width: a fresh ``HermesFrontend``
     serving ``rwkv6-3b`` (seed 2) and ``zamba2-2.7b`` (seed 3) as in
     phase 7 (prompts from ``default_rng(2)``), with the exact launch
@@ -78,8 +80,8 @@ non-zero):
 11. phase 8's check for both recurrent models: prefill runs the scan
     kernels over the prompt and hands their final state to the plain step
     recurrence, the full forward runs the kernels over all tokens (and the
-    plain attention for zamba2's shared block); zamba2-2.7b's ratios beside
-    those read before the SSD kernel's redesign (``BEFORE_RATIO``).
+    plain attention for zamba2's shared block); both models' ratios beside
+    those read before their scan kernel's redesign (``BEFORE_RATIO``).
 
 TF32 is off for matrix products and cuDNN throughout.  The line before the
 last is ``{"kernels": [...]}``; the last line is
@@ -537,14 +539,15 @@ GEMMA_FLASH_TIMED = ((1, 777, 8, 1, 256), (1, 1500, 8, 1, 256))
 GEMMA_DECODE_TIMED = ((1, 2048, 8, 1, 256, 776), (1, 2048, 8, 1, 256, 2047))
 #: device times (ms) of the kernels before their redesign at the first
 #: timed shapes of each, in order (the attention kernels: the CUDA-core
-#: flash kernel and the decode kernel with one block per KV head; the SSD
-#: scan: one block per (b, h) walking the chunks): bf16,
+#: flash kernel and the decode kernel with one block per KV head; the
+#: scans: one block per (b, h) walking the chunks): bf16,
 #: CUDA-graph replay, NVIDIA H100 80GB HBM3 at 700.00 W, as PERF.md §6
 #: records them.  A shape with none (gemma-2b's) was not built before.
 BEFORE_REDESIGN_MS = {
     "flash_attention": (0.2827, 0.6731, 0.2512, 0.6906, 0.3331, 0.9526),
     "decode_attention": (0.1212, 0.3057, 0.0715, 0.1804, 0.0839, 0.2109),
-    "mamba2_ssd": (0.9536, 1.7331)}
+    "mamba2_ssd": (0.9536, 1.7331),
+    "rwkv6_wkv": (0.6625, 1.3520)}
 SERVED = (("olmo-1b", 0), ("musicgen-large", 1))
 #: phase 8's models: the served ones and gemma-2b (Dh = 256, MQA, GeGLU),
 #: which phase 7 does not serve
@@ -558,10 +561,13 @@ PROMPT_MIN, PROMPT_MAX = 200, 1500
 CHECK_PROMPT, CHECK_STEPS = 777, 16
 #: phase 8's bound on max |Δ logit| / max |logit| for each dtype
 MODEL_TOL = {"float32": 1e-4, "bfloat16": 6e-2}
-#: phase 11's ratios before the SSD kernel's redesign (PERF.md §6):
-#: zamba2-2.7b's bf16 ratio is the one a rounding change would move
+#: phase 11's ratios before each recurrent model's scan kernel was
+#: redesigned (PERF.md §6): the bf16 ratios are the ones a rounding change
+#: would move
 BEFORE_RATIO = {"zamba2-2.7b bfloat16": 5.08e-2,
-                "zamba2-2.7b float32": 1.06e-5}
+                "zamba2-2.7b float32": 1.06e-5,
+                "rwkv6-3b bfloat16": 4.321e-2,
+                "rwkv6-3b float32": 1.350e-5}
 
 
 def _bound(flops: float, nbytes: float, exps: float = 0.0):
@@ -931,17 +937,22 @@ def prefill_decode_vs_forward(torch, np, report, served, key):
                   f"{tuple(want.shape)} or not finite")
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
+            # the RMS gap relative to the RMS logit: a quieter reading than
+            # the max, which one flipped bf16 rounding can move
+            rms = float((got - want).square().mean().sqrt()
+                        / want.square().mean().sqrt())
             before = BEFORE_RATIO.get(f"{name} {dtype}")
             log(f"{name} {dtype}: prefill of {CHECK_PROMPT} + {CHECK_STEPS} "
                 f"decode steps vs the plain forward over {n} tokens: max "
                 f"|Δ| {err:.4e}, max |logit| {scale:.4f}, ratio "
                 f"{err / scale:.3e} (bound {tol:g}"
-                + (f"; before the SSD redesign: {before:.3g})" if before
-                   else ")"))
+                + (f"; before the scan kernel's redesign: {before:.4g}"
+                   if before else "")
+                + f"), RMS ratio {rms:.3e}")
             check(err <= tol * scale, f"{name} {dtype}: kernel path != plain "
                                       f"forward ({err} > {tol} × {scale})")
             out[f"{name} {dtype}"] = dict(max_abs_err=err, max_abs_logit=scale,
-                                          bound=tol)
+                                          rms_ratio=rms, bound=tol)
             del params, cache
             torch.cuda.empty_cache()
     report[key] = out
@@ -955,16 +966,20 @@ def prefill_decode_vs_forward(torch, np, report, served, key):
 #: .py:70's 2e-3: another algorithm)
 SCAN_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-3)}
 ORACLE_TOL = 2e-3
+#: the WKV case drawn with strong decay, lw = -exp(N(2, 1)) (a decay of
+#: e^-7.4 a step at the median), which drives e^{lc} and e^{lx} to 0: at
+#: rwkv6-3b's widths, two rows, a ragged last chunk and a carry-in state
+STRONG_DECAY = (2, 300, 40, 64, 32, True)
 #: (B, T, H, K, chunk, carry-in): tests/test_kernels.py's WKV shapes and
 #: chunks (and its model-path case), rwkv6-3b's served shapes (H = 40,
-#: K = 64, chunk 32; a cold start's 8 tokens and ragged prompts) and one
-#: nonzero carry-in state
+#: K = 64, chunk 32; a cold start's 8 tokens and ragged prompts), one
+#: nonzero carry-in state and strong decay
 WKV_CASES = (*((B, T, H, 64, c, False) for B, T, H in ((2, 128, 3),
                                                        (1, 64, 2))
                for c in (16, 32)),
              (1, 96, 2, 64, 32, False),
              *((1, T, 40, 64, 32, False) for T in (8, 777, 1500)),
-             (1, 777, 40, 64, 32, True))
+             (1, 777, 40, 64, 32, True), STRONG_DECAY)
 #: (B, T, H, P, N, chunk, carry-in): tests/test_kernels.py's SSD shapes and
 #: chunks, zamba2-2.7b's served shapes (H = 80, P = N = 64, chunk 128) and
 #: one nonzero carry-in state
@@ -982,13 +997,26 @@ def _chunk_lens(T, chunk):
 
 def wkv_work(B, T, H, K, chunk, size, carry):
     """(flops, exps, bytes) a WKV call needs: the strict lower triangle's
-    pairwise decays and products per chunk, r·exp(lx), k·exp(lc−li) and
-    the state products; r, k, v, lw read once, y and the state written
-    once (and the carry-in read)."""
+    products per chunk, r·exp(lx), k·exp(lc−li) and the state products;
+    r, k, v, lw read once, y and the state written once (and the carry-in
+    read).  The exps are those the kernel's cut of a chunk needs, into
+    16-row tiles and those into 8-row halves: exp(li − lx) in the rows
+    inside each diagonal 8 × 8 block (their running products are its
+    decays); one per element of each factor of the products below those
+    blocks, r·exp(lx − lx_j) and k·exp(lx_j − li), for the lower-left
+    8 × 8 block of each diagonal tile (j = 16 i + 8) and for the rows
+    s < 16 i below tile row i (j = 16 i); r·exp(lx − lx_16i) in every row
+    and exp(lx_16i) in every tile (their product is r·exp(lx)); then
+    exp(lc − li) and exp(lc)."""
     flops = exps = 0
     for L in _chunk_lens(T, chunk):
         pairs = L * (L - 1) // 2
-        exps += pairs * K + 2 * L * K + K
+        tiles = [min(16, L - s0) for s0 in range(0, L, 16)]
+        halves = [min(8, L - s0) for s0 in range(0, L, 8)]
+        exps += K * (sum(max(n - 2, 0) for n in halves)
+                     + sum(n for n in tiles if n > 8)
+                     + sum(16 * i for i in range(1, len(tiles)))
+                     + 2 * L + len(tiles) + 1)
         flops += (3 * pairs * K + 3 * L * K + 2 * (pairs + L) * K
                   + 4 * L * K * K + 2 * K * K + 2 * L * K)
     nbytes = (B * T * H * K * (4 * size + 4) + H * K * 4
@@ -1017,7 +1045,9 @@ def _wkv_inputs(torch, gen, case, dt):
     B, T, H, K, _, carry = case
     r, k, v = (torch.randn((B, T, H, K), generator=gen, device="cuda")
                .mul_(0.5).to(dt) for _ in range(3))
-    lw = -torch.exp(torch.randn((B, T, H, K), generator=gen, device="cuda"))
+    mu = 2.0 if case == STRONG_DECAY else 0.0
+    lw = -torch.exp(torch.randn((B, T, H, K), generator=gen, device="cuda")
+                    + mu)
     u = torch.randn((H, K), generator=gen, device="cuda") * 0.1
     s0 = torch.randn((B, H, K, K), generator=gen, device="cuda") \
         if carry else None

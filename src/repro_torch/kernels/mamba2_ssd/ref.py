@@ -22,6 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.pieces import operand_pieces, split_einsum
+
 
 def _zero_state(x: torch.Tensor, n: int) -> torch.Tensor:
     B, _, H, P = x.shape
@@ -87,38 +89,6 @@ def ssd_chunked_ref(x, dt_h, bmat, cmat, a, h0=None, chunk: int = 128):
     return y[:, :T0], h
 
 
-#: bf16 pieces of an f32 input of the kernels' products (f32 activations
-#: only): three carry its 24 bits
-F32_PIECES = 3
-
-
-def _pieces(v: torch.Tensor, n: int) -> list[torch.Tensor]:
-    """``v`` (f32) as ``n`` bf16-representable f32 pieces, largest first:
-    hi = bf16(v), lo = bf16(v - hi), ... (their sum is v to about
-    2^(-8n-1) relative)."""
-    out, rest = [], v
-    for _ in range(n):
-        p = rest.to(torch.bfloat16).float()
-        out.append(p)
-        rest = rest - p
-    return out
-
-
-def _split_einsum(eq: str, a, na: int, b, nb: int) -> torch.Tensor:
-    """``einsum(eq, a, b)`` as bf16 tensor-core products with f32
-    accumulation do it: a and b cut into ``na`` and ``nb`` bf16 pieces,
-    and the piece products (i, j) with i + j < max(na, nb) summed, the
-    smallest first."""
-    pa, pb = _pieces(a.float(), na), _pieces(b.float(), nb)
-    n = max(na, nb)
-    terms = [(i, j) for i in range(na) for j in range(nb) if i + j < n]
-    out = None
-    for i, j in sorted(terms, key=lambda ij: -(ij[0] + ij[1])):
-        t = torch.einsum(eq, pa[i], pb[j])
-        out = t if out is None else out + t
-    return out
-
-
 def ssd_chunk_parallel_ref(x, dt_h, bmat, cmat, a, h0=None,
                            chunk: int = 128):
     """The CUDA kernel's three passes in plain torch → ``(y [B,T,H,P],
@@ -135,11 +105,10 @@ def ssd_chunk_parallel_ref(x, dt_h, bmat, cmat, a, h0=None,
     Every product is cut as the kernel's bf16 ``mma`` cuts it: a factor
     that is f32-valued (``w·x``, ``M``, ``S_in``) into bf16 pieces, hi
     and lo; an input of the activation type as it is in bf16, in three
-    pieces in f32 (:data:`F32_PIECES`)."""
+    pieces in f32 (:mod:`repro_torch.kernels.pieces`)."""
     B, T, H, P = x.shape
     N = bmat.shape[-1]
-    nx = 1 if x.dtype == torch.bfloat16 else F32_PIECES
-    nf = max(2, nx)
+    nx, nf = operand_pieces(x.dtype)
     c = min(chunk, T)
     T0 = T
     if T % c:
@@ -157,7 +126,7 @@ def ssd_chunk_parallel_ref(x, dt_h, bmat, cmat, a, h0=None,
     la_end = la[:, :, -1]                                    # [B,n,H]
     # pass 1: U_k, all chunks at once
     w = torch.exp(la_end[:, :, None] - la) * dtc             # [B,n,c,H]
-    u = _split_einsum("bkshp,bksn->bkhpn", w[..., None] * xc, nf, bc, nx)
+    u = split_einsum("bkshp,bksn->bkhpn", w[..., None] * xc, nf, bc, nx)
     # pass 2: the state, in order over chunks
     s = _zero_state(x, N) if h0 is None else h0.float()
     s_in = []
@@ -166,14 +135,14 @@ def ssd_chunk_parallel_ref(x, dt_h, bmat, cmat, a, h0=None,
         s = s * torch.exp(la_end[:, k])[:, :, None, None] + u[:, k]
     s_in = torch.stack(s_in, dim=1)                          # [B,n,H,P,N]
     # pass 3: y, all chunks at once
-    cb = _split_einsum("bktn,bksn->bkts", cc, nx, bc, nx)
+    cb = split_einsum("bktn,bksn->bkts", cc, nx, bc, nx)
     t_idx = torch.arange(c, device=x.device)
     mask = (t_idx[:, None] >= t_idx[None, :])[None, None, :, :, None]
     dec = torch.exp(torch.where(
         mask, la[:, :, :, None, :] - la[:, :, None, :, :], 0.0))
     m = torch.where(mask, cb[..., None] * dec * dtc[:, :, None], 0.0)
-    y = _split_einsum("bktsh,bkshp->bkthp", m, nf, xc, nx)
-    carry = _split_einsum("bktn,bkhpn->bkthp", cc, nx, s_in, nf)
+    y = split_einsum("bktsh,bkshp->bkthp", m, nf, xc, nx)
+    carry = split_einsum("bktn,bkhpn->bkthp", cc, nx, s_in, nf)
     y = y + torch.exp(la)[..., None] * carry
     y = y.to(x.dtype).reshape(B, T, H, P)
     return y[:, :T0], s

@@ -1,10 +1,15 @@
 """ctypes binding of the ``rwkv6_wkv`` CUDA kernel.
 
-The kernel (``src/repro_torch/csrc/rwkv6_wkv.cu``) replaces the Pallas TPU
-kernel ``repro/kernels/rwkv6_wkv/kernel.py`` (``wkv6_hm``).  :func:`wkv6`
-checks its inputs, allocates the outputs, launches on PyTorch's current
-stream and raises if the launch was refused.  ``wkv6.launches`` counts its
-launches.
+The kernels (``src/repro_torch/csrc/rwkv6_wkv.cu``: chunk states, state
+passing, outputs) replace the Pallas TPU kernel
+``repro/kernels/rwkv6_wkv/kernel.py`` (``wkv6_hm``).  :func:`wkv6`
+checks its inputs, allocates the outputs and the f32 scratch, launches
+the three passes on PyTorch's current stream and raises if a launch was
+refused.  The launch sizes come from the shapes alone: the two
+chunk-parallel passes take one block per (chunk, head, batch row), the
+state pass one per 16 × 16 tile of each (head, batch row)'s state; so a
+call can be captured in a CUDA graph.  ``wkv6.launches`` counts its calls
+(three device launches each).
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ MAX_CHUNK = 64
 @functools.cache
 def _launcher():
     fn = _build.load("rwkv6_wkv").rwkv6_wkv_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
@@ -93,6 +98,13 @@ def wkv6(r, k, v, lw, u, s0=None, *, chunk: int = 32):
     s0 = None if s0 is None else s0.contiguous()
     y = torch.empty((B, T, H, K), dtype=r.dtype, device=dev)
     s_out = torch.empty((B, H, K, K), dtype=torch.float32, device=dev)
+    # from PyTorch's caching allocator, so that a captured call reuses them:
+    # U_k^T (pass 1, [v][k] per head), overwritten with S_in,k^T by pass 2,
+    # and e^{lc} of each chunk
+    n_chunks = -(-T // c)
+    states = torch.empty((B, n_chunks, H, K, K), dtype=torch.float32,
+                         device=dev)
+    decay = torch.empty((B, n_chunks, H, K), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 15)(
         *(x.stride(i) for x in (r, k, v, lw, y) for i in range(3)))
     with torch.cuda.device(dev):
@@ -100,8 +112,9 @@ def wkv6(r, k, v, lw, u, s0=None, *, chunk: int = 32):
         err = _launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                           lw.data_ptr(), u.data_ptr(),
                           None if s0 is None else s0.data_ptr(),
-                          y.data_ptr(), s_out.data_ptr(), DTYPES[r.dtype], B,
-                          T, H, K, c, ctypes.addressof(strides), stream)
+                          y.data_ptr(), s_out.data_ptr(), states.data_ptr(),
+                          decay.data_ptr(), DTYPES[r.dtype], B, T, H, K, c,
+                          ctypes.addressof(strides), stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")

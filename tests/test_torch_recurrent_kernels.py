@@ -28,14 +28,16 @@ from repro.kernels.rwkv6_wkv.ops import wkv6 as jax_wkv6
 from repro.kernels.rwkv6_wkv.ref import wkv6_ref as jax_wkv6_ref
 from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
 from repro.models.rwkv6 import wkv_chunked as jax_wkv_chunked
+from repro_torch.kernels import pieces
 from repro_torch.kernels.mamba2_ssd import kernel as sk
 from repro_torch.kernels.mamba2_ssd import ops as s_ops
-from repro_torch.kernels.mamba2_ssd import ref as s_ref
 from repro_torch.kernels.mamba2_ssd.ref import (ssd_chunk_parallel_ref,
                                                 ssd_chunked_ref, ssd_ref)
 from repro_torch.kernels.rwkv6_wkv import kernel as wk
 from repro_torch.kernels.rwkv6_wkv import ops as w_ops
-from repro_torch.kernels.rwkv6_wkv.ref import wkv6_chunked_ref, wkv6_ref
+from repro_torch.kernels.rwkv6_wkv import ref as w_ref
+from repro_torch.kernels.rwkv6_wkv.ref import (wkv6_chunk_parallel_ref,
+                                               wkv6_chunked_ref, wkv6_ref)
 
 SAME = {"rtol": 1e-4, "atol": 1e-4}
 ACROSS = {"rtol": 2e-3, "atol": 2e-3}
@@ -44,14 +46,15 @@ WKV_SHAPES = [(2, 128, 3, 64), (1, 64, 2, 64)]
 SSD_SHAPES = [(2, 128, 4, 32, 16), (1, 64, 2, 16, 8)]
 
 
-def wkv_inputs(shape, seed, state=False):
+def wkv_inputs(shape, seed, state=False, decay=0.0):
     """``tests/test_kernels.py``'s laws: r, k, v ~ N(0, 0.25), lw =
-    -exp(N(0, 1)), u ~ N(0, 0.01); a carry-in state ~ N(0, 1) if asked."""
+    -exp(N(decay, 1)) (decay 0 there), u ~ N(0, 0.01); a carry-in state
+    ~ N(0, 1) if asked."""
     B, T, H, K = shape
     rng = np.random.default_rng(seed)
     r, k, v = (rng.standard_normal(shape, np.float32) * 0.5
                for _ in range(3))
-    lw = -np.exp(rng.standard_normal(shape, np.float32))
+    lw = -np.exp(rng.standard_normal(shape, np.float32) + np.float32(decay))
     u = rng.standard_normal((H, K), np.float32) * 0.1
     s0 = rng.standard_normal((B, H, K, K), np.float32) if state else None
     return r, k, v, lw, u, s0
@@ -133,6 +136,94 @@ def test_wkv_plain_bf16_matches_model_path():
                            *(_j(a) for a in (lw, u, s0)), chunk=32)
     assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
     _close(got, want, BF16)
+
+
+# the CUDA kernels' three passes (chunk states, state passing, outputs) in
+# plain torch: (B, T, H, K), chunk, carry-in, lw's log-mean.
+# tests/test_kernels.py's shapes and chunks, a cold start's T = 8 (chunk
+# 8), a ragged T with a carry-in state, rwkv6-3b's widths (H = 40, K = 64)
+# at T = 300, and strong decay (lw = -exp(N(2, 1)): e^{lc} and e^{lx} near 0)
+WKV_CHUNK_PARALLEL_CASES = [
+    *((shape, c, False, 0.0) for shape in WKV_SHAPES for c in (16, 32)),
+    ((1, 8, 3, 64), 8, False, 0.0),
+    ((2, 77, 2, 64), 32, True, 0.0),
+    ((1, 300, 40, 64), 32, True, 0.0),
+    ((2, 77, 3, 64), 32, True, 2.0),
+]
+
+
+@pytest.mark.parametrize("shape, chunk, state, decay",
+                         WKV_CHUNK_PARALLEL_CASES, ids=str)
+def test_wkv_chunk_parallel_ref_matches_pallas_and_chunked(shape, chunk,
+                                                          state, decay):
+    """``wkv6_chunk_parallel_ref`` (the kernels' passes, 16-row tiles and
+    bf16 piece products) against the plain chunked form and the
+    reference: its Pallas kernel in interpret mode where that takes the
+    case (T a multiple of the chunk, no carry-in), else its model's
+    ``wkv_chunked``.  f32 within 1e-4; bf16 activations: y within 2e-2
+    (y is rounded to bf16) and the f32 state within 2e-3.  Finite under
+    strong decay."""
+    r, k, v, lw, u, s0 = wkv_inputs(shape, shape[1] + shape[2], state,
+                                    decay)
+    t_args = [_t(a) for a in (r, k, v, lw, u, s0)]
+    j_args = [_j(a) for a in (r, k, v, lw, u)]
+    B, T, H, K = shape
+    s0_j = _j(s0) if state else jnp.zeros((B, H, K, K), jnp.float32)
+    got = wkv6_chunk_parallel_ref(*t_args, chunk=chunk)
+    assert got[0].shape == shape and got[0].dtype == torch.float32
+    assert got[1].shape == (B, H, K, K)
+    assert all(bool(g.isfinite().all()) for g in got)
+    _close(got, wkv6_chunked_ref(*t_args, chunk=chunk), SAME)
+    pallas = not state and T % chunk == 0
+    if pallas:
+        _close(got, jax_wkv6(*j_args, chunk=chunk), SAME)
+    else:
+        _close(got, jax_wkv_chunked(*j_args, s0_j, chunk=chunk), SAME)
+
+    b_args = [_t(a, torch.bfloat16) for a in (r, k, v)] + t_args[3:]
+    got = wkv6_chunk_parallel_ref(*b_args, chunk=chunk)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    jb = [_j(a, jnp.bfloat16) for a in (r, k, v)] + j_args[3:]
+    for want in (wkv6_chunked_ref(*b_args, chunk=chunk),
+                 jax_wkv6(*jb, chunk=chunk) if pallas
+                 else jax_wkv_chunked(*jb, s0_j, chunk=chunk)):
+        np.testing.assert_allclose(_f32(got[0]), _f32(want[0]), rtol=2e-2,
+                                   atol=2e-2)
+        np.testing.assert_allclose(_f32(got[1]), _f32(want[1]), rtol=2e-3,
+                                   atol=2e-3)
+
+
+@pytest.mark.parametrize("decay", [0.0, 2.0])
+def test_wkv_chunk_parallel_ref_cuts_products_as_the_kernel(decay):
+    """A of one chunk as the output kernel builds it, against the pairwise
+    scores in f64.  Below the diagonal 8-row blocks, a product of
+    r·e^{lx − lx_j} and k·e^{lx_j − li}, each cut into bf16 hi and lo
+    pieces, matches to about 2^-16 of Σ|terms| (three pieces of each:
+    2^-24); inside them, the decays as running products of e^{li − lx}
+    match to f32 rounding; all finite under strong decay."""
+    rng = np.random.default_rng(5)
+    c, K = 64, 64
+    r, k = (torch.from_numpy(rng.standard_normal((3, c, K), np.float32))
+            for _ in range(2))
+    lw = -torch.exp(torch.from_numpy(
+        rng.standard_normal((3, c, K), np.float32)) + decay)
+    u = torch.from_numpy(rng.standard_normal(K, np.float32))
+    li = torch.cumsum(lw, dim=1)
+    lx = torch.nn.functional.pad(li[:, :-1], (0, 0, 1, 0))
+    expo = (lx[:, :, None].double() - li[:, None].double()).clamp(max=0)
+    terms = r[:, :, None].double() * k[:, None].double() * torch.exp(expo)
+    strict = torch.ones(c, c).tril(-1).bool()
+    want = torch.where(strict, terms.sum(-1), 0.0) + torch.diag_embed(
+        (r.double() * u.double() * k.double()).sum(-1))
+    scale = torch.where(strict, terms.abs().sum(-1), 0.0).max()
+    idx = torch.arange(c) // 8
+    blocks = idx[:, None] == idx[None, :]
+    for nf, tol in ((2, 2 ** -15), (3, 2 ** -22)):
+        got = w_ref._scores(r, k, u, lx, li, nf)
+        assert bool(got.isfinite().all())
+        err = (got.double() - want).abs()
+        assert float(err[:, ~blocks].max()) <= tol * scale, nf
+        assert float(err[:, blocks].max()) <= 2 ** -18 * scale, nf
 
 
 # ---------------------------------------------------------------------------
@@ -245,10 +336,10 @@ def test_ssd_chunk_parallel_ref_cuts_products_as_the_kernel():
     for na, nb, tol in ((2, 1, 2 ** -15), (3, 3, 2 ** -22)):
         bb = b if nb > 1 else b.to(torch.bfloat16).float()
         want = (a.double() @ bb.double()).float()
-        got = s_ref._split_einsum("ik,kj->ij", a, na, bb, nb)
+        got = pieces.split_einsum("ik,kj->ij", a, na, bb, nb)
         assert float((got - want).abs().max()) <= tol * scale, (na, nb)
     ab, bb = a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float()
-    torch.testing.assert_close(s_ref._split_einsum("ik,kj->ij", ab, 1, bb, 1),
+    torch.testing.assert_close(pieces.split_einsum("ik,kj->ij", ab, 1, bb, 1),
                                ab @ bb, rtol=1e-6, atol=1e-6)
 
 
