@@ -14,21 +14,38 @@ non-zero):
    each kernel's registers and spills as ``ptxas`` reports them;
 3. kernel against its plain version on the card: ``hermes_select`` at
    W ∈ {100, 1000}, R ∈ {1, 8}, N ∈ {1, 256}, random and edge states,
-   exactly equal; CUDA-event times of both at the main path's shape
-   (replayed from a CUDA graph, and as called from Python) beside the
-   bytes bound;
-4. the main path at the paper's large-cluster size (fig4 quick sweep):
-   ``simulate_many`` on ``cuda`` for Hermes, E/LL/PS, E/LOC/PS and late
-   binding (W=100 × 12 cores, 96 slots, ms-trace with 50 functions,
-   loads 0.5/0.7/0.9/0.97, N=4000, seed 1); the kernel's launch count
-   is zeroed just before the Hermes run and must equal N just after;
-   4b. a short profiled Hermes run: device busy and idle share, kernel
-   launches per arrival, the costliest host-side ops;
-5. kernel path against plain path end to end (N=2000, same cluster): both
-   on the card, equal in every plane; the same case on the CPU, equal
-   integer planes and floats within 1e-9; then every policy of phase 4,
-   card against CPU, at N=300 on the same cluster and on an overloaded
-   4 × 3-core cluster (rejections, evictions, the late-binding queue);
+   exactly equal; CUDA-event times of both at the serving and per-arrival
+   shape (R=4, N=1, W=100; replayed from a CUDA graph, and as called from
+   Python) beside the bytes bound;
+4. the main path at the paper's large-cluster size (fig4 quick sweep:
+   W=100 × 12 cores, 96 slots, ms-trace with 50 functions, loads
+   0.5/0.7/0.9/0.97 as R=4, seed 1): ``simulate_many`` on ``cuda`` for
+   Hermes, E/LL/PS and E/LOC/PS at the quick depth N=12000, each one
+   ``sim_engine`` launch (the fused early-binding loop) and no
+   ``hermes_select`` launch, with no host sync in the loop (the counts are
+   zeroed just before each run and read just after); then the batched
+   engine: the plain Hermes run on the same inputs (``backend="torch"``,
+   the fused engine's "before"), which the fused Hermes run must equal
+   in every plane, and late binding at N=4000; each fused policy must take
+   ≤ 100 µs per arrival and ≥ 50× less than the plain Hermes run; then
+   ``sim_engine``'s device time on the same inputs (its output again
+   equal to the plain run's) beside that run's and the bound; 4b. the
+   fused Hermes run at N=12000: its wall time beside the kernel's device
+   time on the same inputs (CUDA events), the idle share they give, its
+   launches and host syncs;
+5. the fused kernel against the plain batched engine on the card, equal
+   in every plane, for E/{H,LL,LOC,R}/PS at N=2000 on the fig4 cluster;
+   Hermes against the CPU, equal integer planes and floats within 1e-9;
+   then every policy of phase 4, E/R/PS, E/H/FCFS and E/H/SRPT, card
+   against CPU, at N=300 on the same cluster and on an overloaded 4 ×
+   3-core cluster (rejections, evictions, the late-binding queue), with
+   each run's launch counts (the fused policies one ``sim_engine``
+   launch; E/H/FCFS and E/H/SRPT, which keep the batched engine, one
+   ``hermes_select`` launch per arrival); there the fused kernel equal to
+   the plain engine on the card and to its plain version
+   (``sim_engine_ref``, on the card) in every plane and iteration count,
+   and E/H/FCFS and E/H/SRPT equal to the plain engine on the card
+   (``backend="kernel"`` against ``"torch"``) in every plane;
 6. the attention kernels against their plain versions on the card, in f32
    (atol = rtol = 1e-4: the same f32 math in another summation order) and
    bf16 (2e-2, ``tests/test_kernels.py``'s bf16 tolerance: the output is
@@ -47,13 +64,13 @@ non-zero):
    workers × 2 cores, ``max_len`` 2048) serving ``olmo-1b`` (seed 0) and
    ``musicgen-large`` (seed 1) with ``attn_impl="pallas"``, 12 alternating
    requests, prompts of 200-1500 tokens (``default_rng(1)``), 32 new
-   tokens each; all five launch counts are zeroed just before and must
+   tokens each; all six launch counts are zeroed just before and must
    be Σ L × (requests + cold starts) for ``flash_attention``,
    Σ L × (32 × requests + cold starts) for ``decode_attention``, 12 for
-   ``hermes_select`` and 0 for the scans; 7b. a profiled stretch of decode
-   steps: the device's busy and idle share, its costliest kernels, and
-   ``decode_attention``'s device time per call inside the step (its split
-   and combine kernels);
+   ``hermes_select`` and 0 for the scans and ``sim_engine``; 7b. a
+   profiled stretch of decode steps: the device's busy and idle share,
+   its costliest kernels, and ``decode_attention``'s device time per call
+   inside the step (its split and combine kernels);
 8. prefill plus 16 teacher-forced decode steps through the cache against
    the plain path's full forward (``attn_impl="naive"``, same parameters)
    over the same 793 tokens, for both models and for gemma-2b (seed 4,
@@ -75,7 +92,7 @@ non-zero):
 10. the recurrent serving path at full width: a fresh ``HermesFrontend``
     serving ``rwkv6-3b`` (seed 2) and ``zamba2-2.7b`` (seed 3) as in
     phase 7 (prompts from ``default_rng(2)``), with the exact launch
-    counts of all five kernels; 10b. a profiled stretch of their decode
+    counts of all six kernels; 10b. a profiled stretch of their decode
     steps;
 11. phase 8's check for both recurrent models: prefill runs the scan
     kernels over the prompt and hands their final state to the plain step
@@ -103,15 +120,18 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), flop/s
 BF16_FLOPS_PER_S = 989e12
+#: H100 SXM f64 peak outside the tensor cores (NVIDIA data sheet), flop/s
+F64_FLOPS_PER_S = 34e12
 #: H100 SXM special-function throughput, exp/s: 16 SFU lanes per SM
 #: (Hopper architecture white paper) × 132 SMs × 1.98 GHz boost clock
 SFU_PER_S = 16 * 132 * 1.98e9
 LOADS = (0.5, 0.7, 0.9, 0.97)
-#: the fig4 quick depth is 12 000; cut to keep the whole check inside its
-#: time as later slices add paths
-N_MAIN = 4_000
+#: the fig4 quick depth, run by the fused engine (E/{H,LL,LOC,R}/PS)
+N_MAIN = 12_000
+#: late binding stays on the batched engine: ~7 ms an arrival, so cut in
+#: depth to keep the whole check inside its time
+N_BATCHED = 4_000
 N_CHECK = 2_000
-N_PROFILE = 100
 N_SHORT = 300
 SEED = 1
 
@@ -323,47 +343,43 @@ def kernel_vs_plain(torch, np, report, cluster):
     return max_err, timings[0]
 
 
-def profile_main_path(torch, report, cluster):
-    """Where the main path's time goes: one profiled Hermes run at a
-    short horizon (same cluster and workload generator)."""
-    from torch.profiler import ProfilerActivity, profile
-
+def profile_main_path(torch, np, report, cluster):
+    """Where the main path's time goes: the fused Hermes run of phase 4
+    (N_MAIN arrivals, R = 4) on the host clock, beside the kernel's own
+    device time on the same inputs (CUDA events around one launch).
+    ``torch.profiler`` does not see this launch: its device tracing drops
+    what runs at the start of a profile, which here is the whole run."""
     from repro_torch.core import HERMES, ms_trace, replicate_workload
     from repro_torch.core.simulator import LoopStats, simulate_many
+    from repro_torch.kernels.sim_engine import kernel as ek
 
-    wb = replicate_workload(ms_trace, cluster, LOADS, N_PROFILE,
-                            seeds=(SEED,))
+    wb = replicate_workload(ms_trace, cluster, LOADS, N_MAIN, seeds=(SEED,))
     warm_up(cluster)
     stats = LoopStats()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        simulate_many(HERMES, cluster, wb, device="cuda", stats=stats)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    ka = prof.key_averages()
-    kernels = [e for e in ka if e.device_type.name != "CPU"
-               and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    n_kernels = sum(e.count for e in kernels)
-    top = sorted((e for e in ka if e.key.startswith("aten::")),
-                 key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
-    log(f"profiled Hermes N={N_PROFILE}: wall {wall_us / 1e3:.1f} ms "
-        f"(profiler on), device busy {busy_us / 1e3:.1f} ms = "
-        f"{busy_us / wall_us:.3f} of wall, idle share "
-        f"{1 - busy_us / wall_us:.3f}; {n_kernels} kernel launches = "
-        f"{n_kernels / N_PROFILE:.1f} per arrival; "
-        f"{stats.host_syncs} host syncs")
-    for e in top:
-        log(f"  {e.key}: {e.count} calls, self CPU "
-            f"{e.self_cpu_time_total / 1e3:.1f} ms "
-            f"({e.self_cpu_time_total / e.count:.1f} us each)")
+    torch.cuda.synchronize()
+    ek.sim_engine.launches = 0
+    t0 = time.perf_counter()
+    simulate_many(HERMES, cluster, wb, device="cuda", stats=stats)
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    launches = ek.sim_engine.launches
+    args = engine_inputs(torch, np, wb)
+    kernel_us = _event_ms(torch, lambda: ek.sim_engine("H", cluster,
+                                                       *args)) * 1e3
+    log(f"fused Hermes N={N_MAIN}: wall {wall_us / 1e3:.2f} ms (inputs to "
+        f"the card, one sim_engine launch, outputs back), kernel "
+        f"{kernel_us / 1e3:.2f} ms on the card = {kernel_us / wall_us:.3f} "
+        f"of wall, idle share {1 - kernel_us / wall_us:.3f} at most; "
+        f"{launches} sim_engine launch(es), {stats.host_syncs} host syncs "
+        f"in the loop, {stats.advance_iters} advance iterations")
+    check(launches == 1, f"the fused run launched sim_engine {launches} "
+                         f"times, expected 1")
+    check(stats.host_syncs == 0, f"{stats.host_syncs} host syncs in the "
+                                 f"fused loop")
     report["profile"] = dict(
-        n=N_PROFILE, wall_us=wall_us, device_busy_us=busy_us,
-        kernel_launches=n_kernels, host_syncs=stats.host_syncs,
-        advance_iters=stats.advance_iters,
-        top_cpu_ops=[dict(op=e.key, count=e.count,
-                          self_cpu_us=e.self_cpu_time_total) for e in top])
+        n=N_MAIN, wall_us=wall_us, sim_engine_us=kernel_us,
+        idle_share=1 - kernel_us / wall_us, sim_engine_launches=launches,
+        host_syncs=stats.host_syncs, advance_iters=stats.advance_iters)
 
 
 def validate(np, out, wb, name):
@@ -388,8 +404,56 @@ def warm_up(cluster):
     from repro_torch.core import HERMES, LATE_BINDING, ms_trace
     from repro_torch.core.simulator import simulate_many
     wl = ms_trace(cluster, LOADS[-1], 50, seed=SEED)
-    for policy in (HERMES, LATE_BINDING):
-        simulate_many(policy, cluster, [wl], device="cuda")
+    for policy, backend in ((HERMES, "auto"), (HERMES, "torch"),
+                            (LATE_BINDING, "auto")):
+        simulate_many(policy, cluster, [wl], device="cuda", backend=backend)
+
+
+def engine_inputs(torch, np, wb):
+    """The fused engine's input tensors on the card for a workload batch."""
+    def put(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device="cuda")
+    return (put(wb.arrival, torch.float64), put(wb.func, torch.int32),
+            put(wb.service, torch.float64), put(wb.u_lb, torch.float64),
+            put(wb.func_home, torch.int32))
+
+
+def engine_bound(out, n, n_reps, n_functions) -> tuple[float, str, int,
+                                                       int]:
+    """(ms, "bytes" | "operations", bytes, operations): the least time the
+    card could take for a fused run.  Bytes: each input read once (28 B an
+    arrival, 4 B a function's home) and each output written once (14 B an
+    arrival, 40 B a replication), over 3.35 TB/s; the slot state is the
+    function's own working set, which the card can keep on chip.
+    Operations: two f64 operations per active task per advance iteration
+    (the subtraction of rate*tau and the compare of its finish time), as
+    this run's data needed them (the kernel's ``active`` count), over the
+    f64 peak.  The chain of dependent barriers, not either of these, is
+    what holds the kernel back."""
+    nbytes = n_reps * (42 * n + 4 * n_functions + 40)
+    ops = 2 * int(out["active"].sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F64_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes", nbytes, ops)
+
+
+#: BatchSimOutput plane -> the fused engine's output of the same values
+ENGINE_PLANES = dict(response="resp", cold="cold", rejected="rejected",
+                     worker="worker_of", server_time="server_time",
+                     core_time="core_time", end_time="now")
+
+
+def same_planes(np, a, b, what: str) -> None:
+    """Two runs equal bit for bit in every plane (``b`` a BatchSimOutput;
+    ``a`` one too, or the fused engine's output dict)."""
+    for plane, key in ENGINE_PLANES.items():
+        x = getattr(a, plane) if not isinstance(a, dict) \
+            else a[key].cpu().numpy()
+        check(np.array_equal(x, getattr(b, plane),
+                             equal_nan=plane == "response"),
+              f"{what}: not equal in {plane}")
 
 
 def main_path(torch, np, report, cluster):
@@ -398,42 +462,105 @@ def main_path(torch, np, report, cluster):
                                   summarize_batch_sim)
     from repro_torch.core.simulator import LoopStats, simulate_many
     from repro_torch.kernels.hermes_select import kernel as hk
+    from repro_torch.kernels.sim_engine import kernel as ek
 
-    wb = replicate_workload(ms_trace, cluster, LOADS, N_MAIN, seeds=(SEED,))
+    wb_main = replicate_workload(ms_trace, cluster, LOADS, N_MAIN,
+                                 seeds=(SEED,))
+    wb_batched = replicate_workload(ms_trace, cluster, LOADS, N_BATCHED,
+                                    seeds=(SEED,))
     warm_up(cluster)
-    runs = {}
-    launches = None
-    for policy in (HERMES, E_LL_PS, E_LOC_PS, LATE_BINDING):
+    runs, outs = {}, {}
+    launches = 0
+    # the fused engine at the quick depth, then the batched engine: the
+    # plain Hermes run on the same inputs (the "before", and what the
+    # fused run must equal) and late binding
+    for policy, backend, wb in ((HERMES, "auto", wb_main),
+                                (E_LL_PS, "auto", wb_main),
+                                (E_LOC_PS, "auto", wb_main),
+                                (HERMES, "torch", wb_main),
+                                (LATE_BINDING, "auto", wb_batched)):
+        n = wb.n
+        fused = backend == "auto" and policy != LATE_BINDING
         stats = LoopStats()
         torch.cuda.synchronize()
-        if policy == HERMES:
-            hk.hermes_select_batch.launches = 0
+        ek.sim_engine.launches = 0
+        hk.hermes_select_batch.launches = 0
         t0 = time.perf_counter()
-        out = simulate_many(policy, cluster, wb, device="cuda", stats=stats)
+        out = simulate_many(policy, cluster, wb, device="cuda",
+                            backend=backend, stats=stats)
         wall = time.perf_counter() - t0
-        if policy == HERMES:
-            launches = hk.hermes_select_batch.launches
-            check(launches == N_MAIN, f"hermes_select launched {launches} "
-                                      f"times, expected N={N_MAIN}")
+        counts = (ek.sim_engine.launches, hk.hermes_select_batch.launches)
+        want = (1, 0) if fused else (0, 0)
+        check(counts == want, f"{policy.name} ({backend}): sim_engine and "
+                              f"hermes_select launched {counts}, expected "
+                              f"{want}")
+        if fused:
+            launches += counts[0]
+            check(stats.host_syncs == 0, f"{policy.name}: {stats.host_syncs} "
+                                         f"host syncs in the fused loop")
         validate(np, out, wb, policy.name)
         summ = summarize_batch_sim(out, wb)
         per_load = [dict(load=load, slow_p99=s.slow_p99,
                          cold_frac=s.cold_frac, n_rejected=s.n_rejected)
                     for load, s in zip(LOADS, summ.per_rep)]
-        runs[policy.name] = dict(
-            wall_s=wall, us_per_arrival=wall / N_MAIN * 1e6,
-            advance_iters=stats.advance_iters, pop_iters=stats.pop_iters,
-            host_syncs=stats.host_syncs, per_load=per_load)
-        log(f"{policy.name}: {wall:.2f} s ({wall / N_MAIN * 1e6:.1f} us per "
-            f"arrival), {stats.advance_iters} advance iters, "
-            f"{stats.pop_iters} queue pops, {stats.host_syncs} host syncs")
+        key = f"{policy.name} {'fused' if fused else 'batched'}"
+        outs[key] = out
+        runs[key] = dict(
+            n=n, wall_s=wall, us_per_arrival=wall / n * 1e6,
+            sim_engine_launches=counts[0], advance_iters=stats.advance_iters,
+            pop_iters=stats.pop_iters, host_syncs=stats.host_syncs,
+            per_load=per_load)
+        log(f"{key} N={n}: {wall:.3f} s ({wall / n * 1e6:.2f} us per "
+            f"arrival), sim_engine {counts[0]} launch(es), "
+            f"{stats.advance_iters} advance iters, {stats.pop_iters} queue "
+            f"pops, {stats.host_syncs} host syncs")
         for row in per_load:
             log(f"  load {row['load']}: p99 slowdown {row['slow_p99']:.3f}, "
                 f"cold {row['cold_frac']:.4f}, rejected {row['n_rejected']}")
-    log(f"hermes_select launches in the Hermes run: {launches} (N={N_MAIN})")
-    report["main_path"] = dict(n=N_MAIN, loads=LOADS, seed=SEED,
-                               hermes_launches=launches, runs=runs)
-    return launches
+    plain = outs[f"{HERMES.name} batched"]
+    same_planes(np, outs[f"{HERMES.name} fused"], plain,
+                f"{HERMES.name} N={N_MAIN}: sim_engine vs the plain engine")
+    log(f"{HERMES.name} N={N_MAIN}: sim_engine == plain engine on the card, "
+        f"all planes")
+    before = runs[f"{HERMES.name} batched"]["us_per_arrival"]
+    for policy in (HERMES, E_LL_PS, E_LOC_PS):
+        us = runs[f"{policy.name} fused"]["us_per_arrival"]
+        log(f"{policy.name}: fused {us:.2f} us per arrival at N={N_MAIN}, "
+            f"{before / us:.0f}x below the plain engine's Hermes "
+            f"({before:.1f} us, same N)")
+        check(us <= 100 and before / us >= 50,
+              f"{policy.name}: fused {us:.2f} us per arrival (needs <= 100 "
+              f"and >= 50x below the plain engine's {before:.1f})")
+
+    # the fused kernel's own device time (CUDA events around one launch)
+    # on the plain Hermes run's inputs, beside that run's synchronised wall
+    # time and the bound; its output must be that run's, plane for plane
+    args = engine_inputs(torch, np, wb_main)
+    ek.sim_engine("H", cluster, *args)
+    torch.cuda.synchronize()
+    out = {}
+    ms = _event_ms(torch, lambda: out.update(
+        ek.sim_engine("H", cluster, *args)))
+    same_planes(np, out, plain, f"{HERMES.name} N={N_MAIN}: the timed "
+                                f"sim_engine launch vs the plain engine")
+    plain_ms = runs[f"{HERMES.name} batched"]["wall_s"] * 1e3
+    bound_ms, bound_by, nbytes, ops = engine_bound(
+        out, N_MAIN, len(LOADS), wb_main.n_functions)
+    log(f"sim_engine E/H/PS R={len(LOADS)} N={N_MAIN}: kernel {ms:.3f} ms "
+        f"on the card (one launch; {ms / N_MAIN * 1e3:.3f} us per "
+        f"arrival), equal to the plain engine in every plane; plain batched "
+        f"engine {plain_ms:.1f} ms; bound {bound_ms:.5f} ms, {bound_by} "
+        f"({nbytes} B at 3.35 TB/s; {ops} f64 operations at 34 TFLOP/s over "
+        f"{int(out['iters'].sum())} advance iterations; the chain of "
+        f"dependent barriers is the real floor)")
+    timing = dict(R=len(LOADS), N=N_MAIN, ms=ms, plain_ms=plain_ms,
+                  bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                  operations=ops, iters=int(out["iters"].sum()),
+                  active=int(out["active"].sum()))
+    report["main_path"] = dict(n=N_MAIN, n_batched=N_BATCHED, loads=LOADS,
+                               seed=SEED, sim_engine_launches=launches,
+                               runs=runs, sim_engine=timing)
+    return launches, timing
 
 
 def card_vs_cpu(np, card, cpu, what: str) -> float:
@@ -451,32 +578,46 @@ def card_vs_cpu(np, card, cpu, what: str) -> float:
 
 
 def end_to_end(torch, np, report, cluster):
-    from repro_torch.core import (E_LL_PS, E_LOC_PS, HERMES, LATE_BINDING,
-                                  ClusterCfg, ms_trace, replicate_workload,
+    from repro_torch.core import (E_LL_PS, E_LOC_PS, E_R_PS, HERMES,
+                                  LATE_BINDING, ClusterCfg, WorkerSched,
+                                  ms_trace, replicate_workload,
                                   stack_workloads, synth_workload)
     from repro_torch.core.simulator import LoopStats, simulate_many
+    from repro_torch.kernels.hermes_select import kernel as hk
+    from repro_torch.kernels.sim_engine import kernel as ek
+    from repro_torch.kernels.sim_engine.ref import sim_engine_ref
 
+    fused = (HERMES, E_LL_PS, E_LOC_PS, E_R_PS)
+    # Hermes under the other schedulers keeps the batched engine, with the
+    # hermes_select kernel making each arrival's choice
+    per_arrival = tuple(HERMES._replace(sched=s)
+                        for s in (WorkerSched.FCFS, WorkerSched.SRPT))
+
+    def same(a, b, what):
+        same_planes(np, a, b, f"{what}: kernel path vs plain engine")
+
+    # the fused kernel against the plain batched engine, both on the card
     wb = replicate_workload(ms_trace, cluster, LOADS, N_CHECK, seeds=(SEED,))
-    kern = simulate_many(HERMES, cluster, wb, device="cuda",
-                         backend="kernel")
-    plain = simulate_many(HERMES, cluster, wb, device="cuda",
-                          backend="torch")
-    planes = ("response", "cold", "rejected", "worker", "server_time",
-              "core_time", "end_time")
-    for p in planes:
-        check(np.array_equal(getattr(kern, p), getattr(plain, p),
-                             equal_nan=p == "response"),
-              f"kernel path != plain path in {p}")
-    log(f"N={N_CHECK}: kernel path == plain path on the card, all planes")
+    kern = {}
+    for policy in fused:
+        kern[policy] = simulate_many(policy, cluster, wb, device="cuda")
+        plain = simulate_many(policy, cluster, wb, device="cuda",
+                              backend="torch")
+        same(kern[policy], plain, f"{policy.name} fig4 N={N_CHECK}")
+        log(f"{policy.name} N={N_CHECK}: sim_engine == plain engine on the "
+            f"card, all planes")
     cpu = simulate_many(HERMES, cluster, wb, device="cpu")
-    gaps = {f"{HERMES.name} N={N_CHECK}": card_vs_cpu(np, kern, cpu,
+    gaps = {f"{HERMES.name} N={N_CHECK}": card_vs_cpu(np, kern[HERMES], cpu,
                                                       HERMES.name)}
     log(f"N={N_CHECK}: {HERMES.name} card == CPU in integer planes, max "
         f"float gap {gaps[f'{HERMES.name} N={N_CHECK}']}")
 
-    # every policy of phase 4, card against CPU: the fig4 cluster at a
-    # short horizon, and an overloaded 4x3-core cluster where rejections,
-    # evictions and the late-binding queue occur
+    # every policy of phase 4, E/R/PS, E/H/FCFS and E/H/SRPT, card against
+    # CPU, on the fig4 cluster at a short horizon and on an overloaded
+    # 4x3-core cluster where rejections, evictions and the late-binding
+    # queue occur, each with its launch counts; the kernel paths also
+    # against the plain engine on the card, and the fused kernel against
+    # its plain version (sim_engine_ref, on the card), iteration counts too
     tiny = ClusterCfg(n_workers=4, cores=3, capacity_factor=2,
                       cold_start_penalty=0.25)
     cases = (
@@ -486,19 +627,54 @@ def end_to_end(torch, np, report, cluster):
             synth_workload(tiny, load, N_SHORT, n_functions=5,
                            hot_fraction=0.8, seed=SEED)
             for load in (1.3, 3.0, 6.0))))
+    max_err = 0.0
     for label, cl, wbs in cases:
-        for policy in (HERMES, E_LL_PS, E_LOC_PS, LATE_BINDING):
+        args = engine_inputs(torch, np, wbs)
+        for policy in (*fused, *per_arrival, LATE_BINDING):
             stats = LoopStats()
+            backend = "kernel" if policy in per_arrival else "auto"
+            ek.sim_engine.launches = 0
+            hk.hermes_select_batch.launches = 0
             card = simulate_many(policy, cl, wbs, device="cuda",
-                                 stats=stats)
-            ref = simulate_many(policy, cl, wbs, device="cpu")
+                                 backend=backend, stats=stats)
+            counts = (ek.sim_engine.launches,
+                      hk.hermes_select_batch.launches)
+            want = (1, 0) if policy in fused else \
+                (0, N_SHORT) if policy in per_arrival else (0, 0)
             key = f"{policy.name} {label} N={N_SHORT}"
+            check(counts == want, f"{key} ({backend}): sim_engine and "
+                                  f"hermes_select launched {counts}, "
+                                  f"expected {want}")
+            ref = simulate_many(policy, cl, wbs, device="cpu")
             gaps[key] = card_vs_cpu(np, card, ref, key)
             log(f"{key}: card == CPU in integer planes, max float gap "
                 f"{gaps[key]}; {int(card.rejected.sum())} rejected, "
-                f"{stats.pop_iters} queue pops")
+                f"{stats.pop_iters} queue pops; sim_engine and "
+                f"hermes_select launched {counts}")
+            if policy == LATE_BINDING:
+                continue
+            same(card, simulate_many(policy, cl, wbs, device="cuda",
+                                     backend="torch"), key)
+            if policy in per_arrival:
+                log(f"{key}: kernel == plain engine on the card in every "
+                    f"plane")
+                continue
+            k = ek.sim_engine(policy.balance, cl, *args)
+            p = sim_engine_ref(policy.balance, cl, *args)
+            for name in k:
+                a = k[name].double().cpu().nan_to_num(nan=-1.0)
+                b = p[name].double().cpu().nan_to_num(nan=-1.0)
+                err = float((a - b).abs().max())
+                max_err = max(max_err, err)
+                check(err == 0, f"{key}: sim_engine != sim_engine_ref in "
+                                f"{name} (max abs err {err})")
+            log(f"{key}: sim_engine == plain engine and == sim_engine_ref "
+                f"on the card in every plane, {int(k['iters'].sum())} "
+                f"advance iterations")
     report["end_to_end"] = dict(n=N_CHECK, n_short=N_SHORT,
-                                card_vs_cpu_max_gap=gaps)
+                                card_vs_cpu_max_gap=gaps,
+                                sim_engine_max_abs_err=max_err)
+    return max_err
 
 
 # -- attention and serving (phases 6-8, and 10-11 for the recurrent models) --
@@ -741,7 +917,9 @@ def _counters():
     from repro_torch.kernels.hermes_select import kernel as hk
     from repro_torch.kernels.mamba2_ssd import kernel as sk
     from repro_torch.kernels.rwkv6_wkv import kernel as wk
+    from repro_torch.kernels.sim_engine import kernel as ek
     return {"hermes_select": hk.hermes_select_batch,
+            "sim_engine": ek.sim_engine,
             "flash_attention": fk.flash_attention,
             "decode_attention": dk.decode_attention,
             "rwkv6_wkv": wk.wkv6, "mamba2_ssd": sk.ssd}
@@ -1240,11 +1418,12 @@ def main() -> int:
         with Phase("3 kernel vs plain", report):
             max_err, t = kernel_vs_plain(torch, np, report, PAPER_LARGE)
         with Phase("4 main path", report):
-            launches = main_path(torch, np, report, PAPER_LARGE)
+            engine_launches, engine_t = main_path(torch, np, report,
+                                                  PAPER_LARGE)
         with Phase("4b profile of the main path", report):
-            profile_main_path(torch, report, PAPER_LARGE)
+            profile_main_path(torch, np, report, PAPER_LARGE)
         with Phase("5 kernel path vs plain path", report):
-            end_to_end(torch, np, report, PAPER_LARGE)
+            engine_err = end_to_end(torch, np, report, PAPER_LARGE)
         with Phase("6 attention kernels vs plain", report):
             attn_t = attention_kernels(torch, np, report)
         with Phase("7 serving path at full width", report):
@@ -1277,13 +1456,22 @@ def main() -> int:
     finally:
         report["total_s"] = time.perf_counter() - t_start
         log("report " + json.dumps(report, separators=(",", ":")))
+    # hermes_select's path is serving (phase 7: one launch per dispatch);
+    # the simulator's E/H/PS makes its choice inside sim_engine (phase 4)
     kernels = [{
         "name": "hermes_select", "route": "cuda",
         "source": "src/repro_torch/csrc/hermes_select.cu",
         "replaces": "src/repro/kernels/hermes_select/kernel.py:66",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": serve_launches["hermes_select"], "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": "bytes", "library_ms": None}]
+        "bound_by": "bytes", "library_ms": None}, {
+        "name": "sim_engine", "route": "cuda",
+        "source": "src/repro_torch/csrc/sim_engine.cu",
+        "replaces": "src/repro/kernels/hermes_select/kernel.py:66",
+        "launches": engine_launches, "max_abs_err": engine_err,
+        "ms": engine_t["ms"], "plain_ms": engine_t["plain_ms"],
+        "bound_ms": engine_t["bound_ms"], "bound_by": engine_t["bound_by"],
+        "library_ms": None}]
     # the headline shape of each: olmo-1b's attention, rwkv6-3b's and
     # zamba2-2.7b's scans at T = 777, bf16; launches from the path that
     # serves them (phase 7 for attention, phase 10 for the scans)

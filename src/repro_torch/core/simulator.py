@@ -22,6 +22,12 @@ leading axis of every state tensor and the scan is a Python loop:
 Each loop iteration reads one boolean back to the host (``go.any()``).
 Pass a :class:`LoopStats` to count iterations and those syncs.
 
+On a CUDA device, early binding with PS under H, LL, LOC or R does not
+take this engine: :func:`repro_torch.policy.engine` routes it to the
+fused ``sim_engine`` kernel, which runs the same loop (one block per
+replication, no masking, no host reads) in one launch and returns the
+same planes bit for bit.
+
 State (``R`` replications × ``W`` workers × ``S`` slots):
 
 ==============  ========  =====================================
@@ -41,10 +47,12 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.policy import resolve
+from repro_torch.kernels.sim_engine import ops as sim_engine_ops
+from repro_torch.policy import engine, resolve
+from repro_torch.policy.registry import check_balancer
 
 from .cluster import ClusterCfg
-from .taxonomy import PolicySpec
+from .taxonomy import PolicySpec, parse_policy
 from .workload import Workload, WorkloadBatch, stack_workloads
 
 EPS = 1e-9
@@ -116,7 +124,9 @@ class LoopStats:
     one; the engine adds to it)."""
 
     arrivals: int = 0
-    advance_iters: int = 0     # completion-drain iterations
+    #: completion-drain iterations: of the lockstep loop in the batched
+    #: engine, summed over replications in the fused one
+    advance_iters: int = 0
     pop_iters: int = 0         # late-binding dispatches from the queue
     host_syncs: int = 0        # device→host reads of a loop predicate
 
@@ -338,22 +348,36 @@ def simulate_many(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
     ``workloads`` is a :class:`WorkloadBatch` or a sequence of
     :class:`Workload` sharing one ``(N, F)`` shape.  ``device=None`` is
     CUDA (raises :class:`~repro_torch.device.NoCudaDeviceError` without
-    a card).  ``backend`` is ``"auto"`` (the ``hermes_select`` kernel for
-    ``H``), ``"kernel"`` or ``"torch"`` (plain tensor code throughout).
+    a card).  ``backend`` is ``"auto"`` or ``"kernel"`` (on the card,
+    the fused ``sim_engine`` kernel for E/{H,LL,LOC,R}/PS and the
+    ``hermes_select`` kernel for the other ``H`` policies) or ``"torch"``
+    (the batched engine in plain tensor code throughout).
     """
     dev = resolve_device(device)
     wb = workloads if isinstance(workloads, WorkloadBatch) \
         else stack_workloads(workloads)
-    run = _build_engine(policy, cluster, wb.n, wb.n_functions, wb.n_reps,
-                        dev, backend)
+    stats = LoopStats() if stats is None else stats
 
     def put(x, dtype):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
                                device=dev)
 
-    st = run(put(wb.arrival, _F64), put(wb.func, _I64),
-             put(wb.service, _F64), put(wb.u_lb, _F64),
-             put(wb.func_home, _I32), LoopStats() if stats is None else stats)
+    if engine(policy, dev, backend) == "sim_engine":
+        cluster.validate()
+        if isinstance(policy, str):
+            policy = parse_policy(policy)
+        st = sim_engine_ops.sim_engine(
+            check_balancer(policy.balance), cluster, put(wb.arrival, _F64), put(wb.func, _I32),
+            put(wb.service, _F64), put(wb.u_lb, _F64),
+            put(wb.func_home, _I32))
+        stats.arrivals += wb.n
+        stats.advance_iters += int(st["iters"].sum())
+    else:
+        run = _build_engine(policy, cluster, wb.n, wb.n_functions,
+                            wb.n_reps, dev, backend)
+        st = run(put(wb.arrival, _F64), put(wb.func, _I64),
+                 put(wb.service, _F64), put(wb.u_lb, _F64),
+                 put(wb.func_home, _I32), stats)
     n = wb.n
     end = st["now"].cpu().numpy()
     return BatchSimOutput(

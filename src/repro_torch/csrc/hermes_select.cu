@@ -12,7 +12,9 @@
 //      slot, and active[w] += 1 otherwise.
 //
 // What bounds it on this card: launch latency, not bytes or operations.
-// On the simulator's main path N = 1, so one launch reads R*W active
+// Where the simulator calls it per arrival (E/H/FCFS, E/H/SRPT; E/H/PS
+// runs its choice inside sim_engine.cu) and in serving, N = 1, so one
+// launch reads R*W active
 // counts and R*W warm counts and writes R*(W+1) ints: a few KB, which the
 // card's 3.35 TB/s moves in a few nanoseconds, while a launch costs
 // microseconds.  The design keeps the launch small and never goes back
@@ -24,7 +26,9 @@
 //   * the two "any worker" tests are __syncthreads_or;
 //   * the argmax packs (score, -index) into one 64-bit key, so a max
 //     reduction (warp shuffles, then one shared-memory pass) returns the
-//     lowest index among equal scores, as jnp.argmax does;
+//     lowest index among equal scores, as jnp.argmax does; the score and
+//     the reduction live in hermes_score.cuh, which sim_engine.cu's
+//     in-loop choice shares;
 //   * one thread applies the increment; a barrier publishes it.
 // Upper bound: W <= 12288 workers (48 KB of shared memory per block).
 // The wrapper (repro_torch/kernels/hermes_select/kernel.py) checks it.
@@ -32,26 +36,12 @@
 #include <cuda_runtime.h>
 #include <climits>
 
+#include "hermes_score.cuh"
+
 namespace {
 
-constexpr int kBig = 1 << 30;
 constexpr int kMaxWorkers = 12288;
 constexpr int kMaxThreads = 1024;
-
-// (score desc, index asc) as one signed key to maximise.  The low word
-// 0x7fffffff - w lies in [0, 2^31), so it never borrows from the score.
-__device__ __forceinline__ long long pack_key(int score, int w) {
-  return static_cast<long long>(score) * 4294967296LL +
-         static_cast<long long>(0x7fffffff - w);
-}
-
-__device__ __forceinline__ long long warp_max(long long v) {
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    const long long other = __shfl_xor_sync(0xffffffffu, v, offset);
-    v = other > v ? other : v;
-  }
-  return v;
-}
 
 __global__ void hermes_select_kernel(const int* __restrict__ active,
                                      const int* __restrict__ warm_cols,
@@ -63,9 +53,6 @@ __global__ void hermes_select_kernel(const int* __restrict__ active,
   __shared__ long long warp_best[32];
   const int r = blockIdx.x;
   const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int n_warps = blockDim.x >> 5;
 
   const int* active_r = active + static_cast<size_t>(r) * n_workers;
   for (int w = t; w < n_workers; w += blockDim.x) load[w] = active_r[w];
@@ -86,28 +73,15 @@ __global__ void hermes_select_kernel(const int* __restrict__ active,
 
     long long best = LLONG_MIN;
     for (int w = t; w < n_workers; w += blockDim.x) {
-      const int a = load[w];
-      const int hot = warm[w] > 0;
-      int score;
-      if (low_load) {
-        const int cls = a > 0 ? 2 + hot : hot;
-        score = a < cores ? cls * (slots + 1) + a : -kBig;
-      } else {
-        score = a < slots ? -(2 * a - hot) : -kBig;
-      }
-      const long long key = pack_key(score, w);
+      const long long key = hermes::pack_key(
+          hermes::score(load[w], warm[w] > 0, cores, slots, low_load), w);
       best = key > best ? key : best;
     }
-    best = warp_max(best);
-    if (lane == 0) warp_best[warp] = best;
-    __syncthreads();
-    if (warp == 0) {
-      best = warp_max(lane < n_warps ? warp_best[lane] : LLONG_MIN);
-      if (lane == 0) {
-        const int w = 0x7fffffff - static_cast<int>(best & 0xffffffffLL);
-        choices[static_cast<size_t>(r) * n + i] = any_slot ? w : -1;
-        if (any_slot) load[w] += 1;
-      }
+    best = hermes::block_max(best, warp_best);
+    if (t == 0) {
+      const int w = hermes::key_index(best);
+      choices[static_cast<size_t>(r) * n + i] = any_slot ? w : -1;
+      if (any_slot) load[w] += 1;
     }
     __syncthreads();  // publish load[w]; warp_best is free for reuse
   }

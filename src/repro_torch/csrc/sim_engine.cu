@@ -1,0 +1,475 @@
+// The policy simulator's early-binding event loop with processor sharing
+// (E/H/PS, E/LL/PS, E/LOC/PS, E/R/PS) as one CUDA kernel for Hopper
+// (sm_90a): one launch runs a whole `simulate_many`.
+//
+// Redesigns the Pallas TPU kernel repro/kernels/hermes_select/kernel.py
+// (`hermes_select_batch`) for this card.  On the TPU that kernel makes the
+// Hermes choice inside the reference engine's compiled lax.scan over
+// arrivals (repro/core/simulator.py: `advance`, `early_arrival`); the
+// port's first slice launched it once per arrival from a Python loop that
+// issued ~300 small launches and one host read per loop iteration around
+// it.  Here the choice (hermes_score.cuh, shared with hermes_select.cu)
+// sits where the TPU had it: inside a single device program that runs the
+// whole loop.  It computes exactly what the port's batched engine
+// (repro_torch/core/simulator.py, backend="torch") computes, plane for
+// plane: per replication and per arrival,
+//   1. advance to the arrival: while any slot is active and time is left
+//      (or a task within EPS of done is pending), rate every active slot
+//      at min(1, C / n_w), take the earliest finisher (lowest flat index
+//      w*S + s on ties), move time by tau, integrate server and core
+//      occupancy, subtract rate*tau from every active slot, and complete
+//      the argmin slot (its response, one warm executor more);
+//   2. choose a worker (H, LL, LOC or R; -1 = rejected) and place: first
+//      empty slot, cold unless a warm executor is idle (which it takes),
+//      the first-index fullest warm pool evicted when a cold start finds
+//      active + idle >= S, the cold-start penalty added to the service;
+// then one final drain with a horizon of 1e18 s.
+//
+// Bit-equal f64: nvcc contracts a - b*c into an FMA, torch does not, so
+// every product that feeds a sum goes through __dmul_rn / __dadd_rn /
+// __dsub_rn in the torch engine's order of operations.  The PS rates
+// min(1, C / max(n, 1)) are the same divisions, made once into a table;
+// t = rem / rate is skipped where rate is 1.0 (x / 1.0 == x exactly).
+//
+// What bounds it on this card: latency, not bytes or operations.  An
+// advance iteration reads the occupied part of one replication's slot
+// matrix and the next iteration depends on its result, so a replication
+// is a chain of dependent block-wide steps; replications are independent.
+// The design keeps that chain short:
+//   * one block per replication, so there is no lockstep masking (the
+//     batched engine's torch.where merge, scratch index N and pad column F
+//     have no counterpart) and no host round trip inside the loop;
+//   * the replication's state (remaining, arrival time and task of every
+//     slot, the warm pools) lives in the global tensors the wrapper
+//     allocates, where each block's ~200 KB stays in L1 and L2 (keeping
+//     it in shared memory, which only clusters up to ~100 workers of 96
+//     slots fit, was measured a few percent faster, not enough for a
+//     second layout); per-worker counts n_w and high-water marks hw_w
+//     (slots s >= hw_w were never occupied) are in shared memory, so a
+//     scan reads only s < hw_w of the workers with n_w > 0;
+//   * worker w belongs to warp w % n_warps: that warp alone reads and
+//     writes w's slots, count and warm pool in the loop, and completes
+//     and places w's tasks, so the only block barriers are one per advance
+//     iteration (the argmin reduction: warp shuffles, then every warp
+//     reduces the warps' partials from a double-buffered shared array)
+//     and one per arrival (between the choice and the placement);
+//   * an iteration's subtraction of rate*tau is made by the next
+//     iteration's scan, which reads those slots anyway;
+//   * every warp makes the arrival's choice itself from the shared
+//     counts (the packed first-index argmax of hermes_score.cuh, or the
+//     first free worker on the ring, or the target rank among the free
+//     workers), with counts of the workers that have a free core and a
+//     free slot kept up to date by whoever changes n_w;
+//   * the next arrival's inputs are loaded while this one is processed.
+// A block has one warp per worker, up to 512 threads.  Upper bounds:
+// W <= 4096 workers and S <= 2047 slots (48 KB of shared memory).  The
+// wrapper (repro_torch/kernels/sim_engine/kernel.py) checks them.
+
+#include <cuda_runtime.h>
+#include <climits>
+#include <cmath>
+
+#include "hermes_score.cuh"
+
+namespace {
+
+constexpr double kEps = 1e-9;         // simulator.py's EPS
+constexpr double kBigTime = 1e18;     // the final drain's horizon
+constexpr int kMaxWorkers = 4096;
+constexpr int kMaxSlots = 2047;
+constexpr int kMaxThreads = 512;
+constexpr unsigned kFull = 0xffffffffu;
+
+enum Balancer { kHermes = 0, kLeastLoaded = 1, kLocality = 2, kRandom = 3 };
+
+// One advance iteration's block-wide reduction: the earliest finisher
+// (t, flat index; lowest index on ties), whether a task is pending, and
+// the occupancy counts (active tasks, busy workers, busy cores).
+struct Scan {
+  double t;
+  int j;
+  int pending;
+  int total;
+  int busy;
+  int cores;
+};
+
+__device__ __forceinline__ Scan warp_reduce(Scan a) {
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    const double t = __shfl_xor_sync(kFull, a.t, offset);
+    const int j = __shfl_xor_sync(kFull, a.j, offset);
+    if (t < a.t || (t == a.t && j < a.j)) {
+      a.t = t;
+      a.j = j;
+    }
+    a.total += __shfl_xor_sync(kFull, a.total, offset);
+    a.busy += __shfl_xor_sync(kFull, a.busy, offset);
+    a.cores += __shfl_xor_sync(kFull, a.cores, offset);
+  }
+  a.pending = __any_sync(kFull, a.pending);
+  return a;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    v += __shfl_xor_sync(kFull, v, offset);
+  }
+  return v;
+}
+
+// The worker the balancer picks for an arrival of function f, or -1 if
+// every worker is slot-full; made by each warp on its own.
+__device__ __forceinline__ int choose(int balancer, const int* n_act,
+                                      const int* warm, int W, int F, int f,
+                                      int cores, int S, int core_free,
+                                      int slot_free, int h, double u,
+                                      int lane) {
+  if (slot_free == 0) return -1;
+  if (balancer == kLocality) {
+    // the first worker with a free slot on the ring from the home
+    for (int k0 = 0; k0 < W; k0 += 32) {
+      int w = h + k0 + lane;
+      w = w >= W ? w - W : w;
+      const unsigned free =
+          __ballot_sync(kFull, k0 + lane < W && n_act[w] < S);
+      if (free) return __shfl_sync(kFull, w, __ffs(free) - 1);
+    }
+    return -1;
+  }
+  if (balancer == kRandom) {
+    // the min(int(u*k), k-1)-th of the k workers with a free slot
+    const int pick = static_cast<int>(
+        __dmul_rn(u, static_cast<double>(slot_free)));
+    const int target = pick < slot_free - 1 ? pick : slot_free - 1;
+    int base = 0;
+    for (int w0 = 0; w0 < W; w0 += 32) {
+      const int w = w0 + lane;
+      const bool has = w < W && n_act[w] < S;
+      const unsigned free = __ballot_sync(kFull, has);
+      const int rank = base + __popc(free & ((1u << lane) - 1u));
+      const unsigned hit = __ballot_sync(kFull, has && rank == target);
+      if (hit) return w0 + __ffs(hit) - 1;
+      base += __popc(free);
+    }
+    return -1;
+  }
+  long long best = LLONG_MIN;
+  for (int w = lane; w < W; w += 32) {
+    const int nw = n_act[w];
+    if (nw >= S) continue;
+    const int score =
+        balancer == kHermes
+            ? hermes::score(nw, warm[static_cast<size_t>(w) * F + f] > 0,
+                            cores, S, core_free > 0)
+            : -nw;   // kLeastLoaded
+    const long long key = hermes::pack_key(score, w);
+    best = key > best ? key : best;
+  }
+  return hermes::key_index(hermes::warp_max(best));
+}
+
+__global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
+    const double* __restrict__ arrival, const int* __restrict__ func,
+    const double* __restrict__ service, const double* __restrict__ u_lb,
+    const int* __restrict__ home, double* __restrict__ remaining,
+    double* __restrict__ task_arr, int* __restrict__ task_idx,
+    int* __restrict__ warm, double* __restrict__ resp,
+    unsigned char* __restrict__ cold, unsigned char* __restrict__ rejected,
+    int* __restrict__ worker_of, double* __restrict__ server_time_out,
+    double* __restrict__ core_time_out, double* __restrict__ now_out,
+    long long* __restrict__ iters_out, long long* __restrict__ active_out,
+    int n, int n_functions, int n_workers, int cores, int slots,
+    int balancer, double penalty) {
+  extern __shared__ double shared[];
+  __shared__ double red_t[2][32];
+  __shared__ int red_j[2][32];
+  __shared__ int red_pending[2][32];
+  __shared__ int red_total[2][32];
+  __shared__ int red_busy[2][32];
+  __shared__ int red_cores[2][32];
+  __shared__ int core_free;   // workers with n_w < C
+  __shared__ int slot_free;   // workers with n_w < S
+
+  const int W = n_workers, S = slots, F = n_functions;
+  const int r = blockIdx.x;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int n_warps = blockDim.x >> 5;
+
+  // this replication's rows, and where its state lives
+  const size_t WS = static_cast<size_t>(W) * S;
+  const size_t WF = static_cast<size_t>(W) * F;
+  arrival += static_cast<size_t>(r) * n;
+  func += static_cast<size_t>(r) * n;
+  service += static_cast<size_t>(r) * n;
+  u_lb += static_cast<size_t>(r) * n;
+  home += static_cast<size_t>(r) * F;
+  resp += static_cast<size_t>(r) * n;
+  cold += static_cast<size_t>(r) * n;
+  rejected += static_cast<size_t>(r) * n;
+  worker_of += static_cast<size_t>(r) * n;
+  double* rems = remaining + r * WS;                           // [W, S]
+  double* arr_at = task_arr + r * WS;                          // [W, S]
+  int* tix = task_idx + r * WS;                                // [W, S]
+  int* pools = warm + r * WF;                                  // [W, F]
+  double* rate_of = shared;                                    // [S + 1]
+  int* n_act = reinterpret_cast<int*>(shared + S + 1);         // [W]
+  int* hw = n_act + W;   // [W] 1 + the highest slot ever used
+
+  for (size_t k = t; k < WS; k += blockDim.x) {
+    rems[k] = INFINITY;
+    arr_at[k] = 0.0;
+    tix[k] = -1;
+  }
+  for (size_t k = t; k < WF; k += blockDim.x) pools[k] = 0;
+  const double no_response = __longlong_as_double(0x7ff8000000000000LL);
+  for (int k = t; k < n; k += blockDim.x) {
+    resp[k] = no_response;   // NaN, as torch.nan
+    cold[k] = 0;
+    rejected[k] = 0;
+    worker_of[k] = -1;
+  }
+  for (int w = t; w < W; w += blockDim.x) {
+    n_act[w] = 0;
+    hw[w] = 0;
+  }
+  // PS: each of n active tasks runs at min(1, C / max(n, 1))
+  for (int k = t; k <= S; k += blockDim.x) {
+    const double rate = static_cast<double>(cores) /
+                        static_cast<double>(k > 1 ? k : 1);
+    rate_of[k] = rate < 1.0 ? rate : 1.0;
+  }
+  if (t == 0) {
+    core_free = W;
+    slot_free = W;
+  }
+  __syncthreads();
+
+  // every thread carries the same copy of the replication's scalars
+  double now = 0.0, server_time = 0.0, core_time = 0.0;
+  long long iters = 0;
+  long long active_sum = 0;   // active tasks summed over the iterations
+  int parity = 0;
+  // The subtraction rate*tau of an iteration is made by the next
+  // iteration's scan, which every iteration is followed by (the scan that
+  // ends a loop makes the last one): tau_prev and the worker whose task
+  // completed (its rate ran with one task more) say what to subtract.
+  double tau_prev = 0.0;
+  int wj_prev = -1;
+  int done_prev = 0;   // meaningful in the warp that owns wj_prev
+  // arrival i's inputs, loaded one arrival ahead
+  double t_i = n > 0 ? arrival[0] : 0.0;
+  int f_i = n > 0 ? func[0] : 0;
+  double svc_i = n > 0 ? service[0] : 0.0;
+  double u_i = n > 0 ? u_lb[0] : 0.0;
+
+  for (int i = 0; i <= n; ++i) {
+    // -- advance to arrival i (after the last one: drain) ---------------
+    double dt_left = i < n ? __dsub_rn(t_i, now) : kBigTime;
+    while (true) {
+      Scan a{INFINITY, INT_MAX, 0, 0, 0, 0};
+      for (int w = warp; w < W; w += n_warps) {
+        const int nw = n_act[w];
+        if (nw == 0) continue;
+        if (lane == 0) {
+          a.total += nw;
+          a.busy += 1;
+          a.cores += nw < cores ? nw : cores;
+        }
+        const double rate = rate_of[nw];
+        const double step = __dmul_rn(
+            rate_of[nw + (w == wj_prev ? done_prev : 0)], tau_prev);
+        const int lim = hw[w];
+        for (int s = lane; s < lim; s += 32) {
+          const int flat = w * S + s;
+          if (tix[flat] >= 0) {
+            double rem = rems[flat];
+            if (tau_prev > 0) {
+              rem = __dsub_rn(rem, step);
+              rems[flat] = rem;
+            }
+            a.pending |= rem <= kEps;
+            const double td = rate == 1.0 ? rem : rem / rate;
+            if (td < a.t) {   // a lane meets its slots in flat order
+              a.t = td;
+              a.j = flat;
+            }
+          }
+        }
+      }
+      a = warp_reduce(a);
+      if (lane == 0) {
+        red_t[parity][warp] = a.t;
+        red_j[parity][warp] = a.j;
+        red_pending[parity][warp] = a.pending;
+        red_total[parity][warp] = a.total;
+        red_busy[parity][warp] = a.busy;
+        red_cores[parity][warp] = a.cores;
+      }
+      __syncthreads();
+      if (lane < n_warps) {
+        a = Scan{red_t[parity][lane], red_j[parity][lane],
+                 red_pending[parity][lane], red_total[parity][lane],
+                 red_busy[parity][lane], red_cores[parity][lane]};
+      } else {
+        a = Scan{INFINITY, INT_MAX, 0, 0, 0, 0};
+      }
+      a = warp_reduce(a);
+      parity ^= 1;   // the next iteration writes the other buffer
+      tau_prev = 0.0;
+      if (!(a.total > 0 && (dt_left > 0 || a.pending))) break;
+      ++iters;
+      active_sum += a.total;
+
+      const double tmin = a.t;
+      const int j = a.j == INT_MAX ? 0 : a.j;   // torch's argmin of all-inf
+      double tau = dt_left < tmin ? dt_left : tmin;
+      if (!(isfinite(tau) && tau > 0)) tau = 0.0;
+      server_time = __dadd_rn(server_time,
+                              __dmul_rn(tau, static_cast<double>(a.busy)));
+      core_time = __dadd_rn(core_time,
+                            __dmul_rn(tau, static_cast<double>(a.cores)));
+      const double now_next = __dadd_rn(now, tau);
+      const int wj = j / S;
+      if (warp == wj % n_warps) {
+        // the argmin slot, by its owner warp: completion reads the
+        // remaining work before this iteration's subtraction
+        int done = 0;
+        if (lane == 0) {
+          const int tid = tix[j];
+          done = tid >= 0 && (tmin <= dt_left || rems[j] <= kEps);
+          if (done) {
+            resp[tid] = __dsub_rn(now_next, arr_at[j]);
+            pools[static_cast<size_t>(wj) * F + func[tid]] += 1;
+            rems[j] = INFINITY;
+            tix[j] = -1;
+            const int nw = n_act[wj];
+            n_act[wj] = nw - 1;
+            core_free += nw == cores;
+            slot_free += nw == S;
+          }
+        }
+        done_prev = __shfl_sync(kFull, done, 0);
+        __syncwarp();
+      }
+      tau_prev = tau;
+      wj_prev = wj;
+      now = now_next;
+      dt_left = __dsub_rn(dt_left, tau);
+    }
+    if (i == n) break;
+
+    // -- choose a worker for arrival i (every warp), then place it (the
+    //    worker's warp) or reject it --------------------------------------
+    now = t_i;
+    const int f = f_i;
+    const double svc = svc_i;
+    const int w_sel = choose(balancer, n_act, pools, W, F, f, cores, S,
+                             core_free, slot_free,
+                             balancer == kLocality ? home[f] : 0, u_i, lane);
+    if (i + 1 < n) {
+      t_i = arrival[i + 1];
+      f_i = func[i + 1];
+      svc_i = service[i + 1];
+      u_i = u_lb[i + 1];
+    }
+    __syncthreads();   // every warp has chosen before the state changes
+    if (t == 0) rejected[i] = w_sel < 0;
+    if (w_sel >= 0 && warp == w_sel % n_warps) {
+      const int w = w_sel;
+      const int* task_w = tix + static_cast<size_t>(w) * S;
+      int slot = -1;
+      for (int s0 = 0; s0 < S && slot < 0; s0 += 32) {
+        const unsigned empty =
+            __ballot_sync(kFull, s0 + lane < S && task_w[s0 + lane] < 0);
+        if (empty) slot = s0 + __ffs(empty) - 1;
+      }
+      if (slot < 0) slot = 0;   // torch's argmax of all-false
+      int* warm_w = pools + static_cast<size_t>(w) * F;
+      int idle = 0;
+      long long victim = LLONG_MIN;
+      for (int g = lane; g < F; g += 32) {
+        const int c = warm_w[g];
+        idle += c;
+        const long long key = hermes::pack_key(c, g);
+        victim = key > victim ? key : victim;
+      }
+      idle = warp_sum(idle);
+      victim = hermes::warp_max(victim);
+      if (lane == 0) {
+        const int active_w = n_act[w];
+        const int warm_cnt = warm_w[f];
+        const bool is_cold = warm_cnt == 0;
+        if (!is_cold) warm_w[f] = warm_cnt - 1;
+        if (is_cold && active_w + idle >= S) {
+          warm_w[hermes::key_index(victim)] -= 1;
+        }
+        const size_t at = static_cast<size_t>(w) * S + slot;
+        rems[at] = __dadd_rn(svc, is_cold ? penalty : 0.0);
+        arr_at[at] = now;
+        tix[at] = i;
+        cold[i] = is_cold;
+        worker_of[i] = w;
+        n_act[w] = active_w + 1;
+        core_free -= active_w == cores - 1;
+        slot_free -= active_w == S - 1;
+        if (slot + 1 > hw[w]) hw[w] = slot + 1;
+      }
+      __syncwarp();
+    }
+    // the next scan's barrier publishes the placement to the other warps
+  }
+
+  if (t == 0) {
+    server_time_out[r] = server_time;
+    core_time_out[r] = core_time;
+    now_out[r] = now;
+    iters_out[r] = iters;
+    active_out[r] = active_sum;
+  }
+}
+
+size_t shared_bytes(int n_workers, int slots) {
+  return (slots + 1) * sizeof(double) +
+         2 * static_cast<size_t>(n_workers) * sizeof(int);
+}
+
+}  // namespace
+
+// Inputs [R, N] (arrival f64, func i32, service f64, u_lb f64) and
+// home [R, F] i32; state remaining/task_arr [R, W, S] f64, task_idx
+// [R, W, S] i32, warm [R, W, F] i32; outputs resp [R, N] f64, cold and
+// rejected [R, N] u8, worker_of [R, N] i32, server_time/core_time/now
+// [R] f64, iters and active [R] i64 (advance iterations, and the active
+// tasks summed over them); all contiguous on the device, the kernel
+// initialises state and outputs.  Launches one block per replication on
+// `stream` and returns cudaGetLastError() (0 = launched).
+extern "C" int sim_engine_launch(
+    const double* arrival, const int* func, const double* service,
+    const double* u_lb, const int* home, double* remaining, double* task_arr,
+    int* task_idx, int* warm, double* resp, unsigned char* cold,
+    unsigned char* rejected, int* worker_of, double* server_time,
+    double* core_time, double* now, long long* iters, long long* active,
+    int n_reps, int n, int n_functions, int n_workers, int cores, int slots,
+    int balancer, double penalty, void* stream) {
+  if (n_reps < 1 || n < 0 || n_functions < 1 || n_workers < 1 ||
+      n_workers > kMaxWorkers || cores < 1 || slots < 1 ||
+      slots > kMaxSlots || balancer < 0 || balancer > kRandom) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // one warp per worker, up to kMaxThreads
+  const int threads =
+      n_workers < kMaxThreads / 32 ? 32 * n_workers : kMaxThreads;
+  const size_t smem = shared_bytes(n_workers, slots);
+  const cudaError_t err = cudaFuncSetAttribute(
+      sim_engine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sim_engine_kernel<<<n_reps, threads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      arrival, func, service, u_lb, home, remaining, task_arr, task_idx, warm,
+      resp, cold, rejected, worker_of, server_time, core_time, now, iters,
+      active, n, n_functions, n_workers, cores, slots, balancer, penalty);
+  return static_cast<int>(cudaGetLastError());
+}

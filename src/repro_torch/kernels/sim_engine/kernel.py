@@ -1,0 +1,101 @@
+"""ctypes binding of the ``sim_engine`` CUDA kernel.
+
+The kernel (``src/repro_torch/csrc/sim_engine.cu``) runs a whole
+early-binding, processor-sharing ``simulate_many`` (E/H/PS, E/LL/PS,
+E/LOC/PS, E/R/PS) in one launch, one block per replication; its Hermes
+choice redesigns the Pallas TPU kernel
+``repro/kernels/hermes_select/kernel.py`` (``hermes_select_batch``) for
+the card.  :func:`sim_engine` checks its inputs, allocates the state and
+the outputs, launches on PyTorch's current stream and raises if the
+launch was refused.  ``sim_engine.launches`` counts its launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.kernel import UnsupportedShapeError
+
+from .ref import BALANCER_CODES, balancer_name
+
+#: the kernel keeps two ints per worker and a rate per slot count in
+#: shared memory
+MAX_WORKERS = 4096
+MAX_SLOTS = 2047
+
+
+@functools.cache
+def _launcher():
+    fn = _build.load("sim_engine").sim_engine_launch
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 \
+        + [ctypes.c_double, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
+    if not x.is_cuda or x.device != device:
+        raise ValueError(f"sim_engine: {name} must be a CUDA tensor on "
+                         f"{device}, got one on {x.device}")
+    if x.dtype != dtype:
+        raise ValueError(f"sim_engine: {name} must be {dtype}, got "
+                         f"{x.dtype}")
+    if tuple(x.shape) != tuple(shape) or not x.is_contiguous():
+        raise ValueError(f"sim_engine: {name} must be a contiguous "
+                         f"{tuple(shape)} tensor, got {tuple(x.shape)}")
+
+
+def sim_engine(balance, cluster, arrival, func, service, u_lb, home):
+    """The fused engine on the card: see :func:`.ref.sim_engine_ref` for
+    the inputs and the outputs.  Raises :class:`NotPortedError` for a
+    balancer it does not have and :class:`UnsupportedShapeError` for a
+    cluster larger than it takes."""
+    balance = balancer_name(balance)
+    W, C, S = int(cluster.n_workers), int(cluster.cores), int(cluster.slots)
+    if not (1 <= W <= MAX_WORKERS and 1 <= S <= MAX_SLOTS):
+        raise UnsupportedShapeError(
+            f"sim_engine: needs 1 <= W <= {MAX_WORKERS} and 1 <= S <= "
+            f"{MAX_SLOTS}, got W={W}, S={S}")
+    dev = arrival.device
+    R, N = arrival.shape if arrival.dim() == 2 else (0, 0)
+    F = home.shape[-1]
+    _check("arrival", arrival, torch.float64, (R, N), dev)
+    _check("func", func, torch.int32, (R, N), dev)
+    _check("service", service, torch.float64, (R, N), dev)
+    _check("u_lb", u_lb, torch.float64, (R, N), dev)
+    _check("home", home, torch.int32, (R, F), dev)
+    if R < 1 or F < 1:
+        raise UnsupportedShapeError(f"sim_engine: needs R >= 1 and F >= 1, "
+                                    f"got R={R}, F={F}")
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    state = [empty((R, W, S), torch.float64), empty((R, W, S), torch.float64),
+             empty((R, W, S), torch.int32), empty((R, W, F), torch.int32)]
+    out = dict(resp=empty((R, N), torch.float64),
+               cold=empty((R, N), torch.bool),
+               rejected=empty((R, N), torch.bool),
+               worker_of=empty((R, N), torch.int32),
+               server_time=empty((R,), torch.float64),
+               core_time=empty((R,), torch.float64),
+               now=empty((R,), torch.float64),
+               iters=empty((R,), torch.int64),
+               active=empty((R,), torch.int64))
+    ptrs = [x.data_ptr() for x in (arrival, func, service, u_lb, home,
+                                   *state, *out.values())]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _launcher()(*ptrs, R, N, F, W, C, S, BALANCER_CODES[balance],
+                          float(cluster.cold_start_penalty), stream)
+    if err != 0:
+        raise RuntimeError(f"sim_engine: kernel launch failed with CUDA "
+                           f"error {err}")
+    sim_engine.launches += 1
+    return out
+
+
+sim_engine.launches = 0

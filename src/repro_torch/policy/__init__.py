@@ -1,7 +1,8 @@
 """``repro_torch.policy`` — the ported policy table and :func:`resolve`."""
-from .registry import (BALANCERS, BINDINGS, NOT_PORTED, SCHEDS,
+from .registry import (BALANCERS, BINDINGS, ENGINES, NOT_PORTED, SCHEDS,
                        NotPortedError, ResolvedPolicy, default_backend,
-                       resolve)
+                       engine, resolve)
 
-__all__ = ["BALANCERS", "BINDINGS", "NOT_PORTED", "SCHEDS",
-           "NotPortedError", "ResolvedPolicy", "default_backend", "resolve"]
+__all__ = ["BALANCERS", "BINDINGS", "ENGINES", "NOT_PORTED", "SCHEDS",
+           "NotPortedError", "ResolvedPolicy", "default_backend", "engine",
+           "resolve"]

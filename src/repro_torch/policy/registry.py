@@ -11,11 +11,20 @@ Backends: ``"torch"`` runs every balancer as plain tensor code;
 ``H``, through :mod:`repro_torch.kernels.hermes_select`) to it and runs
 the others as plain tensor code; ``"auto"`` is ``"kernel"`` for early
 binding, mirroring the reference's ``default_backend``.
+
+Engines: :data:`ENGINES` and :func:`engine` say which engine runs a
+policy.  On a CUDA device under ``"kernel"`` or ``"auto"``, early
+binding with PS under a ported balancer runs whole in the fused
+``sim_engine`` kernel (:mod:`repro_torch.kernels.sim_engine`), one launch
+per ``simulate_many``; everything else, every CPU device and ``"torch"``
+run the batched engine of :mod:`repro_torch.core.simulator`.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
+
+import torch
 
 from repro_torch import NotPortedError
 from repro_torch.device import resolve_device
@@ -36,6 +45,10 @@ NOT_PORTED = ("JSQ2", "RR", "HIKU", "DD", "SWARM")
 SCHEDS = {"PS": scheds.ps, "FCFS": scheds.fcfs, "SRPT": scheds.srpt}
 #: binding name -> late?
 BINDINGS = {"E": False, "L": True}
+#: (binding, balancer, scheduler) -> the engine that runs it on a CUDA
+#: device under backend "kernel" or "auto"; a policy not listed, any CPU
+#: device and backend "torch" take the batched engine
+ENGINES = {("E", b, "PS"): "sim_engine" for b in ("H", "LL", "LOC", "R")}
 
 
 def _name(x) -> str:
@@ -85,12 +98,36 @@ class ResolvedPolicy:
 
 
 def default_backend(policy) -> str:
-    """The backend ``backend="auto"`` picks: the kernel where one exists."""
+    """The backend ``backend="auto"`` picks for the per-arrival select:
+    the kernel where one exists.
+
+    On a CUDA device the engine's route (:func:`engine`) comes first:
+    there the port runs E/LL/PS, E/LOC/PS and E/R/PS, like E/H/PS, in a
+    kernel (``sim_engine``), where the reference's ``default_backend``
+    sends LL, LOC and R to ``"jax"``.  The outputs are the same.
+    """
     if check_binding(policy.binding):
         return "torch"
     key = check_balancer(policy.balance)
     has_kernel = key in BALANCERS and BALANCERS[key][1] is not None
     return "kernel" if has_kernel else "torch"
+
+
+def engine(policy, device, backend: str = "auto") -> str:
+    """``"sim_engine"`` or ``"batched"``: the engine that runs ``policy``
+    (a PolicySpec or ``"T/LB/S"`` text) on ``device`` under ``backend``.
+    A table lookup; it needs no card."""
+    if isinstance(policy, str):
+        from repro_torch.core.taxonomy import parse_policy
+        policy = parse_policy(policy)
+    if backend not in (*BACKENDS, "auto"):
+        raise ValueError(f"unknown backend {backend!r}; choose from "
+                         f"{BACKENDS} or 'auto'")
+    if backend == "torch" or torch.device(device).type != "cuda":
+        return "batched"
+    key = (_name(policy.binding), check_balancer(policy.balance),
+           check_sched(policy.sched))
+    return ENGINES.get(key, "batched")
 
 
 def resolve(policy, cluster, device=None, backend: str = "auto"

@@ -49,7 +49,8 @@ def _env():
 
 def test_engine_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch.core.simulator, repro_torch.convert, "
-            "repro_torch.kernels._build\n"
+            "repro_torch.kernels._build, "
+            "repro_torch.kernels.sim_engine.ops\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
