@@ -98,7 +98,25 @@ non-zero):
     kernels over the prompt and hands their final state to the plain step
     recurrence, the full forward runs the kernels over all tokens (and the
     plain attention for zamba2's shared block); both models' ratios beside
-    those read before their scan kernel's redesign (``BEFORE_RATIO``).
+    those read before their scan kernel's redesign (``BEFORE_RATIO``);
+12. trace replay on the card (``repro_torch.trace``): (a) fig10's full
+    mode, the five ``azure-*`` scenarios on the testbed (8 × 12 cores,
+    cold-start penalty 0.5 s) at loads 0.3/0.5/0.7/0.85 × seeds 1-5 (R =
+    20 a scenario), N = 12 000, through the fused E/H/PS, E/LL/PS and
+    E/LOC/PS (one ``sim_engine`` launch, no host sync each) with fig10's
+    two claims printed as observations, and late binding on the batched
+    engine at N = 1000; (b) the five scenarios in one batch
+    (``resample_workloads``, load 0.7, F = 60): fused at N = 12 000, equal
+    to the plain engine on the card in every plane at N = 1000, card
+    against CPU at N = 300 (late binding too); (c) fig14's horizon lane,
+    1000 workers × 2 cores, 4 slots, ``azure-diurnal`` at N = 86 400 and
+    the fig4 loads: the three fused runs side by side, each kernel's
+    device time, iterations, bound and idle share, and the first 1000
+    arrivals of each run equal to the plain engine's run of them (on the
+    CPU); the
+    host's generation time beside each run; the batched engine's runs
+    side by side in worker processes; the phase ≤ 60 s, the script ≤
+    600 s.
 
 TF32 is off for matrix products and cuDNN throughout.  The line before the
 last is ``{"kernels": [...]}``; the last line is
@@ -109,10 +127,12 @@ whether or not a phase failed.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -382,8 +402,9 @@ def profile_main_path(torch, np, report, cluster):
         host_syncs=stats.host_syncs, advance_iters=stats.advance_iters)
 
 
-def validate(np, out, wb, name):
-    """The reference's invariants (tests/test_simulator.py)."""
+def validate(np, out, wb, name, penalty=0.0):
+    """The reference's invariants (tests/test_simulator.py); a cold start
+    adds ``penalty`` to its invocation's work."""
     R, N = wb.arrival.shape
     check(out.response.shape == (R, N) and out.worker.dtype == np.int32,
           f"{name}: bad output shape/dtype")
@@ -393,7 +414,7 @@ def validate(np, out, wb, name):
     check(bool((out.response[done] >= wb.service[done] - 1e-6).all()),
           f"{name}: a response is shorter than its service")
     for r in range(R):
-        work = wb.service[r][done[r]].sum()
+        work = (wb.service[r] + penalty * out.cold[r])[done[r]].sum()
         check(abs(out.core_time[r] - work) < 1e-6 * work,
               f"{name}: core-time {out.core_time[r]} != work {work}")
 
@@ -1392,6 +1413,406 @@ def scan_kernels(torch, report):
     return timings
 
 
+# -- trace replay (phase 12) --
+
+#: the trace-replay scenarios of ``repro_torch.trace.catalog``
+AZURE = ("azure-diurnal", "azure-bursty", "azure-cold-heavy",
+         "azure-flash-crowd", "azure-fixture")
+#: fig10's full mode (benchmarks/fig10_trace_replay.py:33-38) on the
+#: paper's testbed: its loads, depth and cold-start penalty; seeds 1-5
+FIG10_LOADS = (0.3, 0.5, 0.7, 0.85)
+FIG10_SEEDS = (1, 2, 3, 4, 5)
+FIG10_PENALTY = 0.5
+N_FIG10 = 12_000
+#: depth of phase 12's batched-engine runs: late binding, and the plain
+#: runs that hold the fused ones
+N_TRACE_PLAIN = 1_000
+#: the mixed batch: every scenario at this load and seed ``SEED``
+MIXED_LOAD = 0.7
+#: fig14's horizon lane (benchmarks/fig14_stream.py:57-66): one synthetic
+#: Azure-schema day on 1000 workers × 2 cores, capacity factor 2 (4 slots)
+HORIZON = dict(n_workers=1000, cores=2, capacity_factor=2)
+HORIZON_N = 86_400
+TRACE_PHASE_S = 60.0
+SCRIPT_S = 600.0
+#: worker processes for phase 12's batched-engine runs.  Each run is
+#: bound by the host's op issue (~300 launches an arrival), so they go
+#: side by side, each in a process of its own; those that need not be on
+#: the card run on the CPU, beside the horizon runs, and those on the card
+#: after them
+PLAIN_WORKERS = 8
+
+
+def _warm_worker():
+    """A worker process's imports and CUDA context, made before its first
+    run; one intra-op thread, so that the workers do not oversubscribe the
+    host."""
+    import torch
+
+    import repro_torch.core.simulator  # noqa: F401
+    torch.set_num_threads(1)
+    torch.zeros(1, device="cuda")
+
+
+def plain_run(policy, cluster, wb, device):
+    """One run of the batched engine (``backend="torch"``) on ``device``:
+    (output, wall s).  Top-level, so that a worker process can run it."""
+    from repro_torch.core.simulator import simulate_many
+    t0 = time.perf_counter()
+    out = simulate_many(policy, cluster, wb, device=device, backend="torch")
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def engine_events(torch):
+    """Inside the block, each ``sim_engine`` call that ``simulate_many``
+    makes goes through the wrapper as before (which counts the launch),
+    with CUDA events on the launching stream just before and just after
+    it: yields the list of (start, end, the engine's outputs) it fills."""
+    from repro_torch.kernels.sim_engine import kernel as ek
+    from repro_torch.kernels.sim_engine import ops
+    seen = []
+
+    def timed(*args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        res = ek.sim_engine(*args)
+        end.record()
+        seen.append((start, end, res))
+        return res
+
+    ops.kernel = types.SimpleNamespace(sim_engine=timed)
+    try:
+        yield seen
+    finally:
+        ops.kernel = ek
+
+
+def fused_run(torch, np, policy, cluster, wb, what):
+    """One ``simulate_many`` on the card with the launch counts zeroed just
+    before it and read just after: (output, wall s, LoopStats, kernel),
+    ``kernel`` the launch's device time in ms (CUDA events just around
+    it) and the engine's own outputs (``iters``, ``active``).  It must be
+    one ``sim_engine`` launch, no ``hermes_select`` launch and no host
+    sync."""
+    from repro_torch.core.simulator import LoopStats, simulate_many
+    from repro_torch.kernels.hermes_select import kernel as hk
+    from repro_torch.kernels.sim_engine import kernel as ek
+    stats = LoopStats()
+    torch.cuda.synchronize()
+    ek.sim_engine.launches = 0
+    hk.hermes_select_batch.launches = 0
+    with engine_events(torch) as seen:
+        t0 = time.perf_counter()
+        out = simulate_many(policy, cluster, wb, device="cuda", stats=stats)
+        wall = time.perf_counter() - t0
+    counts = (ek.sim_engine.launches, hk.hermes_select_batch.launches)
+    check(counts == (1, 0) and len(seen) == 1,
+          f"{what}: sim_engine and hermes_select launched {counts}, "
+          f"expected (1, 0)")
+    check(stats.host_syncs == 0, f"{what}: {stats.host_syncs} host syncs "
+                                 f"in the fused loop")
+    validate(np, out, wb, what, cluster.cold_start_penalty)
+    start, end, res = seen[0]
+    return out, wall, stats, dict(ms=start.elapsed_time(end), res=res)
+
+
+def prefix(wb, n):
+    """The first ``n`` arrivals of each replication of a workload batch."""
+    import dataclasses
+    return dataclasses.replace(wb, **{
+        f: getattr(wb, f)[:, :n] for f in ("arrival", "func", "service",
+                                           "u_lb")})
+
+
+def same_prefix(np, out, plain, what):
+    """A fused run's first arrivals equal the plain engine's run of just
+    those in ``worker``, ``cold`` and ``rejected``: each arrival's choice
+    depends only on the arrivals before it (its response does not)."""
+    n = plain.worker.shape[1]
+    for plane in ("worker", "cold", "rejected"):
+        check(np.array_equal(getattr(out, plane)[:, :n],
+                             getattr(plain, plane)),
+              f"{what}: the first {n} arrivals differ from the plain "
+              f"engine's run of them in {plane}")
+
+
+def _per_load(out, wb, loads, reps):
+    """fig10's rows (benchmarks/common.py ``sweep_policies``): per load,
+    the mean and 95 % half-width over its ``reps`` seeds after a 10 %
+    warm-up."""
+    from repro_torch.core import summarize_batch_sim
+    rows = []
+    for i, load in enumerate(loads):
+        sl = slice(i * reps, (i + 1) * reps)
+        row = summarize_batch_sim(out[sl], wb[sl], warmup_frac=0.1).row()
+        rows.append(dict(load=load, slow_p99_mean=row["slow_p99_mean"],
+                         slow_p99_ci95=row["slow_p99_ci95"],
+                         cold_frac_mean=row["cold_frac_mean"],
+                         n_rejected=row["n_rejected"]))
+    return rows
+
+
+def _log_rows(label, rows):
+    for r in rows:
+        log(f"  {label} load {r['load']}: p99 slowdown "
+            f"{r['slow_p99_mean']:.3f} ± {r['slow_p99_ci95']:.3f}, cold "
+            f"{r['cold_frac_mean']:.4f}, rejected {r['n_rejected']}")
+
+
+def trace_replay(torch, np, report):
+    """Phase 12: the Azure-schema trace scenarios (``repro_torch.trace``)
+    through ``simulate_many`` on the card.  (a) fig10's full mode on the
+    testbed, (b) the five scenarios in one mixed batch, (c) fig14's
+    horizon lane, each run alone on the card; the batched engine's runs go
+    side by side in worker processes, those on the CPU beside (c) and
+    those on the card after it.  Returns the ``sim_engine`` launches of
+    every fused run here."""
+    import multiprocessing
+
+    from repro_torch.core import (E_LL_PS, E_LOC_PS, HERMES, LATE_BINDING,
+                                  PAPER_TESTBED, WORKLOADS, ClusterCfg,
+                                  replicate_workload, summarize_batch_sim)
+    from repro_torch.trace import (SCENARIOS, load_trace, per_minute_counts,
+                                   replay_trace, resample_workloads,
+                                   synthesize_trace)
+    from repro_torch.trace.catalog import (FIXTURE_DURATIONS,
+                                           FIXTURE_INVOCATIONS)
+
+    t_phase = time.perf_counter()
+    fused = (HERMES, E_LL_PS, E_LOC_PS)
+    testbed = PAPER_TESTBED._replace(cold_start_penalty=FIG10_PENALTY)
+    lane_cl = ClusterCfg(**HORIZON)
+    reps = len(FIG10_SEEDS)
+    gen_s, runs, launches = {}, {}, 0
+
+    def generate(key, make):
+        t0 = time.perf_counter()
+        wb = make()
+        gen_s[key] = time.perf_counter() - t0
+        return wb
+
+    def mixed(n):
+        return resample_workloads(WORKLOADS[name](testbed, MIXED_LOAD, n,
+                                                  SEED) for name in AZURE)
+
+    # the workloads, on the host
+    fig10 = {name: generate(f"fig10 {name}", lambda: replicate_workload(
+        WORKLOADS[name], testbed, FIG10_LOADS, N_FIG10,
+        seeds=FIG10_SEEDS)) for name in AZURE}
+    fig10_late = {name: replicate_workload(
+        WORKLOADS[name], testbed, FIG10_LOADS, N_TRACE_PLAIN,
+        seeds=FIG10_SEEDS) for name in AZURE}
+    mixed_main = generate("mixed", lambda: mixed(N_FIG10))
+    mixed_check, mixed_short = mixed(N_TRACE_PLAIN), mixed(N_SHORT)
+    lane = generate("horizon azure-diurnal", lambda: replicate_workload(
+        WORKLOADS["azure-diurnal"], lane_cl, LOADS, HORIZON_N,
+        seeds=(SEED,)))
+    for key, s in gen_s.items():
+        log(f"host generation, {key}: {s:.3f} s")
+
+    # host round trip: an unscaled, untiled replay gives the trace's
+    # per-minute counts back
+    for scen in (*SCENARIOS, "fixture"):
+        trace = load_trace(FIXTURE_INVOCATIONS, FIXTURE_DURATIONS) \
+            if scen == "fixture" else synthesize_trace(scen, seed=SEED)
+        wl = replay_trace(trace, testbed, seed=SEED)
+        check(np.array_equal(per_minute_counts(wl, trace.n_functions,
+                                               trace.minutes),
+                             trace.counts_matrix()),
+              f"{scen}: per_minute_counts != the trace's counts")
+    log(f"host round trip: per_minute_counts == counts_matrix() for "
+        f"{', '.join(SCENARIOS)} and the fixture")
+
+    def fused_logged(policy, cluster, wb, key, gen):
+        """``fused_run``, counted and logged with its device time."""
+        nonlocal launches
+        out, wall, stats, kern = fused_run(torch, np, policy, cluster, wb,
+                                           key)
+        launches += 1
+        ms = kern["ms"]
+        runs[key] = dict(n=wb.n, reps=wb.n_reps, wall_s=wall,
+                         us_per_arrival=wall / wb.n * 1e6, ms=ms,
+                         idle_share=1 - ms / (wall * 1e3),
+                         advance_iters=stats.advance_iters, gen_s=gen)
+        log(f"{key} W={cluster.n_workers} S={cluster.slots} R={wb.n_reps} "
+            f"F={wb.n_functions} N={wb.n}: wall {wall:.3f} s "
+            f"({wall / wb.n * 1e6:.2f} us per arrival; host generation "
+            f"{gen:.3f} s); sim_engine {ms:.3f} ms on the card, idle share "
+            f"{runs[key]['idle_share']:.3f} at most; 1 sim_engine launch, "
+            f"0 host syncs, {stats.advance_iters} advance iters")
+        return out, kern
+
+    # (a) fig10's full mode, fused, each scenario one batch of R = 20
+    summary, fig10_out = {}, {}
+    for name, wb in fig10.items():
+        for policy in fused:
+            key = f"fig10 {name} {policy.name}"
+            out, _ = fused_logged(policy, testbed, wb, key,
+                                  gen_s[f"fig10 {name}"])
+            fig10_out[(name, policy)] = out
+            rows = _per_load(out, wb, FIG10_LOADS, reps)
+            summary[(name, policy.name)] = runs[key]["per_load"] = rows
+            _log_rows(key, rows)
+
+    def cell(name, policy, load):
+        return summary[(name, policy.name)][FIG10_LOADS.index(load)]
+
+    h, v, ll = (cell("azure-diurnal", p, 0.5)
+                for p in (HERMES, E_LOC_PS, E_LL_PS))
+    observed = {
+        "hermes_p99_below_half_vanilla": bool(
+            h["slow_p99_mean"] < 0.5 * v["slow_p99_mean"]),
+        "hermes_fewer_cold_than_ll": bool(
+            h["cold_frac_mean"] < ll["cold_frac_mean"])}
+    verdict = {k: "holds" if ok else "does not hold"
+               for k, ok in observed.items()}
+    log(f"fig10 observation (benchmarks/run.py:206-221; not a gate), "
+        f"azure-diurnal at 0.5: Hermes p99 slowdown "
+        f"{h['slow_p99_mean']:.3f} vs vanilla OW (E/LOC/PS) "
+        f"{v['slow_p99_mean']:.3f}: 'Hermes >=50% below' "
+        f"{verdict['hermes_p99_below_half_vanilla']}; Hermes cold "
+        f"{h['cold_frac_mean']:.4f} vs least-loaded "
+        f"{ll['cold_frac_mean']:.4f}: 'fewer cold starts' "
+        f"{verdict['hermes_fewer_cold_than_ll']}")
+
+    # (b) the mixed batch, fused: the depth run, and the check runs
+    mixed_out = {}
+    for policy in fused:
+        key = f"mixed {policy.name}"
+        out, _ = fused_logged(policy, testbed, mixed_main, key, gen_s["mixed"])
+        for name, s in zip(AZURE, summarize_batch_sim(
+                out, mixed_main, warmup_frac=0.1).per_rep):
+            log(f"  {key} {name}: p99 slowdown {s.slow_p99:.3f}, cold "
+                f"{s.cold_frac:.4f}, rejected {s.n_rejected}")
+        mixed_out[policy] = tuple(
+            fused_logged(policy, testbed, wb, f"{key} N={wb.n}",
+                         gen_s["mixed"])[0]
+            for wb in (mixed_check, mixed_short))
+
+    # the fused run of each scenario in (a) whose first arrivals are held
+    # to the plain engine's: each policy, each F and R = 20 are covered,
+    # and the plain runs fit beside (c)
+    checked = {name: fused[i % len(fused)] for i, name in enumerate(AZURE)}
+    lane_prefix = prefix(lane, N_TRACE_PLAIN)
+    with multiprocessing.get_context("spawn").Pool(
+            PLAIN_WORKERS, initializer=_warm_worker) as pool:
+        # the plain runs that need not be on the card, on the CPU (whose
+        # engine the card equals in every plane: the card-vs-CPU check
+        # below), while (c) runs: the prefixes of (a) and (c), and (b)'s
+        # short batch
+        t0 = time.perf_counter()
+        cpu_jobs = [(p, testbed, prefix(fig10[name], N_TRACE_PLAIN), "cpu")
+                    for name, p in checked.items()]
+        cpu_jobs += [(p, lane_cl, lane_prefix, "cpu") for p in fused]
+        cpu_jobs += [(p, testbed, mixed_short, "cpu")
+                     for p in (*fused, LATE_BINDING)]
+        cpu_done = pool.starmap_async(plain_run, cpu_jobs, chunksize=1)
+
+        # (c) fig14's horizon lane, each fused run alone on the card
+        lane_out, lane_timing = {}, {}
+        for policy in fused:
+            key = f"horizon {policy.name}"
+            out, kern = fused_logged(policy, lane_cl, lane, key,
+                                     gen_s["horizon azure-diurnal"])
+            lane_out[policy] = out
+            bound_ms, bound_by, nbytes, ops = engine_bound(
+                kern["res"], lane.n, lane.n_reps, lane.n_functions)
+            t = lane_timing[policy.name] = runs[key]
+            t.update(iters=int(kern["res"]["iters"].sum()),
+                     active=int(kern["res"]["active"].sum()),
+                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                     operations=ops, rejected=int(out.rejected.sum()))
+            log(f"  {key}: sim_engine {t['ms'] / lane.n * 1e3:.3f} us per "
+                f"arrival; {t['iters']} advance iters, {t['active']} "
+                f"active; bound {bound_ms:.5f} ms, {bound_by} ({nbytes} B, "
+                f"{ops} f64 operations), kernel / bound "
+                f"{t['ms'] / bound_ms:.0f}; {t['rejected']} rejected")
+            for load, s in zip(LOADS, summarize_batch_sim(
+                    out, lane, warmup_frac=0.1).per_rep):
+                log(f"  {key} load {load}: p99 slowdown {s.slow_p99:.3f}, "
+                    f"cold {s.cold_frac:.4f}, rejected {s.n_rejected}")
+
+        # then the batched engine's runs on the card, longest first
+        card_jobs = [(LATE_BINDING, testbed, wb, "cuda")
+                     for wb in fig10_late.values()]
+        card_jobs += [(p, testbed, mixed_check, "cuda") for p in fused]
+        card_jobs += [(LATE_BINDING, testbed, mixed_short, "cuda")]
+        card_done = iter(pool.starmap(plain_run, card_jobs, chunksize=1))
+        cpu_done = iter(cpu_done.get())
+        plain_s = time.perf_counter() - t0
+        log(f"{len(cpu_jobs)} batched-engine runs on the CPU, then "
+            f"{len(card_jobs)} on the card, in {PLAIN_WORKERS} worker "
+            f"processes: {plain_s:.1f} s")
+
+    # the first arrivals of each fused run of (a) and (c) against the
+    # plain engine's run of just those
+    for name, policy in checked.items():
+        plain, wall = next(cpu_done)
+        key = f"fig10 {name} {policy.name}"
+        validate(np, plain, prefix(fig10[name], N_TRACE_PLAIN),
+                 f"{key} prefix", FIG10_PENALTY)
+        same_prefix(np, fig10_out[(name, policy)], plain, key)
+        log(f"{key}: the first {N_TRACE_PLAIN} arrivals == the plain "
+            f"engine's run of them on the CPU in worker, cold, rejected "
+            f"({wall:.1f} s)")
+    for policy in fused:
+        plain, wall = next(cpu_done)
+        key = f"horizon {policy.name}"
+        validate(np, plain, lane_prefix, f"{key} prefix",
+                 lane_cl.cold_start_penalty)
+        same_prefix(np, lane_out[policy], plain, key)
+        log(f"{key}: the first {N_TRACE_PLAIN} arrivals == the plain "
+            f"engine's run of them on the CPU in worker, cold, rejected "
+            f"({wall:.1f} s)")
+    # late binding on fig10's cells
+    for name, wb in fig10_late.items():
+        out, wall = next(card_done)
+        key = f"fig10 {name} {LATE_BINDING.name}"
+        validate(np, out, wb, key, FIG10_PENALTY)
+        rows = _per_load(out, wb, FIG10_LOADS, reps)
+        runs[key] = dict(n=wb.n, reps=wb.n_reps, wall_s=wall, per_load=rows)
+        log(f"{key} R={wb.n_reps} N={wb.n}: batched engine, wall {wall:.3f} "
+            f"s beside the other runs (not the engine's own time)")
+        _log_rows(key, rows)
+    # the mixed batch: fused == plain on the card
+    for policy in fused:
+        plain, wall = next(card_done)
+        same_planes(np, mixed_out[policy][0], plain,
+                    f"mixed {policy.name} N={N_TRACE_PLAIN}: sim_engine vs "
+                    f"the plain engine")
+        log(f"mixed {policy.name} N={N_TRACE_PLAIN}: sim_engine == plain "
+            f"engine on the card, all planes ({wall:.1f} s)")
+    # the mixed batch: card == CPU
+    late_card, _ = next(card_done)
+    validate(np, late_card, mixed_short, f"mixed {LATE_BINDING.name}",
+             FIG10_PENALTY)
+    gaps = {}
+    for policy, card in ((*((p, mixed_out[p][1]) for p in fused),
+                          (LATE_BINDING, late_card))):
+        cpu, _ = next(cpu_done)
+        key = f"mixed {policy.name} N={N_SHORT}"
+        gaps[key] = card_vs_cpu(np, card, cpu, key)
+        log(f"{key}: card == CPU in integer planes, max float gap "
+            f"{gaps[key]}; {int(card.rejected.sum())} rejected, "
+            f"{int(card.cold.sum())} cold")
+
+    phase_s = time.perf_counter() - t_phase
+    report["trace_replay"] = dict(
+        fig10=dict(loads=FIG10_LOADS, seeds=FIG10_SEEDS, n=N_FIG10,
+                   n_late=N_TRACE_PLAIN, penalty=FIG10_PENALTY,
+                   observed=observed),
+        horizon=dict(cluster=HORIZON, n=HORIZON_N, loads=LOADS, seed=SEED,
+                     timing=lane_timing),
+        runs=runs, gen_s=gen_s, plain_runs_s=plain_s,
+        card_vs_cpu_max_gap=gaps, sim_engine_launches=launches,
+        phase_s=phase_s)
+    log(f"phase 12: {launches} sim_engine launches, {phase_s:.1f} s")
+    check(phase_s <= TRACE_PHASE_S, f"phase 12 took {phase_s:.1f} s "
+                                    f"(limit {TRACE_PHASE_S:.0f} s)")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run it from the root of a checkout of the repo",
@@ -1450,6 +1871,11 @@ def main() -> int:
                    report):
             prefill_decode_vs_forward(torch, np, report, RECURRENT,
                                       "recurrent_prefill_decode_vs_forward")
+        with Phase("12 trace replay on the card", report):
+            trace_launches = trace_replay(torch, np, report)
+        total_s = time.perf_counter() - t_start
+        check(total_s <= SCRIPT_S, f"the script took {total_s:.1f} s (limit "
+                                   f"{SCRIPT_S:.0f} s)")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1457,7 +1883,9 @@ def main() -> int:
         report["total_s"] = time.perf_counter() - t_start
         log("report " + json.dumps(report, separators=(",", ":")))
     # hermes_select's path is serving (phase 7: one launch per dispatch);
-    # the simulator's E/H/PS makes its choice inside sim_engine (phase 4)
+    # the simulator's E/H/PS makes its choice inside sim_engine (phases 4
+    # and 12: every fused run's launch on both paths; its times from
+    # phase 4, where the plain engine runs the same inputs)
     kernels = [{
         "name": "hermes_select", "route": "cuda",
         "source": "src/repro_torch/csrc/hermes_select.cu",
@@ -1468,7 +1896,8 @@ def main() -> int:
         "name": "sim_engine", "route": "cuda",
         "source": "src/repro_torch/csrc/sim_engine.cu",
         "replaces": "src/repro/kernels/hermes_select/kernel.py:66",
-        "launches": engine_launches, "max_abs_err": engine_err,
+        "launches": engine_launches + trace_launches,
+        "max_abs_err": engine_err,
         "ms": engine_t["ms"], "plain_ms": engine_t["plain_ms"],
         "bound_ms": engine_t["bound_ms"], "bound_by": engine_t["bound_by"],
         "library_ms": None}]

@@ -1,7 +1,9 @@
 """Core of the port: cluster, policy taxonomy, workloads, metrics.
 
 The engine lives in :mod:`repro_torch.core.simulator` (imported on its
-own, as in the reference).
+own, as in the reference).  ``WORKLOADS`` holds the synthetic §6.1
+generators and the trace-replay scenarios of
+:mod:`repro_torch.trace.catalog`.
 """
 from .cluster import ClusterCfg, PAPER_LARGE, PAPER_SMALL, PAPER_TESTBED
 from .metrics import (BatchSummary, Stat, Summary, summarize,
@@ -15,6 +17,12 @@ from .workload import (AZURE_MU, AZURE_SIGMA, WORKLOADS, Workload,
                        lognormal_mean, ms_representative, ms_trace,
                        multi_balanced, replicate_workload, single_function,
                        stack_workloads, synth_workload, validate_workload)
+
+# Trace-replay scenarios (repro_torch.trace) join the synthetic generators.
+# catalog imports nothing of repro_torch.core at module level, so this
+# cannot cycle.
+from ..trace.catalog import TRACE_SCENARIOS
+WORKLOADS.update(TRACE_SCENARIOS)
 
 __all__ = [
     "ClusterCfg", "PAPER_LARGE", "PAPER_SMALL", "PAPER_TESTBED",

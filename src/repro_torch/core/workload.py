@@ -7,7 +7,9 @@ arrivals at ``λ = load × total_cores / mean(service)``; Log-normal
 (Azure-shaped, ``μ=-0.38, σ=2.36``) or exponential execution times; one
 hot function carrying ``hot_fraction`` of the invocations.  Per-arrival
 uniforms ``u_lb`` are pre-drawn so that every engine consumes the same
-randomness.  The trace-replay scenarios (``azure-*``) are not ported yet.
+randomness.  The trace-replay scenarios (``azure-*``) live in
+:mod:`repro_torch.trace` and join :data:`WORKLOADS` in
+:mod:`repro_torch.core`.
 """
 from __future__ import annotations
 

@@ -2,8 +2,8 @@
 
 * no file of ``src/repro_torch`` and not ``chip_smoke.py`` imports
   ``jax`` or ``repro`` (AST walk);
-* importing the engine in a fresh process leaves both out of
-  ``sys.modules``;
+* importing the engine and the trace package (its lazy submodules too)
+  in a fresh process leaves both out of ``sys.modules``;
 * without a CUDA card, the entry points' default device raises the
   named error, and ``chip_smoke.py`` exits non-zero without a result.
 """
@@ -48,9 +48,17 @@ def _env():
 
 
 def test_engine_import_leaves_jax_and_reference_out():
+    # the trace package's submodules load lazily (PEP 562), which the AST
+    # walk cannot follow: reach each through the package's __getattr__
     code = ("import sys, repro_torch.core.simulator, repro_torch.convert, "
             "repro_torch.kernels._build, "
-            "repro_torch.kernels.sim_engine.ops\n"
+            "repro_torch.kernels.sim_engine.ops, repro_torch.trace\n"
+            "for name in ('schema', 'synth_trace', 'replay', 'cache'):\n"
+            "    mod = getattr(repro_torch.trace, name)\n"
+            "    assert mod.__name__ == 'repro_torch.trace.' + name, mod\n"
+            "repro_torch.trace.resample_workloads\n"
+            "repro_torch.core.WORKLOADS['azure-fixture']("
+            "repro_torch.core.PAPER_SMALL, 0.5, 50, 0)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -62,7 +70,7 @@ def test_engine_import_leaves_jax_and_reference_out():
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
-    from repro_torch.core import PAPER_SMALL, HERMES, ms_trace
+    from repro_torch.core import PAPER_SMALL, HERMES, WORKLOADS, ms_trace
     from repro_torch.core.simulator import simulate
     from repro_torch.device import NoCudaDeviceError
     from repro_torch.kernels.hermes_select.ops import hermes_select
@@ -70,6 +78,9 @@ def test_default_device_raises_without_cuda():
     wl = ms_trace(PAPER_SMALL, 0.5, 20, 0)
     with pytest.raises(NoCudaDeviceError):
         simulate(HERMES, PAPER_SMALL, wl)
+    azure = WORKLOADS["azure-diurnal"](PAPER_SMALL, 0.5, 20, 0)
+    with pytest.raises(NoCudaDeviceError):
+        simulate(HERMES, PAPER_SMALL, azure)
     with pytest.raises(NoCudaDeviceError):
         resolve(HERMES, PAPER_SMALL)
     with pytest.raises(NoCudaDeviceError):
