@@ -116,7 +116,24 @@ non-zero):
     CPU); the
     host's generation time beside each run; the batched engine's runs
     side by side in worker processes; the phase ≤ 60 s, the script ≤
-    600 s.
+    600 s;
+13. the policy zoo on the card, every run fused (one ``sim_engine``
+    launch, no host sync, no ``hermes_select`` launch): (a) fig11's
+    quick mode on the paper's small cluster (4 × 12 cores, 96 slots),
+    ``ms-trace`` and ``bimodal-exec`` at loads 0.5/0.7/0.8/0.9 (R = 4),
+    N = 6000, seed 0, the nine policies of ``registry_policies
+    (ZOO_POLICIES)``; (b) its mixed lane (``ms-trace``,
+    ``azure-diurnal``, ``azure-bursty`` at 0.7 through
+    ``resample_workloads``, N = 3000) and the same at N = 300, card
+    against the CPU in every plane with float gaps 0; (c) fig4's zoo
+    rows (phase 4's inputs; E/{JSQ2,RR,HIKU,DD,SWARM}/PS), each timed
+    by CUDA events beside its bound; the first 1000 arrivals of the
+    five zoo policies' runs in (a) ms-trace, (b) and (c) equal to the
+    batched engine's run of them on the CPU (and a fused run of just
+    those equal to it in every plane); ``sim_engine`` equal to
+    ``sim_engine_ref`` for the five at W = 4, final balancer state
+    included; fig11's verdicts printed, not gated; the CPU runs in
+    phase 12's worker processes; the phase ≤ 60 s.
 
 TF32 is off for matrix products and cuDNN throughout.  The line before the
 last is ``{"kernels": [...]}``; the last line is
@@ -1560,16 +1577,23 @@ def _log_rows(label, rows):
             f"{r['cold_frac_mean']:.4f}, rejected {r['n_rejected']}")
 
 
-def trace_replay(torch, np, report):
+def plain_pool():
+    """The worker processes of phases 12 and 13's batched-engine runs."""
+    import multiprocessing
+    return multiprocessing.get_context("spawn").Pool(
+        PLAIN_WORKERS, initializer=_warm_worker)
+
+
+def trace_replay(torch, np, report, workers):
     """Phase 12: the Azure-schema trace scenarios (``repro_torch.trace``)
     through ``simulate_many`` on the card.  (a) fig10's full mode on the
     testbed, (b) the five scenarios in one mixed batch, (c) fig14's
     horizon lane, each run alone on the card; the batched engine's runs go
     side by side in worker processes, those on the CPU beside (c) and
-    those on the card after it.  Returns the ``sim_engine`` launches of
-    every fused run here."""
-    import multiprocessing
-
+    those on the card after it.  The pool of workers starts after (a) and
+    (b), so that its start does not share the host with their runs, and
+    stays open in ``workers`` (an ExitStack) for phase 13.  Returns the
+    ``sim_engine`` launches of every fused run here, and the pool."""
     from repro_torch.core import (E_LL_PS, E_LOC_PS, HERMES, LATE_BINDING,
                                   PAPER_TESTBED, WORKLOADS, ClusterCfg,
                                   replicate_workload, summarize_batch_sim)
@@ -1695,55 +1719,54 @@ def trace_replay(torch, np, report):
     # and the plain runs fit beside (c)
     checked = {name: fused[i % len(fused)] for i, name in enumerate(AZURE)}
     lane_prefix = prefix(lane, N_TRACE_PLAIN)
-    with multiprocessing.get_context("spawn").Pool(
-            PLAIN_WORKERS, initializer=_warm_worker) as pool:
-        # the plain runs that need not be on the card, on the CPU (whose
-        # engine the card equals in every plane: the card-vs-CPU check
-        # below), while (c) runs: the prefixes of (a) and (c), and (b)'s
-        # short batch
-        t0 = time.perf_counter()
-        cpu_jobs = [(p, testbed, prefix(fig10[name], N_TRACE_PLAIN), "cpu")
-                    for name, p in checked.items()]
-        cpu_jobs += [(p, lane_cl, lane_prefix, "cpu") for p in fused]
-        cpu_jobs += [(p, testbed, mixed_short, "cpu")
-                     for p in (*fused, LATE_BINDING)]
-        cpu_done = pool.starmap_async(plain_run, cpu_jobs, chunksize=1)
+    pool = workers.enter_context(plain_pool())
+    # the plain runs that need not be on the card, on the CPU (whose
+    # engine the card equals in every plane: the card-vs-CPU check
+    # below), while (c) runs: the prefixes of (a) and (c), and (b)'s
+    # short batch
+    t0 = time.perf_counter()
+    cpu_jobs = [(p, testbed, prefix(fig10[name], N_TRACE_PLAIN), "cpu")
+                for name, p in checked.items()]
+    cpu_jobs += [(p, lane_cl, lane_prefix, "cpu") for p in fused]
+    cpu_jobs += [(p, testbed, mixed_short, "cpu")
+                 for p in (*fused, LATE_BINDING)]
+    cpu_done = pool.starmap_async(plain_run, cpu_jobs, chunksize=1)
 
-        # (c) fig14's horizon lane, each fused run alone on the card
-        lane_out, lane_timing = {}, {}
-        for policy in fused:
-            key = f"horizon {policy.name}"
-            out, kern = fused_logged(policy, lane_cl, lane, key,
-                                     gen_s["horizon azure-diurnal"])
-            lane_out[policy] = out
-            bound_ms, bound_by, nbytes, ops = engine_bound(
-                kern["res"], lane.n, lane.n_reps, lane.n_functions)
-            t = lane_timing[policy.name] = runs[key]
-            t.update(iters=int(kern["res"]["iters"].sum()),
-                     active=int(kern["res"]["active"].sum()),
-                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                     operations=ops, rejected=int(out.rejected.sum()))
-            log(f"  {key}: sim_engine {t['ms'] / lane.n * 1e3:.3f} us per "
-                f"arrival; {t['iters']} advance iters, {t['active']} "
-                f"active; bound {bound_ms:.5f} ms, {bound_by} ({nbytes} B, "
-                f"{ops} f64 operations), kernel / bound "
-                f"{t['ms'] / bound_ms:.0f}; {t['rejected']} rejected")
-            for load, s in zip(LOADS, summarize_batch_sim(
-                    out, lane, warmup_frac=0.1).per_rep):
-                log(f"  {key} load {load}: p99 slowdown {s.slow_p99:.3f}, "
-                    f"cold {s.cold_frac:.4f}, rejected {s.n_rejected}")
+    # (c) fig14's horizon lane, each fused run alone on the card
+    lane_out, lane_timing = {}, {}
+    for policy in fused:
+        key = f"horizon {policy.name}"
+        out, kern = fused_logged(policy, lane_cl, lane, key,
+                                 gen_s["horizon azure-diurnal"])
+        lane_out[policy] = out
+        bound_ms, bound_by, nbytes, ops = engine_bound(
+            kern["res"], lane.n, lane.n_reps, lane.n_functions)
+        t = lane_timing[policy.name] = runs[key]
+        t.update(iters=int(kern["res"]["iters"].sum()),
+                 active=int(kern["res"]["active"].sum()),
+                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                 operations=ops, rejected=int(out.rejected.sum()))
+        log(f"  {key}: sim_engine {t['ms'] / lane.n * 1e3:.3f} us per "
+            f"arrival; {t['iters']} advance iters, {t['active']} "
+            f"active; bound {bound_ms:.5f} ms, {bound_by} ({nbytes} B, "
+            f"{ops} f64 operations), kernel / bound "
+            f"{t['ms'] / bound_ms:.0f}; {t['rejected']} rejected")
+        for load, s in zip(LOADS, summarize_batch_sim(
+                out, lane, warmup_frac=0.1).per_rep):
+            log(f"  {key} load {load}: p99 slowdown {s.slow_p99:.3f}, "
+                f"cold {s.cold_frac:.4f}, rejected {s.n_rejected}")
 
-        # then the batched engine's runs on the card, longest first
-        card_jobs = [(LATE_BINDING, testbed, wb, "cuda")
-                     for wb in fig10_late.values()]
-        card_jobs += [(p, testbed, mixed_check, "cuda") for p in fused]
-        card_jobs += [(LATE_BINDING, testbed, mixed_short, "cuda")]
-        card_done = iter(pool.starmap(plain_run, card_jobs, chunksize=1))
-        cpu_done = iter(cpu_done.get())
-        plain_s = time.perf_counter() - t0
-        log(f"{len(cpu_jobs)} batched-engine runs on the CPU, then "
-            f"{len(card_jobs)} on the card, in {PLAIN_WORKERS} worker "
-            f"processes: {plain_s:.1f} s")
+    # then the batched engine's runs on the card, longest first
+    card_jobs = [(LATE_BINDING, testbed, wb, "cuda")
+                 for wb in fig10_late.values()]
+    card_jobs += [(p, testbed, mixed_check, "cuda") for p in fused]
+    card_jobs += [(LATE_BINDING, testbed, mixed_short, "cuda")]
+    card_done = iter(pool.starmap(plain_run, card_jobs, chunksize=1))
+    cpu_done = iter(cpu_done.get())
+    plain_s = time.perf_counter() - t0
+    log(f"{len(cpu_jobs)} batched-engine runs on the CPU, then "
+        f"{len(card_jobs)} on the card, in {PLAIN_WORKERS} worker "
+        f"processes: {plain_s:.1f} s")
 
     # the first arrivals of each fused run of (a) and (c) against the
     # plain engine's run of just those
@@ -1810,7 +1833,273 @@ def trace_replay(torch, np, report):
     log(f"phase 12: {launches} sim_engine launches, {phase_s:.1f} s")
     check(phase_s <= TRACE_PHASE_S, f"phase 12 took {phase_s:.1f} s "
                                     f"(limit {TRACE_PHASE_S:.0f} s)")
-    return launches
+    return launches, pool
+
+
+# -- the policy zoo (phase 13) --
+
+#: fig11's quick mode (benchmarks/fig11_policy_zoo.py:41-55) on the
+#: paper's small cluster: its loads, depth and seed; its mixed lane at
+#: half the depth (R = 3, one replication a workload)
+FIG11_LOADS = (0.5, 0.7, 0.8, 0.9)
+N_FIG11 = 6_000
+FIG11_SEED = 0
+FIG11_MIXED = ("ms-trace", "azure-diurnal", "azure-bursty")
+#: depth of the plain runs that hold phase 13's fused runs
+N_ZOO_PLAIN = 1_000
+ZOO_PHASE_S = 60.0
+
+
+def registry_policies(base):
+    """``base`` plus E/<B>/PS for every balancer the port has, in the
+    reference's order (``benchmarks/common.py`` ``registry_policies``)."""
+    from repro_torch.core import Binding, PolicySpec, WorkerSched
+    from repro_torch.policy import balancer_names
+    pols, seen = list(base), {p.name for p in base}
+    for name in balancer_names():
+        cand = PolicySpec(Binding.EARLY, name, WorkerSched.PS)
+        if cand.name not in seen:
+            pols.append(cand)
+            seen.add(cand.name)
+    return tuple(pols)
+
+
+def plain_engine_ref(balance, cluster, wb):
+    """``sim_engine_ref`` on the CPU for a workload batch, as numpy.
+    Top-level, so that a worker process can run it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.sim_engine.ref import sim_engine_ref
+
+    def put(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype)
+    out = sim_engine_ref(balance, cluster, put(wb.arrival, torch.float64),
+                         put(wb.func, torch.int32),
+                         put(wb.service, torch.float64),
+                         put(wb.u_lb, torch.float64),
+                         put(wb.func_home, torch.int32))
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def policy_zoo(torch, np, report, pool):
+    """Phase 13: the policy zoo through ``simulate_many`` on the card, all
+    fused: (a) fig11's quick mode (two lanes, nine policies), (b) fig11's
+    mixed lane, (c) fig4's zoo rows.  The batched engine's runs that hold
+    them go to ``pool``'s workers, on the CPU, while the fused runs have
+    the card.  Returns (``sim_engine`` launches of the fused runs, the
+    kernel's max abs error against ``sim_engine_ref``)."""
+    from repro_torch.core import (E_DD_PS, E_HIKU_PS, E_JSQ2_PS, E_RR_PS,
+                                  E_SWARM_PS, PAPER_LARGE, PAPER_SMALL,
+                                  WORKLOADS, ZOO_POLICIES, ClusterCfg,
+                                  bimodal_exec, ms_trace,
+                                  replicate_workload, stack_workloads,
+                                  summarize_batch_sim, synth_workload)
+    from repro_torch.kernels.sim_engine import kernel as ek
+    from repro_torch.trace import resample_workloads
+
+    t_phase = time.perf_counter()
+    zoo = (E_JSQ2_PS, E_RR_PS, E_HIKU_PS, E_DD_PS, E_SWARM_PS)
+    fig11 = registry_policies(ZOO_POLICIES)
+    small = PAPER_SMALL
+    tiny = ClusterCfg(n_workers=4, cores=3, capacity_factor=2,
+                      cold_start_penalty=0.25)
+
+    def mixed(n):
+        return resample_workloads(WORKLOADS[name](small, 0.7, n, FIG11_SEED)
+                                  for name in FIG11_MIXED)
+
+    lanes = {name: replicate_workload(make, small, FIG11_LOADS, N_FIG11,
+                                      seeds=(FIG11_SEED,))
+             for name, make in (("ms-trace", ms_trace),
+                                ("bimodal-exec", bimodal_exec))}
+    mixed_main, mixed_short = mixed(N_FIG11 // 2), mixed(N_SHORT)
+    fig4 = replicate_workload(ms_trace, PAPER_LARGE, LOADS, N_MAIN,
+                              seeds=(SEED,))
+    overload = stack_workloads(
+        synth_workload(tiny, load, N_SHORT, n_functions=5, hot_fraction=0.8,
+                       seed=SEED) for load in (1.3, 3.0, 6.0))
+    # the fused runs whose first arrivals are held to the plain engine's,
+    # the longest plain runs first
+    held = {"fig4": (PAPER_LARGE, fig4),
+            "ms-trace": (small, lanes["ms-trace"]),
+            "mixed": (small, mixed_main)}
+
+    # the batched engine's runs and the plain version's, on the CPU in the
+    # worker processes, while the card runs (a)-(c)
+    t0 = time.perf_counter()
+    plain_jobs = [(p, cl, prefix(wb, N_ZOO_PLAIN), "cpu")
+                  for cl, wb in held.values() for p in zoo]
+    plain_jobs += [(p, small, mixed_short, "cpu") for p in fig11]
+    plain_done = pool.starmap_async(plain_run, plain_jobs, chunksize=1)
+    ref_jobs = [(p.balance, cl, wb) for cl, wb in ((small, mixed_short),
+                                                   (tiny, overload))
+                for p in zoo]
+    ref_done = pool.starmap_async(plain_engine_ref, ref_jobs, chunksize=1)
+
+    runs, launches = {}, 0
+
+    def fused(policy, cluster, wb, key):
+        nonlocal launches
+        out, wall, stats, kern = fused_run(torch, np, policy, cluster, wb,
+                                           key)
+        launches += 1
+        runs[key] = dict(n=wb.n, reps=wb.n_reps, wall_s=wall,
+                         us_per_arrival=wall / wb.n * 1e6, ms=kern["ms"],
+                         idle_share=1 - kern["ms"] / (wall * 1e3),
+                         advance_iters=stats.advance_iters)
+        return out, kern
+
+    def rows(out, wb, labels):
+        summ = summarize_batch_sim(out, wb, warmup_frac=0.1).per_rep
+        return {label: dict(slow_p99=s.slow_p99, slow_mean=s.slow_mean,
+                            cold_frac=s.cold_frac, n_rejected=s.n_rejected)
+                for label, s in zip(labels, summ)}
+
+    # (a) fig11's quick mode: both lanes, the nine policies
+    table, outs = {}, {}
+    for lane, wb in lanes.items():
+        for policy in fig11:
+            key = f"fig11 {lane} {policy.name}"
+            outs[key], _ = fused(policy, small, wb, key)
+            table[(lane, policy.name)] = rows(outs[key], wb, FIG11_LOADS)
+    # (b) the mixed lane, at its depth and at N_SHORT (card vs CPU)
+    short = {}
+    for policy in fig11:
+        key = f"fig11 mixed {policy.name}"
+        outs[key], _ = fused(policy, small, mixed_main, key)
+        for name, row in rows(outs[key], mixed_main, FIG11_MIXED).items():
+            table[(f"mixed {name}", policy.name)] = {0.7: row}
+        short[policy.name], _ = fused(policy, small, mixed_short,
+                                      f"{key} N={N_SHORT}")
+    # (c) fig4's zoo rows, each timed beside its bound
+    fig4_t = {}
+    for policy in zoo:
+        key = f"fig4 {policy.name}"
+        outs[key], kern = fused(policy, PAPER_LARGE, fig4, key)
+        bound_ms, bound_by, nbytes, ops = engine_bound(
+            kern["res"], fig4.n, fig4.n_reps, fig4.n_functions)
+        t = fig4_t[policy.name] = runs[key]
+        t.update(bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                 operations=ops, iters=int(kern["res"]["iters"].sum()),
+                 per_load=rows(outs[key], fig4, LOADS))
+    # the held runs' first arrivals, fused, for the every-plane check
+    prefix_out = {(name, p.name): fused(
+        p, cl, prefix(wb, N_ZOO_PLAIN),
+        f"{name} {p.name} N={N_ZOO_PLAIN}")[0]
+        for name, (cl, wb) in held.items() for p in zoo}
+    for key, r in runs.items():
+        log(f"{key}: wall {r['wall_s']:.3f} s ({r['us_per_arrival']:.2f} us "
+            f"per arrival, R={r['reps']}, N={r['n']}); sim_engine "
+            f"{r['ms']:.3f} ms, idle share {r['idle_share']:.3f} at most; 1 "
+            f"launch, 0 host syncs, {r['advance_iters']} advance iters")
+    for name, t in fig4_t.items():
+        log(f"fig4 {name} R={fig4.n_reps} N={fig4.n}: sim_engine "
+            f"{t['ms']:.3f} ms ({t['ms'] / fig4.n * 1e3:.3f} us per arrival); "
+            f"bound {t['bound_ms']:.5f} ms, {t['bound_by']} ({t['bytes']} B, "
+            f"{t['operations']} f64 operations over {t['iters']} advance "
+            f"iterations), kernel / bound {t['ms'] / t['bound_ms']:.0f}")
+        for load, row in t["per_load"].items():
+            log(f"  load {load}: p99 slowdown {row['slow_p99']:.3f}, cold "
+                f"{row['cold_frac']:.4f}, rejected {row['n_rejected']}")
+    for (lane, name), by_load in table.items():
+        for load, row in by_load.items():
+            log(f"  fig11 {lane} {name} load {load}: p99 slowdown "
+                f"{row['slow_p99']:.3f}, mean {row['slow_mean']:.3f}, cold "
+                f"{row['cold_frac']:.4f}, rejected {row['n_rejected']}")
+
+    # fig11's verdicts in the reference's words (benchmarks/run.py:240-265),
+    # from the port's rows: printed, not gated
+    def p99(lane, name, load):
+        return table[(lane, name)][load]["slow_p99"]
+    jsq2, r_, ll = (p99("ms-trace", n, 0.9)
+                    for n in ("E/JSQ2/PS", "E/R/PS", "E/LL/PS"))
+    dd, rb = (p99("bimodal-exec", n, 0.8) for n in ("E/DD/PS", "E/R/PS"))
+    verdicts = {
+        "Zoo: two choices beat one — E/JSQ2/PS p99 < E/R/PS @0.9":
+            jsq2 < r_,
+        "Zoo: JSQ2 tracks full-information LL (≤1.5x p99) @0.9":
+            jsq2 <= 1.5 * ll,
+        "Zoo: data-driven DD beats size-blind R on bimodal durations @0.8 "
+        "(learned per-function estimates)": dd < rb}
+    for claim, ok in verdicts.items():
+        log(f"fig11 verdict (not a gate): {claim}: "
+            f"{'holds' if ok else 'does not hold'}")
+    log(f"fig11 values: JSQ2 {jsq2:.3f}, R {r_:.3f}, LL {ll:.3f} "
+        f"(ms-trace @0.9); DD {dd:.3f}, R {rb:.3f} (bimodal-exec @0.8)")
+    log(f"fig11 observation @0.9: RR p99 "
+        f"{p99('ms-trace', 'E/RR/PS', 0.9):.3f} (blind rotation, between R "
+        f"and JSQ2); HIKU p99 {p99('ms-trace', 'E/HIKU/PS', 0.9):.3f} vs LL "
+        f"p99 {ll:.3f}")
+    log(f"fig11 mixed-batch observation: bursty replay @0.7 HIKU p99 "
+        f"{p99('mixed azure-bursty', 'E/HIKU/PS', 0.7):.3f} DD p99 "
+        f"{p99('mixed azure-bursty', 'E/DD/PS', 0.7):.3f} LL p99 "
+        f"{p99('mixed azure-bursty', 'E/LL/PS', 0.7):.3f}")
+
+    # the kernel against its plain version at the small shapes, final
+    # balancer state included (these launches compare, they are not the
+    # main path's)
+    max_err = 0.0
+    for (balance, cl, wb), plain in zip(ref_jobs, ref_done.get()):
+        got = ek.sim_engine(balance, cl, *engine_inputs(torch, np, wb))
+        check(sorted(got) == sorted(plain),
+              f"sim_engine {balance}: outputs {sorted(got)} != the plain "
+              f"version's {sorted(plain)}")
+        for name, want in plain.items():
+            a = got[name].cpu().numpy()
+            check(a.dtype == want.dtype and np.array_equal(
+                a, want, equal_nan=name == "resp"),
+                f"sim_engine {balance} W={cl.n_workers} R={wb.n_reps}: != "
+                f"sim_engine_ref in {name}")
+            err = float(np.abs(np.nan_to_num(a.astype(np.float64), nan=-1.0)
+                               - np.nan_to_num(want.astype(np.float64),
+                                               nan=-1.0)).max())
+            max_err = max(max_err, err)
+    log(f"sim_engine == sim_engine_ref (on the CPU) for "
+        f"{', '.join(p.balance for p in zoo)} at W=4, N={N_SHORT}, the fig11 "
+        f"mixed batch and an overloaded cluster: every plane and the final "
+        f"balancer state (max abs err {max_err})")
+
+    # the held runs against the batched engine on the CPU, then (b)'s
+    # short runs card against CPU
+    plain = iter(plain_done.get())
+    plain_s = time.perf_counter() - t0
+    for name, (cl, wb) in held.items():
+        for p in zoo:
+            cpu, wall = next(plain)
+            key = f"{name} {p.name}"
+            same_prefix(np, outs[f"fig11 {name} {p.name}" if name != "fig4"
+                             else f"fig4 {p.name}"], cpu, key)
+            same_planes(np, prefix_out[(name, p.name)], cpu,
+                        f"{key} N={N_ZOO_PLAIN}: card vs CPU")
+            log(f"{key}: the first {N_ZOO_PLAIN} arrivals == the batched "
+                f"engine's run of them on the CPU (worker, cold, rejected "
+                f"of the fused run; every plane of the fused run of just "
+                f"those) ({wall:.1f} s)")
+    gaps = {}
+    for policy in fig11:
+        cpu, _ = next(plain)
+        key = f"fig11 mixed {policy.name} N={N_SHORT}"
+        gaps[key] = card_vs_cpu(np, short[policy.name], cpu, key)
+        check(gaps[key] == 0, f"{key}: card vs CPU float gap {gaps[key]}")
+        log(f"{key}: card == CPU in every plane, float gap 0")
+    log(f"{len(plain_jobs) + len(ref_jobs)} runs on the CPU in "
+        f"{PLAIN_WORKERS} worker processes: {plain_s:.1f} s from their start")
+
+    phase_s = time.perf_counter() - t_phase
+    report["policy_zoo"] = dict(
+        fig11=dict(loads=FIG11_LOADS, n=N_FIG11, seed=FIG11_SEED,
+                   mixed=FIG11_MIXED, n_mixed=N_FIG11 // 2,
+                   rows={f"{lane} {name}": by_load
+                         for (lane, name), by_load in table.items()},
+                   verdicts=verdicts),
+        fig4=fig4_t, runs=runs, card_vs_cpu_max_gap=gaps,
+        sim_engine_max_abs_err=max_err, plain_runs_s=plain_s,
+        sim_engine_launches=launches, phase_s=phase_s)
+    log(f"phase 13: {launches} sim_engine launches, {phase_s:.1f} s")
+    check(phase_s <= ZOO_PHASE_S, f"phase 13 took {phase_s:.1f} s (limit "
+                                  f"{ZOO_PHASE_S:.0f} s)")
+    return launches, max_err
 
 
 def main() -> int:
@@ -1871,8 +2160,12 @@ def main() -> int:
                    report):
             prefill_decode_vs_forward(torch, np, report, RECURRENT,
                                       "recurrent_prefill_decode_vs_forward")
-        with Phase("12 trace replay on the card", report):
-            trace_launches = trace_replay(torch, np, report)
+        with contextlib.ExitStack() as workers:
+            with Phase("12 trace replay on the card", report):
+                trace_launches, pool = trace_replay(torch, np, report,
+                                                    workers)
+            with Phase("13 policy zoo on the card", report):
+                zoo_launches, zoo_err = policy_zoo(torch, np, report, pool)
         total_s = time.perf_counter() - t_start
         check(total_s <= SCRIPT_S, f"the script took {total_s:.1f} s (limit "
                                    f"{SCRIPT_S:.0f} s)")
@@ -1883,8 +2176,8 @@ def main() -> int:
         report["total_s"] = time.perf_counter() - t_start
         log("report " + json.dumps(report, separators=(",", ":")))
     # hermes_select's path is serving (phase 7: one launch per dispatch);
-    # the simulator's E/H/PS makes its choice inside sim_engine (phases 4
-    # and 12: every fused run's launch on both paths; its times from
+    # the simulator's E/H/PS makes its choice inside sim_engine (phases 4,
+    # 12 and 13: every fused run's launch on those paths; its times from
     # phase 4, where the plain engine runs the same inputs)
     kernels = [{
         "name": "hermes_select", "route": "cuda",
@@ -1896,8 +2189,8 @@ def main() -> int:
         "name": "sim_engine", "route": "cuda",
         "source": "src/repro_torch/csrc/sim_engine.cu",
         "replaces": "src/repro/kernels/hermes_select/kernel.py:66",
-        "launches": engine_launches + trace_launches,
-        "max_abs_err": engine_err,
+        "launches": engine_launches + trace_launches + zoo_launches,
+        "max_abs_err": max(engine_err, zoo_err),
         "ms": engine_t["ms"], "plain_ms": engine_t["plain_ms"],
         "bound_ms": engine_t["bound_ms"], "bound_by": engine_t["bound_by"],
         "library_ms": None}]

@@ -11,7 +11,8 @@ from .metrics import (BatchSummary, Stat, Summary, summarize,
 from .taxonomy import (Binding, LoadBalance, PolicySpec, WorkerSched,
                        parse_policy, FIG2_POLICIES, EVAL_POLICIES, HERMES,
                        LATE_BINDING, E_LL_PS, E_LL_FCFS, E_LL_SRPT, E_LOC_PS,
-                       E_LOC_FCFS, E_R_PS, E_R_FCFS)
+                       E_LOC_FCFS, E_R_PS, E_R_FCFS, E_JSQ2_PS, E_RR_PS,
+                       E_HIKU_PS, E_DD_PS, E_SWARM_PS, ZOO_POLICIES)
 from .workload import (AZURE_MU, AZURE_SIGMA, WORKLOADS, Workload,
                        WorkloadBatch, bimodal_exec, homogeneous_exec,
                        lognormal_mean, ms_representative, ms_trace,
@@ -31,6 +32,8 @@ __all__ = [
     "Binding", "LoadBalance", "PolicySpec", "WorkerSched", "parse_policy",
     "FIG2_POLICIES", "EVAL_POLICIES", "HERMES", "LATE_BINDING", "E_LL_PS",
     "E_LL_FCFS", "E_LL_SRPT", "E_LOC_PS", "E_LOC_FCFS", "E_R_PS", "E_R_FCFS",
+    "E_JSQ2_PS", "E_RR_PS", "E_HIKU_PS", "E_DD_PS", "E_SWARM_PS",
+    "ZOO_POLICIES",
     "AZURE_MU", "AZURE_SIGMA", "WORKLOADS", "Workload", "WorkloadBatch",
     "bimodal_exec", "homogeneous_exec", "lognormal_mean",
     "ms_representative", "ms_trace", "multi_balanced", "replicate_workload",

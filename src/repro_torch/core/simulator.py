@@ -22,7 +22,7 @@ leading axis of every state tensor and the scan is a Python loop:
 Each loop iteration reads one boolean back to the host (``go.any()``).
 Pass a :class:`LoopStats` to count iterations and those syncs.
 
-On a CUDA device, early binding with PS under H, LL, LOC or R does not
+On a CUDA device, early binding with PS under any balancer does not
 take this engine: :func:`repro_torch.policy.engine` routes it to the
 fused ``sim_engine`` kernel, which runs the same loop (one block per
 replication, no masking, no host reads) in one launch and returns the
@@ -37,7 +37,15 @@ State (``R`` replications × ``W`` workers × ``S`` slots):
 ``warm``        i32       ``[R, W, F+1]`` idle warm executors (+1 pad col)
 ``q``           i32       ``[R, N]`` late-binding FIFO ring
 ``resp`` …      f64 …     ``[R, N+1]`` per-arrival planes (last = scratch)
+``lb_<key>``    …         a carried-state balancer's ``[R, …]`` state
 ==============  ========  =====================================
+
+A carried-state balancer (HIKU, DD, SWARM) threads its state as the
+reference does: ``select`` takes and returns it at each arrival, and
+each advance iteration calls ``on_complete`` for the argmin slot with the
+task's nominal service (no cold-start penalty) and the worker's active
+count after the slot is cleared, keeping the update only where that slot
+completed.
 """
 from __future__ import annotations
 
@@ -144,6 +152,16 @@ def _merge(mask: torch.Tensor, new: dict, old: dict) -> dict:
     return out
 
 
+def _lb_of(st: dict) -> dict:
+    """A carried-state balancer's state out of the engine's ``st``."""
+    return {k[3:]: v for k, v in st.items() if k.startswith("lb_")}
+
+
+def _with_lb(lb: dict) -> dict:
+    """``lb``'s entries under their keys in the engine's ``st``."""
+    return {f"lb_{k}": v for k, v in lb.items()}
+
+
 def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                   n_functions: int, n_reps: int, device: torch.device,
                   backend: str):
@@ -158,6 +176,7 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
     res = resolve(policy, cluster, device=device, backend=backend)
     late = res.late
     select = res.select
+    stateful = res.stateful
     rows = torch.arange(R, device=device)
     arrival_ids = torch.arange(N, device=device)
     pen = torch.tensor(float(cluster.cold_start_penalty), dtype=_F64,
@@ -271,10 +290,18 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                 torch.where(completed, torch.inf, remaining[rows, wj, sj]))
             task_idx = task_idx.index_put(
                 (rows, wj, sj), torch.where(completed, -1, tid))
-            return dict(st, remaining=remaining, task_idx=task_idx,
-                        warm=warm, now=now, resp=resp,
-                        server_time=server_time,
-                        core_time=core_time), dt_left - tau
+            new = dict(st, remaining=remaining, task_idx=task_idx,
+                       warm=warm, now=now, resp=resp,
+                       server_time=server_time, core_time=core_time)
+            if stateful:
+                # one hook call per iteration, kept where the argmin slot
+                # really completed
+                lb = _lb_of(st)
+                upd = res.on_complete(
+                    lb, wj, f_j, services[rows, tid.clamp(min=0).to(_I64)],
+                    (task_idx[rows, wj] >= 0).sum(dim=1))
+                new.update(_with_lb(_merge(completed, upd, lb)))
+            return new, dt_left - tau
 
         dt_left = dt
         go = cond(st, dt_left)
@@ -304,7 +331,12 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                 q_tail=st["q_tail"] + 1)
             return _merge(active.amin(dim=1) < C, placed, queued)
         warm_col = st["warm"][rows, :, f_i]                    # [R, W]
-        w = select(active, warm_col, f_i, homes, u_lb[:, i], i)
+        if stateful:
+            w, lb = select(_lb_of(st), active, warm_col, f_i, homes,
+                           u_lb[:, i], i)
+            st = dict(st, **_with_lb(lb))
+        else:
+            w = select(active, warm_col, f_i, homes, u_lb[:, i], i)
         st = dict(st, rejected=st["rejected"].index_put((rows, tid),
                                                          w < 0))
         placed = place(st, tid, w.clamp(min=0).to(_I64), f_i,
@@ -331,6 +363,8 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
             "server_time": full((R,), 0.0, _F64),
             "core_time": full((R,), 0.0, _F64),
         }
+        if stateful:
+            st.update(_with_lb(res.init_state(R, W, F, device)))
         for i in range(N):
             st = step(st, i, arrivals, funcs, services, u_lb, homes, stats)
             stats.arrivals += 1
@@ -349,7 +383,7 @@ def simulate_many(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
     :class:`Workload` sharing one ``(N, F)`` shape.  ``device=None`` is
     CUDA (raises :class:`~repro_torch.device.NoCudaDeviceError` without
     a card).  ``backend`` is ``"auto"`` or ``"kernel"`` (on the card,
-    the fused ``sim_engine`` kernel for E/{H,LL,LOC,R}/PS and the
+    the fused ``sim_engine`` kernel for every E/<B>/PS policy and the
     ``hermes_select`` kernel for the other ``H`` policies) or ``"torch"``
     (the batched engine in plain tensor code throughout).
     """

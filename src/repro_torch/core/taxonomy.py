@@ -100,3 +100,14 @@ FIG2_POLICIES = (
     LATE_BINDING, E_LL_FCFS, E_LL_PS, E_LOC_FCFS, E_LOC_PS, E_R_FCFS, E_R_PS,
 )
 EVAL_POLICIES = (E_LOC_PS, LATE_BINDING, E_LL_PS, HERMES)  # paper §6 baselines
+
+# The policy zoo (registry balancers beyond the paper), swept by fig11.
+# HIKU, DD and SWARM carry balancer state through the engines
+# (repro_torch.policy.balancers).
+E_JSQ2_PS = PolicySpec(Binding.EARLY, "JSQ2", WorkerSched.PS)
+E_RR_PS = PolicySpec(Binding.EARLY, "RR", WorkerSched.PS)
+E_HIKU_PS = PolicySpec(Binding.EARLY, "HIKU", WorkerSched.PS)
+E_DD_PS = PolicySpec(Binding.EARLY, "DD", WorkerSched.PS)
+E_SWARM_PS = PolicySpec(Binding.EARLY, "SWARM", WorkerSched.PS)
+ZOO_POLICIES = (E_R_PS, E_RR_PS, E_JSQ2_PS, E_HIKU_PS, E_DD_PS,
+                E_SWARM_PS, E_LL_PS, HERMES)

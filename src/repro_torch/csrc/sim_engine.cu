@@ -1,6 +1,7 @@
 // The policy simulator's early-binding event loop with processor sharing
-// (E/H/PS, E/LL/PS, E/LOC/PS, E/R/PS) as one CUDA kernel for Hopper
-// (sm_90a): one launch runs a whole `simulate_many`.
+// (E/<B>/PS for the nine balancers H, LL, LOC, R, JSQ2, RR, HIKU, DD and
+// SWARM) as one CUDA kernel for Hopper (sm_90a): one launch runs a whole
+// `simulate_many`.
 //
 // Redesigns the Pallas TPU kernel repro/kernels/hermes_select/kernel.py
 // (`hermes_select_batch`) for this card.  On the TPU that kernel makes the
@@ -19,11 +20,23 @@
 //      w*S + s on ties), move time by tau, integrate server and core
 //      occupancy, subtract rate*tau from every active slot, and complete
 //      the argmin slot (its response, one warm executor more);
-//   2. choose a worker (H, LL, LOC or R; -1 = rejected) and place: first
-//      empty slot, cold unless a warm executor is idle (which it takes),
-//      the first-index fullest warm pool evicted when a cold start finds
-//      active + idle >= S, the cold-start penalty added to the service;
+//   2. choose a worker (-1 = rejected) and place: first empty slot, cold
+//      unless a warm executor is idle (which it takes), the first-index
+//      fullest warm pool evicted when a cold start finds active + idle >=
+//      S, the cold-start penalty added to the service;
 // then one final drain with a horizon of 1e18 s.
+//
+// The policy zoo (repro/policy/balancers.py, plain jnp there) chooses
+// here too.  JSQ2 and RR are stateless.  HIKU (a ready-ring of idle
+// workers), DD (per-function EMAs of the service, expected work per
+// worker) and SWARM (median trackers of function scale and worker
+// slowness) carry state, in [R, W] and [R, F] tensors the wrapper
+// allocates and initialises (HIKU's head and tail in shared memory): the
+// choice reads it; after the choice's barrier one thread makes the
+// choice's writes (HIKU's pop, even of a slot-full candidate; DD's charge
+// of the estimate; none for a rejection); each completion applies the
+// balancer's on_complete with the task's nominal service and the
+// worker's active count after it, by the thread that completes it.
 //
 // Bit-equal f64: nvcc contracts a - b*c into an FMA, torch does not, so
 // every product that feeds a sum goes through __dmul_rn / __dadd_rn /
@@ -58,8 +71,9 @@
 //   * every warp makes the arrival's choice itself from the shared
 //     counts (the packed first-index argmax of hermes_score.cuh, or the
 //     first free worker on the ring, or the target rank among the free
-//     workers), with counts of the workers that have a free core and a
-//     free slot kept up to date by whoever changes n_w;
+//     workers, or a (key, index) shuffle argmin of DD's or SWARM's f64
+//     key), with counts of the workers that have a free core and a free
+//     slot kept up to date by whoever changes n_w;
 //   * the next arrival's inputs are loaded while this one is processed.
 // A block has one warp per worker, up to 512 threads.  Upper bounds:
 // W <= 4096 workers and S <= 2047 slots (48 KB of shared memory).  The
@@ -80,7 +94,40 @@ constexpr int kMaxSlots = 2047;
 constexpr int kMaxThreads = 512;
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Balancer { kHermes = 0, kLeastLoaded = 1, kLocality = 2, kRandom = 3 };
+enum Balancer {
+  kHermes = 0,
+  kLeastLoaded = 1,
+  kLocality = 2,
+  kRandom = 3,
+  kJsq2 = 4,
+  kRoundRobin = 5,
+  kHiku = 6,
+  kDataDriven = 7,
+  kSwarm = 8,
+};
+
+// repro/policy/balancers.py's DD_ALPHA and SWARM's steps (1 ± α, and the
+// f64 value of 1 / (1 + α) as Python computes it)
+constexpr double kDdAlpha = 0.25;
+constexpr double kSwEstUp = 1.0 + 0.25;
+constexpr double kSwEstDn = 1.0 / (1.0 + 0.25);
+constexpr double kSwHotUp = 1.0 + 0.125;
+constexpr double kSwHotDn = 1.0 / (1.0 + 0.125);
+constexpr double kSwColdUp = 1.0 + 0.0078125;
+constexpr double kSwColdDn = 1.0 / (1.0 + 0.0078125);
+constexpr long long kSwarmWarmN = 128;
+
+// A replication's carried balancer state (null where the balancer has
+// none): HIKU's ring and membership flags [W]; DD's and SWARM's
+// per-function estimates [F]; DD's expected work or SWARM's slowness per
+// worker [W]; SWARM's completions per worker [W].
+struct LbState {
+  int* ring;
+  int* in_ring;
+  double* est;
+  double* per_worker;
+  long long* cnt;
+};
 
 // One advance iteration's block-wide reduction: the earliest finisher
 // (t, flat index; lowest index on ties), whether a task is pending, and
@@ -118,15 +165,18 @@ __device__ __forceinline__ int warp_sum(int v) {
 }
 
 // The worker the balancer picks for an arrival of function f, or -1 if
-// every worker is slot-full; made by each warp on its own.
+// every worker is slot-full; made by each warp on its own.  `h` is the
+// ring's start (LOC: the function's home; RR: the arrival's index mod W);
+// `head`, `tail` are HIKU's ring counters.  Writes nothing.
 __device__ __forceinline__ int choose(int balancer, const int* n_act,
                                       const int* warm, int W, int F, int f,
                                       int cores, int S, int core_free,
                                       int slot_free, int h, double u,
+                                      const LbState& lb, int head, int tail,
                                       int lane) {
   if (slot_free == 0) return -1;
-  if (balancer == kLocality) {
-    // the first worker with a free slot on the ring from the home
+  if (balancer == kLocality || balancer == kRoundRobin) {
+    // the first worker with a free slot on the ring from h
     for (int k0 = 0; k0 < W; k0 += 32) {
       int w = h + k0 + lane;
       w = w >= W ? w - W : w;
@@ -153,6 +203,54 @@ __device__ __forceinline__ int choose(int balancer, const int* n_act,
     }
     return -1;
   }
+  if (balancer == kJsq2) {
+    // two indices from one uniform, in the reference's f64 order; the
+    // shorter queue (b only if strictly shorter), else least loaded below
+    const double x = __dmul_rn(u, static_cast<double>(W));
+    const int a = min(static_cast<int>(x), W - 1);
+    const int b = min(static_cast<int>(__dmul_rn(__dsub_rn(x, floor(x)),
+                                                 static_cast<double>(W))),
+                      W - 1);
+    const int key_a = n_act[a] < S ? n_act[a] : hermes::kBig;
+    const int key_b = n_act[b] < S ? n_act[b] : hermes::kBig;
+    const int w = key_b < key_a ? b : a;
+    if (n_act[w] < S) return w;
+  } else if (balancer == kHiku) {
+    // the ring's oldest idle worker, else least loaded below
+    if (tail > head) {
+      const int cand = lb.ring[head % W];
+      if (n_act[cand] < S) return cand;
+    }
+  } else if (balancer == kDataDriven || balancer == kSwarm) {
+    // first-index argmin of an f64 key over the workers with a free slot:
+    // DD's expected work; SWARM's slowness, times queue depth + 1 at
+    // core saturation
+    double best = INFINITY;
+    int best_w = INT_MAX;
+    for (int w = lane; w < W; w += 32) {
+      const int nw = n_act[w];
+      if (nw >= S) continue;
+      const double v = lb.per_worker[w];
+      const double key =
+          balancer == kDataDriven || nw + 1 <= cores
+              ? v
+              : __dmul_rn(__dadd_rn(static_cast<double>(nw), 1.0), v);
+      if (key < best) {   // a lane meets its workers in order
+        best = key;
+        best_w = w;
+      }
+    }
+    for (int offset = 16; offset > 0; offset >>= 1) {
+      const double other = __shfl_xor_sync(kFull, best, offset);
+      const int other_w = __shfl_xor_sync(kFull, best_w, offset);
+      if (other < best || (other == best && other_w < best_w)) {
+        best = other;
+        best_w = other_w;
+      }
+    }
+    return best_w;
+  }
+  // H's score, or least loaded (LL, and JSQ2's and HIKU's fallback)
   long long best = LLONG_MIN;
   for (int w = lane; w < W; w += 32) {
     const int nw = n_act[w];
@@ -161,13 +259,47 @@ __device__ __forceinline__ int choose(int balancer, const int* n_act,
         balancer == kHermes
             ? hermes::score(nw, warm[static_cast<size_t>(w) * F + f] > 0,
                             cores, S, core_free > 0)
-            : -nw;   // kLeastLoaded
+            : -nw;
     const long long key = hermes::pack_key(score, w);
     best = key > best ? key : best;
   }
   return hermes::key_index(hermes::warp_max(best));
 }
 
+// A carried-state balancer's update for a completion on worker w of a
+// task of function f with nominal service svc, w left with n_after
+// active tasks (repro/policy/balancers.py's on_complete, same order).
+__device__ __forceinline__ void on_complete(int balancer, const LbState& lb,
+                                            int* tail, int W, int w, int f,
+                                            double svc, int n_after) {
+  if (balancer == kHiku) {
+    // an idle worker advertises itself once
+    if (n_after == 0 && lb.in_ring[w] == 0) {
+      lb.ring[*tail % W] = w;
+      lb.in_ring[w] = 1;
+      *tail += 1;
+    }
+  } else if (balancer == kDataDriven) {
+    const double est_f = lb.est[f];   // read before its update
+    const double left = __dsub_rn(lb.per_worker[w], est_f);
+    lb.per_worker[w] = left > 0.0 ? left : 0.0;
+    lb.est[f] = __dadd_rn(est_f, __dmul_rn(kDdAlpha, __dsub_rn(svc, est_f)));
+  } else if (balancer == kSwarm) {
+    const double est_f = lb.est[f];
+    const double inv_w = lb.per_worker[w];
+    const double sample = __ddiv_rn(svc, est_f);
+    lb.est[f] = __dmul_rn(est_f, svc > est_f ? kSwEstUp : kSwEstDn);
+    const bool hot = lb.cnt[w] < kSwarmWarmN;
+    lb.per_worker[w] = __dmul_rn(
+        inv_w, sample > inv_w ? (hot ? kSwHotUp : kSwColdUp)
+                              : (hot ? kSwHotDn : kSwColdDn));
+    lb.cnt[w] += 1;
+  }
+}
+
+// One instantiation per balancer: the choice and the state updates of
+// the others compile away.
+template <int balancer>
 __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     const double* __restrict__ arrival, const int* __restrict__ func,
     const double* __restrict__ service, const double* __restrict__ u_lb,
@@ -178,8 +310,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     int* __restrict__ worker_of, double* __restrict__ server_time_out,
     double* __restrict__ core_time_out, double* __restrict__ now_out,
     long long* __restrict__ iters_out, long long* __restrict__ active_out,
-    int n, int n_functions, int n_workers, int cores, int slots,
-    int balancer, double penalty) {
+    int* __restrict__ lb_ring, int* __restrict__ lb_in_ring,
+    int* __restrict__ lb_head, int* __restrict__ lb_tail,
+    double* __restrict__ lb_est, double* __restrict__ lb_per_worker,
+    long long* __restrict__ lb_cnt, int n, int n_functions, int n_workers,
+    int cores, int slots, double penalty) {
   extern __shared__ double shared[];
   __shared__ double red_t[2][32];
   __shared__ int red_j[2][32];
@@ -189,6 +324,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
   __shared__ int red_cores[2][32];
   __shared__ int core_free;   // workers with n_w < C
   __shared__ int slot_free;   // workers with n_w < S
+  __shared__ int ring_head;   // HIKU's ring counters
+  __shared__ int ring_tail;
 
   const int W = n_workers, S = slots, F = n_functions;
   const int r = blockIdx.x;
@@ -216,6 +353,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
   double* rate_of = shared;                                    // [S + 1]
   int* n_act = reinterpret_cast<int*>(shared + S + 1);         // [W]
   int* hw = n_act + W;   // [W] 1 + the highest slot ever used
+  const LbState lb{
+      lb_ring ? lb_ring + static_cast<size_t>(r) * W : nullptr,
+      lb_in_ring ? lb_in_ring + static_cast<size_t>(r) * W : nullptr,
+      lb_est ? lb_est + static_cast<size_t>(r) * F : nullptr,
+      lb_per_worker ? lb_per_worker + static_cast<size_t>(r) * W : nullptr,
+      lb_cnt ? lb_cnt + static_cast<size_t>(r) * W : nullptr};
 
   for (size_t k = t; k < WS; k += blockDim.x) {
     rems[k] = INFINITY;
@@ -243,6 +386,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
   if (t == 0) {
     core_free = W;
     slot_free = W;
+    if (balancer == kHiku) {
+      ring_head = lb_head[r];
+      ring_tail = lb_tail[r];
+    }
   }
   __syncthreads();
 
@@ -348,6 +495,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
             n_act[wj] = nw - 1;
             core_free += nw == cores;
             slot_free += nw == S;
+            on_complete(balancer, lb, &ring_tail, W, wj, func[tid],
+                        service[tid], nw - 1);
           }
         }
         done_prev = __shfl_sync(kFull, done, 0);
@@ -365,9 +514,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     now = t_i;
     const int f = f_i;
     const double svc = svc_i;
-    const int w_sel = choose(balancer, n_act, pools, W, F, f, cores, S,
-                             core_free, slot_free,
-                             balancer == kLocality ? home[f] : 0, u_i, lane);
+    const int w_sel = choose(
+        balancer, n_act, pools, W, F, f, cores, S, core_free, slot_free,
+        balancer == kLocality ? home[f] : balancer == kRoundRobin ? i % W : 0,
+        u_i, lb, ring_head, ring_tail, lane);
     if (i + 1 < n) {
       t_i = arrival[i + 1];
       f_i = func[i + 1];
@@ -375,7 +525,16 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
       u_i = u_lb[i + 1];
     }
     __syncthreads();   // every warp has chosen before the state changes
-    if (t == 0) rejected[i] = w_sel < 0;
+    if (t == 0) {
+      rejected[i] = w_sel < 0;
+      // the choice's own writes to the balancer state
+      if (w_sel >= 0 && balancer == kHiku && ring_tail > ring_head) {
+        lb.in_ring[lb.ring[ring_head % W]] = 0;
+        ring_head += 1;
+      } else if (w_sel >= 0 && balancer == kDataDriven) {
+        lb.per_worker[w_sel] = __dadd_rn(lb.per_worker[w_sel], lb.est[f]);
+      }
+    }
     if (w_sel >= 0 && warp == w_sel % n_warps) {
       const int w = w_sel;
       const int* task_w = tix + static_cast<size_t>(w) * S;
@@ -427,6 +586,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     now_out[r] = now;
     iters_out[r] = iters;
     active_out[r] = active_sum;
+    if (balancer == kHiku) {
+      lb_head[r] = ring_head;
+      lb_tail[r] = ring_tail;
+    }
   }
 }
 
@@ -443,33 +606,53 @@ size_t shared_bytes(int n_workers, int slots) {
 // rejected [R, N] u8, worker_of [R, N] i32, server_time/core_time/now
 // [R] f64, iters and active [R] i64 (advance iterations, and the active
 // tasks summed over them); all contiguous on the device, the kernel
-// initialises state and outputs.  Launches one block per replication on
-// `stream` and returns cudaGetLastError() (0 = launched).
+// initialises state and outputs.  The carried balancer state, initialised
+// by the caller and updated in place (null where unused): HIKU's ring and
+// in_ring [R, W] i32, head and tail [R] i32; DD's and SWARM's est [R, F]
+// f64; DD's expected work or SWARM's slowness [R, W] f64; SWARM's cnt
+// [R, W] i64.  Launches one block per replication on `stream` and returns
+// cudaGetLastError() (0 = launched).
 extern "C" int sim_engine_launch(
     const double* arrival, const int* func, const double* service,
     const double* u_lb, const int* home, double* remaining, double* task_arr,
     int* task_idx, int* warm, double* resp, unsigned char* cold,
     unsigned char* rejected, int* worker_of, double* server_time,
     double* core_time, double* now, long long* iters, long long* active,
-    int n_reps, int n, int n_functions, int n_workers, int cores, int slots,
-    int balancer, double penalty, void* stream) {
+    int* lb_ring, int* lb_in_ring, int* lb_head, int* lb_tail, double* lb_est,
+    double* lb_per_worker, long long* lb_cnt, int n_reps, int n,
+    int n_functions, int n_workers, int cores, int slots, int balancer,
+    double penalty, void* stream) {
+  const bool state_given =
+      balancer == kHiku
+          ? lb_ring && lb_in_ring && lb_head && lb_tail
+          : balancer == kDataDriven ? lb_est && lb_per_worker
+          : balancer == kSwarm ? lb_est && lb_per_worker && lb_cnt : true;
   if (n_reps < 1 || n < 0 || n_functions < 1 || n_workers < 1 ||
       n_workers > kMaxWorkers || cores < 1 || slots < 1 ||
-      slots > kMaxSlots || balancer < 0 || balancer > kRandom) {
+      slots > kMaxSlots || balancer < 0 || balancer > kSwarm ||
+      !state_given) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  using Kernel = decltype(&sim_engine_kernel<kHermes>);
+  const Kernel kernels[] = {
+      sim_engine_kernel<kHermes>,     sim_engine_kernel<kLeastLoaded>,
+      sim_engine_kernel<kLocality>,   sim_engine_kernel<kRandom>,
+      sim_engine_kernel<kJsq2>,       sim_engine_kernel<kRoundRobin>,
+      sim_engine_kernel<kHiku>,       sim_engine_kernel<kDataDriven>,
+      sim_engine_kernel<kSwarm>};
+  const Kernel kernel = kernels[balancer];
   // one warp per worker, up to kMaxThreads
   const int threads =
       n_workers < kMaxThreads / 32 ? 32 * n_workers : kMaxThreads;
   const size_t smem = shared_bytes(n_workers, slots);
   const cudaError_t err = cudaFuncSetAttribute(
-      sim_engine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  sim_engine_kernel<<<n_reps, threads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<n_reps, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       arrival, func, service, u_lb, home, remaining, task_arr, task_idx, warm,
       resp, cold, rejected, worker_of, server_time, core_time, now, iters,
-      active, n, n_functions, n_workers, cores, slots, balancer, penalty);
+      active, lb_ring, lb_in_ring, lb_head, lb_tail, lb_est, lb_per_worker,
+      lb_cnt, n, n_functions, n_workers, cores, slots, penalty);
   return static_cast<int>(cudaGetLastError());
 }

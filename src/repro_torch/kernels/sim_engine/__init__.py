@@ -1,2 +1,2 @@
-"""Fused early-binding event loop (E/{H,LL,LOC,R}/PS): CUDA kernel, its
-binding and plain version."""
+"""Fused early-binding event loop (E/<B>/PS for the nine balancers):
+CUDA kernel, its binding and plain version."""

@@ -1,12 +1,13 @@
 """ctypes binding of the ``sim_engine`` CUDA kernel.
 
 The kernel (``src/repro_torch/csrc/sim_engine.cu``) runs a whole
-early-binding, processor-sharing ``simulate_many`` (E/H/PS, E/LL/PS,
-E/LOC/PS, E/R/PS) in one launch, one block per replication; its Hermes
-choice redesigns the Pallas TPU kernel
+early-binding, processor-sharing ``simulate_many`` (E/<B>/PS for every
+balancer of :data:`.ref.BALANCER_CODES`) in one launch, one block per
+replication; its Hermes choice redesigns the Pallas TPU kernel
 ``repro/kernels/hermes_select/kernel.py`` (``hermes_select_batch``) for
 the card.  :func:`sim_engine` checks its inputs, allocates the state and
-the outputs, launches on PyTorch's current stream and raises if the
+the outputs (a carried-state balancer's state initialised by its
+``init_state``), launches on PyTorch's current stream and raises if the
 launch was refused.  ``sim_engine.launches`` counts its launches.
 """
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.kernel import UnsupportedShapeError
+from repro_torch.policy import INIT_STATE
 
 from .ref import BALANCER_CODES, balancer_name
 
@@ -30,7 +32,7 @@ MAX_SLOTS = 2047
 @functools.cache
 def _launcher():
     fn = _build.load("sim_engine").sim_engine_launch
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 7 \
         + [ctypes.c_double, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -85,8 +87,15 @@ def sim_engine(balance, cluster, arrival, func, service, u_lb, home):
                now=empty((R,), torch.float64),
                iters=empty((R,), torch.int64),
                active=empty((R,), torch.int64))
+    lb = INIT_STATE[balance](R, W, F, dev) if balance in INIT_STATE else {}
     ptrs = [x.data_ptr() for x in (arrival, func, service, u_lb, home,
                                    *state, *out.values())]
+    # the kernel's balancer-state arguments; null where unused (DD's ew
+    # and SWARM's inv share the per-worker f64 slot)
+    per_worker = lb.get("ew", lb.get("inv"))
+    ptrs += [0 if x is None else x.data_ptr() for x in (
+        lb.get("ring"), lb.get("in_ring"), lb.get("head"), lb.get("tail"),
+        lb.get("est"), per_worker, lb.get("cnt"))]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _launcher()(*ptrs, R, N, F, W, C, S, BALANCER_CODES[balance],
@@ -95,6 +104,7 @@ def sim_engine(balance, cluster, arrival, func, service, u_lb, home):
         raise RuntimeError(f"sim_engine: kernel launch failed with CUDA "
                            f"error {err}")
     sim_engine.launches += 1
+    out.update({f"lb_{k}": v for k, v in lb.items()})
     return out
 
 

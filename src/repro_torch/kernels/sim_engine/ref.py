@@ -5,24 +5,39 @@ kernel's control flow: a loop over replications, then over arrivals,
 each advance loop reading its own replication's predicate (no lockstep
 masking, no scratch index, no pad column), and the balancers in the
 kernel's form (LL and LOC as a first-index argmin of the load and of the
-ring distance from the function's home, R by rank among the workers with
-a free slot, H through the Hermes score).  It returns what the port's
-batched engine (``core/simulator.py``, ``backend="torch"``) returns, bit
-for bit.  The CPU tests and the chip check hold the kernel against it.
+ring distance from the function's home, RR as LOC's from ``i % W``, R by
+rank among the workers with a free slot, JSQ2 from two indices of one
+uniform, H through the Hermes score, DD and SWARM as a first-index
+argmin of an f64 key, HIKU from the head of its ready-ring).  A
+carried-state balancer's choice reads its state, and its writes are
+made after the choice (a HIKU pop, DD's charge of the estimate), as the
+kernel's one thread makes them after its barrier; each completion then
+applies ``on_complete`` with the task's nominal service and the worker's
+active count after it.  It returns what the port's batched engine
+(``core/simulator.py``, ``backend="torch"``) returns, bit for bit, and
+the final balancer state.  The CPU tests and the chip check hold the
+kernel against it.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch import NotPortedError
 from repro_torch.kernels.hermes_select.ref import hermes_select_ref
+from repro_torch.policy import INIT_STATE
+from repro_torch.policy.balancers import (
+    _SW_COLD_DN, _SW_COLD_UP, _SW_EST_DN, _SW_EST_UP, _SW_HOT_DN,
+    _SW_HOT_UP, DD_ALPHA, SWARM_WARM_N)
 
 EPS = 1e-9
 _BIG_TIME = 1e18
 _BIG = 1 << 30
 _F64, _I32, _I64 = torch.float64, torch.int32, torch.int64
 #: balancer name -> the kernel's code (``enum Balancer`` in the source)
-BALANCER_CODES = {"H": 0, "LL": 1, "LOC": 2, "R": 3}
+BALANCER_CODES = {"H": 0, "LL": 1, "LOC": 2, "R": 3, "JSQ2": 4, "RR": 5,
+                  "HIKU": 6, "DD": 7, "SWARM": 8}
 
 
 def balancer_name(balance) -> str:
@@ -38,8 +53,9 @@ def balancer_name(balance) -> str:
     return name
 
 
-def _choose(balance, active, warm_col, home_f, u, cores, slots):
-    """Worker for one arrival, or -1 if every worker is slot-full."""
+def _choose(balance, state, active, warm_col, home_f, u, i, cores, slots):
+    """Worker for arrival ``i``, or -1 if every worker is slot-full.
+    Reads a carried-state balancer's ``state`` and changes nothing."""
     has_slot = active < slots
     if not bool(has_slot.any()):
         return -1
@@ -52,22 +68,85 @@ def _choose(balance, active, warm_col, home_f, u, cores, slots):
         k = has_slot.sum()
         target = int(torch.minimum((u * k).to(_I32), k - 1))
         return int(torch.nonzero(has_slot)[target, 0])
-    if balance == "LL":
-        key = active
-    else:   # LOC: the first worker with a free slot on the home's ring
-        key = (torch.arange(W, dtype=_I64, device=active.device)
-               - home_f) % W
-    return int(torch.where(has_slot, key, _BIG).argmin())
+    if balance in ("LOC", "RR"):
+        # the first worker with a free slot on the ring from the home
+        home = home_f if balance == "LOC" else i % W
+        key = (torch.arange(W, dtype=_I64, device=active.device) - home) % W
+        return int(torch.where(has_slot, key, _BIG).argmin())
+    if balance == "JSQ2":
+        x = float(u) * W
+        a = min(int(x), W - 1)
+        b = min(int((x - math.floor(x)) * W), W - 1)
+        key = torch.where(has_slot, active, _BIG)
+        w = b if bool(key[b] < key[a]) else a
+        if bool(has_slot[w]):
+            return w
+    if balance == "HIKU" and int(state["tail"]) > int(state["head"]):
+        cand = int(state["ring"][int(state["head"]) % W])
+        if bool(has_slot[cand]):
+            return cand
+    if balance in ("DD", "SWARM"):
+        if balance == "DD":
+            key = state["ew"]
+        else:
+            inv = state["inv"]
+            key = torch.where(active + 1 <= cores, inv,
+                              (active.to(_F64) + 1.0) * inv)
+        return int(torch.where(has_slot, key, torch.inf).argmin())
+    # LL, and the least-loaded fallback of JSQ2 and HIKU
+    return int(torch.where(has_slot, active, _BIG).argmin())
+
+
+def _commit(balance, state, w, f):
+    """A carried-state balancer's writes for a choice ``w`` of an arrival
+    of function ``f``: HIKU's pop (even when its candidate was slot-full),
+    DD's charge of the estimate; none for a rejection."""
+    if w < 0:
+        return
+    if balance == "HIKU" and int(state["tail"]) > int(state["head"]):
+        W = state["ring"].shape[0]
+        state["in_ring"][int(state["ring"][int(state["head"]) % W])] = 0
+        state["head"] += 1
+    elif balance == "DD":
+        state["ew"][w] = float(state["ew"][w]) + float(state["est"][f])
+
+
+def _on_complete(balance, state, w, f, service, n_active_after):
+    """A carried-state balancer's update for a completion on worker ``w``
+    of a task of function ``f`` with nominal service ``service``."""
+    if balance == "HIKU":
+        if n_active_after == 0 and int(state["in_ring"][w]) == 0:
+            W = state["ring"].shape[0]
+            state["ring"][int(state["tail"]) % W] = w
+            state["in_ring"][w] = 1
+            state["tail"] += 1
+    elif balance == "DD":
+        est_f = float(state["est"][f])
+        state["ew"][w] = max(float(state["ew"][w]) - est_f, 0.0)
+        state["est"][f] = est_f + DD_ALPHA * (service - est_f)
+    elif balance == "SWARM":
+        est_f, inv_w = float(state["est"][f]), float(state["inv"][w])
+        sample = service / est_f
+        state["est"][f] = est_f * (_SW_EST_UP if service > est_f
+                                   else _SW_EST_DN)
+        hot = int(state["cnt"][w]) < SWARM_WARM_N
+        if sample > inv_w:
+            state["inv"][w] = inv_w * (_SW_HOT_UP if hot else _SW_COLD_UP)
+        else:
+            state["inv"][w] = inv_w * (_SW_HOT_DN if hot else _SW_COLD_DN)
+        state["cnt"][w] += 1
 
 
 def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
-    """Early binding with PS under the balancer ``balance`` (``"H"``,
-    ``"LL"``, ``"LOC"`` or ``"R"``).  arrival, service, u_lb ``[R, N]`` f64; func ``[R, N]`` i32; home
-    ``[R, F]`` i32 → dict of ``resp [R, N]`` f64 (NaN until completed),
-    ``cold``/``rejected [R, N]`` bool, ``worker_of [R, N]`` i32,
-    ``server_time``/``core_time``/``now [R]`` f64, ``iters [R]`` i64
-    (advance iterations per replication) and ``active [R]`` i64 (the
-    active tasks summed over those iterations: the slots a scan reads)."""
+    """Early binding with PS under the balancer ``balance`` (a name of
+    :data:`BALANCER_CODES`).  arrival, service, u_lb ``[R, N]`` f64;
+    func ``[R, N]`` i32; home ``[R, F]`` i32 → dict of ``resp [R, N]``
+    f64 (NaN until completed), ``cold``/``rejected [R, N]`` bool,
+    ``worker_of [R, N]`` i32, ``server_time``/``core_time``/``now [R]``
+    f64, ``iters [R]`` i64 (advance iterations per replication),
+    ``active [R]`` i64 (the active tasks summed over those iterations:
+    the slots a scan reads) and, for a carried-state balancer, its final
+    state as ``lb_<key>`` (``[R, …]``, the keys of its ``init_state``)."""
     balance = balancer_name(balance)
     W, C, S = int(cluster.n_workers), int(cluster.cores), int(cluster.slots)
     R, N = arrival.shape
@@ -83,6 +162,8 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
         now=torch.zeros(R, dtype=_F64, device=dev),
         iters=torch.zeros(R, dtype=_I64, device=dev),
         active=torch.zeros(R, dtype=_I64, device=dev))
+    lb = INIT_STATE[balance](R, W, F, dev) if balance in INIT_STATE else {}
+    out.update({f"lb_{k}": v for k, v in lb.items()})
     c = torch.tensor(float(C), dtype=_F64, device=dev)
     pen = torch.tensor(float(cluster.cold_start_penalty), dtype=_F64,
                        device=dev)
@@ -97,6 +178,7 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
         server_time = torch.zeros((), dtype=_F64, device=dev)
         core_time = torch.zeros((), dtype=_F64, device=dev)
         iters = active_sum = 0
+        state = {k: v[r] for k, v in lb.items()}     # views: in place
         for i in range(N + 1):
             dt_left = arrival[r, i] - now if i < N else \
                 torch.tensor(_BIG_TIME, dtype=_F64, device=dev)
@@ -129,14 +211,18 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
                     warm[wj, int(func[r, tid])] += 1
                     remaining[wj, sj] = torch.inf
                     task_idx[wj, sj] = -1
+                    _on_complete(balance, state, wj, int(func[r, tid]),
+                                 float(service[r, tid]),
+                                 int((task_idx[wj] >= 0).sum()))
                 dt_left = dt_left - tau
             if i == N:
                 break
             now = arrival[r, i]
             f = int(func[r, i])
             active = (task_idx >= 0).sum(dim=1).to(_I32)
-            w = _choose(balance, active, warm[:, f], home[r, f], u_lb[r, i],
-                        C, S)
+            w = _choose(balance, state, active, warm[:, f], home[r, f],
+                        u_lb[r, i], i, C, S)
+            _commit(balance, state, w, f)
             out["rejected"][r, i] = w < 0
             if w < 0:
                 continue

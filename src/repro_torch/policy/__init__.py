@@ -1,8 +1,8 @@
 """``repro_torch.policy`` — the ported policy table and :func:`resolve`."""
-from .registry import (BALANCERS, BINDINGS, ENGINES, NOT_PORTED, SCHEDS,
-                       NotPortedError, ResolvedPolicy, default_backend,
+from .registry import (BALANCERS, BINDINGS, ENGINES, INIT_STATE, SCHEDS,
+                       ResolvedPolicy, balancer_names, default_backend,
                        engine, resolve)
 
-__all__ = ["BALANCERS", "BINDINGS", "ENGINES", "NOT_PORTED", "SCHEDS",
-           "NotPortedError", "ResolvedPolicy", "default_backend", "engine",
+__all__ = ["BALANCERS", "BINDINGS", "ENGINES", "INIT_STATE", "SCHEDS",
+           "ResolvedPolicy", "balancer_names", "default_backend", "engine",
            "resolve"]

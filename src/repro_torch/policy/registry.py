@@ -2,9 +2,11 @@
 
 Counterpart of ``repro/policy/registry.py``, keyed by the same names.
 The reference's registry is open (``register_balancer``); the port keeps
-a fixed table of what it has ported so far.  A balancer the reference
-registers but the port does not have yet parses as a policy name and
-raises :class:`NotPortedError` when resolved.
+a fixed table of every balancer the reference registers, in the same
+order (:func:`balancer_names`).  ``HIKU``, ``DD`` and ``SWARM`` carry
+state (the reference's carried-state contract): their
+:class:`ResolvedPolicy` has ``init_state`` and ``on_complete``, and its
+``select`` takes and returns the state.
 
 Backends: ``"torch"`` runs every balancer as plain tensor code;
 ``"kernel"`` sends a balancer that has a hand-written kernel (today
@@ -14,7 +16,7 @@ binding, mirroring the reference's ``default_backend``.
 
 Engines: :data:`ENGINES` and :func:`engine` say which engine runs a
 policy.  On a CUDA device under ``"kernel"`` or ``"auto"``, early
-binding with PS under a ported balancer runs whole in the fused
+binding with PS under any of the nine balancers runs whole in the fused
 ``sim_engine`` kernel (:mod:`repro_torch.kernels.sim_engine`), one launch
 per ``simulate_many``; everything else, every CPU device and ``"torch"``
 run the batched engine of :mod:`repro_torch.core.simulator`.
@@ -26,33 +28,46 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch import NotPortedError
 from repro_torch.device import resolve_device
 
 from . import balancers, scheds
 
 BACKENDS = ("torch", "kernel")
 
-#: name -> (plain factory, kernel factory or None)
+#: name -> (plain factory, kernel factory or None), in the reference's
+#: registration order
 BALANCERS = {
     "LOC": (balancers.loc, None),
     "R": (balancers.random_pick, None),
     "LL": (balancers.least_loaded, None),
     "H": (balancers.hybrid, balancers.hybrid_kernel),
+    "JSQ2": (balancers.jsq2, None),
+    "RR": (balancers.round_robin, None),
+    "HIKU": (balancers.hiku, None),
+    "DD": (balancers.data_driven, None),
+    "SWARM": (balancers.swarm, None),
 }
-#: balancers the reference registers that are not ported yet
-NOT_PORTED = ("JSQ2", "RR", "HIKU", "DD", "SWARM")
+#: carried-state balancers -> ``init_state(R, W, F, device)``; their
+#: factories return ``(select, on_complete)`` pairs
+INIT_STATE = {"HIKU": balancers.hiku_init, "DD": balancers.dd_init,
+              "SWARM": balancers.swarm_init}
 SCHEDS = {"PS": scheds.ps, "FCFS": scheds.fcfs, "SRPT": scheds.srpt}
 #: binding name -> late?
 BINDINGS = {"E": False, "L": True}
 #: (binding, balancer, scheduler) -> the engine that runs it on a CUDA
 #: device under backend "kernel" or "auto"; a policy not listed, any CPU
 #: device and backend "torch" take the batched engine
-ENGINES = {("E", b, "PS"): "sim_engine" for b in ("H", "LL", "LOC", "R")}
+ENGINES = {("E", b, "PS"): "sim_engine" for b in BALANCERS}
 
 
 def _name(x) -> str:
     return str(getattr(x, "value", x)).strip().upper()
+
+
+def balancer_names() -> tuple[str, ...]:
+    """Every balancer's name, in the reference's order (LOC, R, LL, H,
+    then the zoo), as ``repro.policy.balancer_names`` gives them."""
+    return tuple(BALANCERS)
 
 
 def check_binding(name) -> bool:
@@ -66,10 +81,10 @@ def check_binding(name) -> bool:
 
 def check_balancer(name) -> str:
     key = _name(name)
-    if key not in BALANCERS and key not in NOT_PORTED:
+    if key not in BALANCERS:
         raise ValueError(
             f"unknown load balancer {key!r}; registered balancers: "
-            f"{', '.join(sorted((*BALANCERS, *NOT_PORTED)))}")
+            f"{', '.join(sorted(BALANCERS))}")
     return key
 
 
@@ -87,7 +102,10 @@ class ResolvedPolicy:
 
     ``select``/``rates`` are ``None`` for late binding: the engine owns
     the controller queue, places on ``argmin(active)`` and runs every
-    dispatched task at rate 1.
+    dispatched task at rate 1.  For a carried-state balancer
+    (:attr:`stateful`), ``init_state(R, W, F, device)`` makes the state,
+    ``select`` takes and returns it and ``on_complete`` updates it once
+    per task completion; both are ``None`` otherwise.
     """
 
     spec: object
@@ -95,6 +113,12 @@ class ResolvedPolicy:
     late: bool
     select: Optional[Callable]
     rates: Optional[Callable]
+    init_state: Optional[Callable] = None
+    on_complete: Optional[Callable] = None
+
+    @property
+    def stateful(self) -> bool:
+        return self.init_state is not None
 
 
 def default_backend(policy) -> str:
@@ -102,14 +126,14 @@ def default_backend(policy) -> str:
     the kernel where one exists.
 
     On a CUDA device the engine's route (:func:`engine`) comes first:
-    there the port runs E/LL/PS, E/LOC/PS and E/R/PS, like E/H/PS, in a
+    there the port runs E/<B>/PS for every balancer, like E/H/PS, in a
     kernel (``sim_engine``), where the reference's ``default_backend``
-    sends LL, LOC and R to ``"jax"``.  The outputs are the same.
+    sends all but H to ``"jax"``.  The outputs are the same.
     """
     if check_binding(policy.binding):
         return "torch"
     key = check_balancer(policy.balance)
-    has_kernel = key in BALANCERS and BALANCERS[key][1] is not None
+    has_kernel = BALANCERS[key][1] is not None
     return "kernel" if has_kernel else "torch"
 
 
@@ -148,14 +172,13 @@ def resolve(policy, cluster, device=None, backend: str = "auto"
         return ResolvedPolicy(spec=policy, backend=backend, late=True,
                               select=None, rates=None)
     key = check_balancer(policy.balance)
-    if key in NOT_PORTED:
-        raise NotPortedError(
-            f"balancer {key!r} is registered in the reference but not "
-            f"ported to repro_torch yet (ROADMAP queue 1, item 1)")
     make_plain, make_kernel = BALANCERS[key]
     make = make_kernel if backend == "kernel" and make_kernel else make_plain
     C, S, W = int(cluster.cores), int(cluster.slots), int(cluster.n_workers)
+    select, on_complete = make(C, S, W, dev), None
+    if key in INIT_STATE:
+        select, on_complete = select
     return ResolvedPolicy(
-        spec=policy, backend=backend, late=False,
-        select=make(C, S, W, dev),
-        rates=SCHEDS[check_sched(policy.sched)](C, dev))
+        spec=policy, backend=backend, late=False, select=select,
+        rates=SCHEDS[check_sched(policy.sched)](C, dev),
+        init_state=INIT_STATE.get(key), on_complete=on_complete)

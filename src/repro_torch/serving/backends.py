@@ -21,10 +21,17 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import NotPortedError
 from repro_torch.core.cluster import ClusterCfg
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import build_model
 from repro_torch.policy import resolve
+from repro_torch.policy.registry import check_balancer
+
+#: the balancers the frontend dispatches with: the paper's four.  The
+#: zoo's carried state needs measured wall times fed back to
+#: ``on_complete``, which the frontend does not do yet.
+FRONTEND_BALANCERS = ("LOC", "R", "LL", "H")
 
 #: the warm-up prompt of a cold start, as in the reference
 WARMUP_TOKENS = 8
@@ -194,12 +201,20 @@ class HermesFrontend:
     :func:`repro_torch.policy.resolve` on a cluster of ``n_workers`` ×
     ``cores`` with ``8 × cores`` slots, called at one replication with
     the reference's inputs (worker loads, warm column, function homes 0,
-    uniform 0).  ``H`` on the card launches ``hermes_select``.
+    uniform 0).  ``H`` on the card launches ``hermes_select``.  The
+    zoo's balancers (JSQ2, RR, HIKU, DD, SWARM) raise
+    :class:`~repro_torch.NotPortedError`.
     """
 
     def __init__(self, registry: ModelRegistry, n_workers: int = 2,
                  cores: int = 2, max_len: int = 128, balancer: str = "H",
                  keepalive_s: float | None = None, device=None):
+        key = check_balancer(balancer)
+        if key not in FRONTEND_BALANCERS:
+            raise NotPortedError(
+                f"HermesFrontend dispatches with "
+                f"{', '.join(FRONTEND_BALANCERS)}; balancer {key!r} is not "
+                f"ported to the frontend yet (ROADMAP queue 1, item 13)")
         self.device = resolve_device(device)
         self.workers = [InProcessWorker(registry, max_len,
                                         keepalive_s=keepalive_s,

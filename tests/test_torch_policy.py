@@ -11,7 +11,7 @@ from repro.core import parse_policy as jax_parse_policy
 from repro.policy import resolve as jax_resolve
 
 from repro_torch.core import ClusterCfg, parse_policy
-from repro_torch.policy import NOT_PORTED, NotPortedError, resolve
+from repro_torch.policy import resolve
 
 R = 3
 
@@ -35,7 +35,7 @@ def _states(rng, W, F, slots, n_steps=40):
 
 
 @pytest.mark.parametrize("backend", ["torch", "kernel"])
-@pytest.mark.parametrize("balancer", ["LOC", "R", "LL", "H"])
+@pytest.mark.parametrize("balancer", ["LOC", "R", "LL", "H", "JSQ2", "RR"])
 @pytest.mark.parametrize("W,cores,cf", [(4, 3, 2), (8, 12, 8), (5, 2, 1)])
 def test_select_matches_numpy_backend(balancer, backend, W, cores, cf):
     policy = f"E/{balancer}/PS"
@@ -88,11 +88,12 @@ def test_rates_match_numpy_backend(sched, cores):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_unported_balancer_parses_but_does_not_resolve(name):
-    spec = parse_policy(f"E/{name}/PS")
-    with pytest.raises(NotPortedError, match=name):
-        resolve(spec, ClusterCfg(), device="cpu")
+@pytest.mark.parametrize("name", ["JSQ2", "RR", "HIKU", "DD", "SWARM"])
+def test_zoo_balancer_resolves_on_cpu(name):
+    res = resolve(parse_policy(f"E/{name}/PS"), ClusterCfg(), device="cpu")
+    assert not res.late and callable(res.select) and res.backend == "torch"
+    assert res.stateful == (name in ("HIKU", "DD", "SWARM"))
+    assert (res.on_complete is not None) == res.stateful
 
 
 def test_named_errors_and_late_binding():

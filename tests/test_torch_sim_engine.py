@@ -1,5 +1,5 @@
-"""The fused early-binding engine (``sim_engine``: E/{H,LL,LOC,R}/PS in
-one launch) on the CPU.
+"""The fused early-binding engine (``sim_engine``: E/<B>/PS for the nine
+balancers in one launch) on the CPU.
 
 * Its plain version ``sim_engine_ref`` (the kernel's control flow in
   plain torch) equals the port's batched engine (``backend="torch"``) bit
@@ -9,6 +9,11 @@ one launch) on the CPU.
   0.3/0.7/0.95 with cold-start penalty 0 and 0.5, on an overloaded
   4 × 3-core cluster (rejections and warm-pool evictions) and with R = 1;
   N = 300.
+* The same for the policy zoo (E/{JSQ2,RR,HIKU,DD,SWARM}/PS) against the
+  batched engine, in every plane and in the final balancer state, on the
+  small cluster, the overloaded one (where a rejected arrival must leave
+  HIKU's and DD's state as it was) and the paper's large cluster (W =
+  100); the zoo against JAX is ``tests/test_torch_policy_zoo.py``'s.
 * The routing table: which policies run in the kernel on CUDA; the CPU
   launches nothing.
 * The wrapper's named errors.
@@ -25,11 +30,14 @@ import pytest
 import torch
 
 from repro_torch import NotPortedError
-from repro_torch.core import (E_LL_FCFS, E_LL_PS, E_LL_SRPT, E_LOC_PS,
-                              E_R_PS, HERMES, LATE_BINDING, PAPER_SMALL,
-                              PAPER_TESTBED, ClusterCfg, stack_workloads)
+from repro_torch.core import (E_DD_PS, E_HIKU_PS, E_JSQ2_PS, E_LL_FCFS,
+                              E_LL_PS, E_LL_SRPT, E_LOC_PS, E_R_PS, E_RR_PS,
+                              E_SWARM_PS, HERMES, LATE_BINDING, PAPER_LARGE,
+                              PAPER_SMALL, PAPER_TESTBED, ClusterCfg,
+                              stack_workloads)
 from repro_torch.core import ms_trace, synth_workload
-from repro_torch.core.simulator import LoopStats, simulate_many
+from repro_torch.core.simulator import (LoopStats, _build_engine,
+                                        simulate_many)
 from repro_torch.kernels.flash_attention.kernel import UnsupportedShapeError
 from repro_torch.kernels.hermes_select import kernel as hermes_kernel
 from repro_torch.kernels.sim_engine import kernel, ops
@@ -45,6 +53,7 @@ except ImportError:     # no JAX installed: the reference tests skip
     rc = None
 
 FUSED = (HERMES, E_LL_PS, E_LOC_PS, E_R_PS)
+ZOO = (E_JSQ2_PS, E_RR_PS, E_HIKU_PS, E_DD_PS, E_SWARM_PS)
 N = 300
 LOADS = (0.3, 0.7, 0.95)
 TOL = dict(rtol=1e-6, atol=1e-6)
@@ -61,6 +70,12 @@ CASES = {
     "small-R1": (PAPER_SMALL._replace(cold_start_penalty=0.5), (0.95,),
                  "ms_trace", {}),
 }
+#: the zoo's cases: two of the above and the paper's large cluster
+#: (W = 100; N = 150 there)
+ZOO_CASES = {"small-pen0.5": CASES["small-pen0.5"],
+             "overload": CASES["overload"],
+             "large": (PAPER_LARGE._replace(cold_start_penalty=0.5),
+                       (0.7, 0.97), "ms_trace", {})}
 PLANES = dict(response="resp", cold="cold", rejected="rejected",
               worker="worker_of", server_time="server_time",
               core_time="core_time", end_time="now")
@@ -73,9 +88,10 @@ def reference():
 
 
 def _workloads(case):
-    cluster, loads, gen, kw = CASES[case]
+    cluster, loads, gen, kw = {**CASES, **ZOO_CASES}[case]
     make = {"ms_trace": ms_trace, "synth_workload": synth_workload}[gen]
-    return cluster, stack_workloads(make(cluster, load, N, seed=1, **kw)
+    n = 150 if case == "large" else N
+    return cluster, stack_workloads(make(cluster, load, n, seed=1, **kw)
                                     for load in loads)
 
 
@@ -103,6 +119,32 @@ def _assert_bit_equal(planes, out):
         want = getattr(out, plane)
         assert planes[key].dtype == want.dtype, plane
         np.testing.assert_array_equal(planes[key], want, err_msg=plane)
+
+
+@pytest.mark.parametrize("case", ZOO_CASES)
+@pytest.mark.parametrize("policy", ZOO, ids=lambda p: p.name)
+def test_zoo_plain_version_matches_batched_engine(policy, case):
+    cluster, wb = _workloads(case)
+    ref = sim_engine_ref(policy.balance, cluster, *_inputs(wb))
+    # the batched engine's own state dict: its final balancer state too
+    run = _build_engine(policy, cluster, wb.n, wb.n_functions, wb.n_reps,
+                        torch.device("cpu"), "torch")
+    a, f, s, u, h = _inputs(wb)
+    st = run(a, f.long(), s, u, h, LoopStats())
+    for key in PLANES.values():
+        want = st[key][:, :wb.n] if st[key].dim() == 2 else st[key]
+        assert ref[key].dtype == want.dtype, key
+        np.testing.assert_array_equal(ref[key].numpy(), want.numpy(),
+                                      err_msg=key)
+    lb = sorted(k for k in ref if k.startswith("lb_"))
+    assert lb == sorted(k for k in st if k.startswith("lb_"))
+    assert bool(lb) == (policy in (E_HIKU_PS, E_DD_PS, E_SWARM_PS))
+    for key in lb:
+        assert ref[key].dtype == st[key].dtype, key
+        assert ref[key].numpy().tobytes() == st[key].numpy().tobytes(), key
+    assert (ref["iters"] >= wb.n).all()
+    if case == "overload":
+        assert ref["rejected"].any()
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -137,14 +179,16 @@ def test_plain_version_matches_jax_engine(reference, policy, case):
                                    err_msg=plane)
 
 
-ROUTES = [(p, "cuda", b, "sim_engine") for p in FUSED
+ROUTES = [(p, "cuda", b, "sim_engine") for p in (*FUSED, *ZOO)
           for b in ("auto", "kernel")] + \
-    [(p, "cuda", "torch", "batched") for p in FUSED] + \
-    [(p, "cpu", b, "batched") for p in FUSED
+    [(p, "cuda", "torch", "batched") for p in (*FUSED, *ZOO)] + \
+    [(p, "cpu", b, "batched") for p in (*FUSED, *ZOO)
      for b in ("auto", "kernel", "torch")] + \
     [(p, "cuda", b, "batched")
      for p in (E_LL_FCFS, E_LL_SRPT, HERMES._replace(sched="FCFS"),
-               HERMES._replace(sched="SRPT"), LATE_BINDING)
+               HERMES._replace(sched="SRPT"), LATE_BINDING,
+               E_HIKU_PS._replace(sched="FCFS"),
+               E_DD_PS._replace(sched="SRPT"))
      for b in ("auto", "kernel", "torch")]
 
 
@@ -156,7 +200,8 @@ def test_routing_table(policy, device, backend, want):
 
 
 def test_routing_table_names_the_fused_policies():
-    assert set(ENGINES) == {("E", p.balance.value, "PS") for p in FUSED}
+    assert set(ENGINES) == {("E", balancer_name(p.balance), "PS")
+                            for p in (*FUSED, *ZOO)}
     with pytest.raises(ValueError, match="unknown backend"):
         engine(HERMES, "cuda", "jax")
 
@@ -178,7 +223,7 @@ def test_cpu_launches_nothing():
 def test_wrapper_refuses_what_it_does_not_take():
     cluster, wb = _workloads("overload")
     args = _inputs(wb)
-    for balance in ("JSQ2", "RR", "HIKU", "E/H/PS"):
+    for balance in ("E/H/PS", "E/HIKU/PS", "NOPE", "L"):
         with pytest.raises(NotPortedError):
             kernel.sim_engine(balance, cluster, *args)
         with pytest.raises(NotPortedError):
@@ -192,8 +237,8 @@ def test_wrapper_refuses_what_it_does_not_take():
     # the kernel has a code for every balancer the policy table routes
     # to it, and takes the policy's enum as its name
     assert {b for _, b, _ in ENGINES} == set(BALANCER_CODES)
-    assert [balancer_name(p.balance) for p in FUSED] == \
-        ["H", "LL", "LOC", "R"]
+    assert [balancer_name(p.balance) for p in (*FUSED, *ZOO)] == \
+        ["H", "LL", "LOC", "R", "JSQ2", "RR", "HIKU", "DD", "SWARM"]
 
 
 def test_cuda_kernel_matches_batched_engine():
@@ -201,7 +246,7 @@ def test_cuda_kernel_matches_batched_engine():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     for case in ("small-pen0.5", "overload"):
         cluster, wb = _workloads(case)
-        for policy in FUSED:
+        for policy in (*FUSED, *ZOO):
             before = kernel.sim_engine.launches
             got = simulate_many(policy, cluster, wb, device="cuda")
             assert kernel.sim_engine.launches == before + 1
