@@ -133,7 +133,30 @@ non-zero):
     those equal to it in every plane); ``sim_engine`` equal to
     ``sim_engine_ref`` for the five at W = 4, final balancer state
     included; fig11's verdicts printed, not gated; the CPU runs in
-    phase 12's worker processes; the phase ≤ 60 s.
+    phase 12's worker processes; the phase ≤ 60 s;
+14. the keep-alive axis on the card (``repro_torch.lifecycle``, the life
+    plane of ``sim_engine``), every run fused (one ``sim_engine`` launch,
+    no host sync, no ``hermes_select`` launch) on the paper's testbed (8 ×
+    12 cores, 96 slots) at the reference's full depth, N = 15 000, R = 5,
+    seed 1, TTL 10 s, the ``openwhisk`` preset: (a) fig12's budget lane
+    (``azure-cold-heavy``, F = 60, Hermes under NONE, FIXED_TTL and
+    HYBRID_HIST with ``max_idle = 4``) and balancer lane
+    (``azure-diurnal``, E/{H,LL,LOC}/PS under FIXED_TTL) at loads
+    0.2/0.3/0.5/0.7/0.85; (b) fig7's keep-alive axis (``ms-trace`` and
+    ``azure-diurnal`` × the three keep-alives × the three schedulers) at
+    0.1/0.3/0.5/0.7/0.9; two timing runs on the budget lane's inputs
+    (no lifecycle; FIXED_TTL without the budget); each kernel's device
+    time by CUDA events beside its bound; the first 1000 arrivals of
+    every run of (a) and (b) equal to the batched engine's run of them on
+    the CPU (and a fused run of just those equal to it in every plane and
+    in the final life state); ``sim_engine`` equal to ``sim_engine_ref``
+    for all nine balancers under FIXED_TTL (``max_idle = 2``) and
+    HYBRID_HIST on phase 5's overloaded cluster, final life state
+    included; the repaired route: E/H/PS at 2048 slots (8 × 256 cores)
+    takes the batched engine on the card (one ``hermes_select`` launch an
+    arrival, no ``sim_engine`` launch), equal to the plain engine on the
+    card and to the CPU; fig12's claims printed, not gated; the CPU runs
+    in phase 12's worker processes; the phase ≤ 60 s.
 
 TF32 is off for matrix products and cuDNN throughout.  The line before the
 last is ``{"kernels": [...]}``; the last line is
@@ -421,7 +444,8 @@ def profile_main_path(torch, np, report, cluster):
 
 def validate(np, out, wb, name, penalty=0.0):
     """The reference's invariants (tests/test_simulator.py); a cold start
-    adds ``penalty`` to its invocation's work."""
+    adds ``penalty`` to its invocation's work (a scalar, or a cost per
+    function)."""
     R, N = wb.arrival.shape
     check(out.response.shape == (R, N) and out.worker.dtype == np.int32,
           f"{name}: bad output shape/dtype")
@@ -431,7 +455,9 @@ def validate(np, out, wb, name, penalty=0.0):
     check(bool((out.response[done] >= wb.service[done] - 1e-6).all()),
           f"{name}: a response is shorter than its service")
     for r in range(R):
-        work = (wb.service[r] + penalty * out.cold[r])[done[r]].sum()
+        pen = penalty if np.ndim(penalty) == 0 else \
+            np.asarray(penalty)[wb.func[r]]
+        work = (wb.service[r] + pen * out.cold[r])[done[r]].sum()
         check(abs(out.core_time[r] - work) < 1e-6 * work,
               f"{name}: core-time {out.core_time[r]} != work {work}")
 
@@ -457,8 +483,8 @@ def engine_inputs(torch, np, wb):
             put(wb.func_home, torch.int32))
 
 
-def engine_bound(out, n, n_reps, n_functions) -> tuple[float, str, int,
-                                                       int]:
+def engine_bound(out, n, n_reps, n_functions, budget=False
+                 ) -> tuple[float, str, int, int]:
     """(ms, "bytes" | "operations", bytes, operations): the least time the
     card could take for a fused run.  Bytes: each input read once (28 B an
     arrival, 4 B a function's home) and each output written once (14 B an
@@ -467,10 +493,20 @@ def engine_bound(out, n, n_reps, n_functions) -> tuple[float, str, int,
     Operations: two f64 operations per active task per advance iteration
     (the subtraction of rate*tau and the compare of its finish time), as
     this run's data needed them (the kernel's ``active`` count), over the
-    f64 peak.  The chain of dependent barriers, not either of these, is
+    f64 peak.  Under a lifecycle, its state is written once and the
+    preset's costs read once, and each placement tests the window of each
+    of the worker's pools (a subtraction and an addition each), each
+    completion that of its own pool, or of all the worker's pools under a
+    ``budget``.  The chain of dependent barriers, not either of these, is
     what holds the kernel back."""
     nbytes = n_reps * (42 * n + 4 * n_functions + 40)
     ops = 2 * int(out["active"].sum())
+    if "life_pre" in out:
+        placed = int((~out["rejected"]).sum())
+        ops += placed * 2 * (n_functions + (n_functions if budget else 1))
+        nbytes += 8 * n_functions + sum(
+            v.numel() * v.element_size() for k, v in out.items()
+            if k.startswith("life_"))
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / F64_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -1529,9 +1565,19 @@ def fused_run(torch, np, policy, cluster, wb, what):
           f"expected (1, 0)")
     check(stats.host_syncs == 0, f"{what}: {stats.host_syncs} host syncs "
                                  f"in the fused loop")
-    validate(np, out, wb, what, cluster.cold_start_penalty)
+    validate(np, out, wb, what, cold_cost(cluster, wb.n_functions))
     start, end, res = seen[0]
     return out, wall, stats, dict(ms=start.elapsed_time(end), res=res)
+
+
+def cold_cost(cluster, n_functions):
+    """What a cold start adds to an invocation's work: the cluster's
+    scalar penalty, or its lifecycle preset's cost per function."""
+    from repro_torch.lifecycle import cold_costs_for
+    life = cluster.lifecycle
+    costs = None if life is None else cold_costs_for(life.coldstart,
+                                                     n_functions)
+    return cluster.cold_start_penalty if costs is None else costs
 
 
 def prefix(wb, n):
@@ -2102,6 +2148,263 @@ def policy_zoo(torch, np, report, pool):
     return launches, max_err
 
 
+# -- the keep-alive axis (phase 14) --
+
+#: fig12's full mode (benchmarks/fig12_keepalive.py:37-50, 66-67) and
+#: fig7's keep-alive axis (benchmarks/fig7_coldstarts.py:30-35, 45-46) on
+#: the paper's testbed: their loads, depth, seed, TTL, budget and preset
+FIG12_LOADS = (0.2, 0.3, 0.5, 0.7, 0.85)
+FIG7_LOADS = (0.1, 0.3, 0.5, 0.7, 0.9)
+N_LIFE = 15_000
+LIFE_SEED = 1
+LIFE_TTL_S = 10.0
+LIFE_MAX_IDLE = 4
+LIFE_PRESET = "openwhisk"
+LIFE_KEEPALIVES = ("NONE", "FIXED_TTL", "HYBRID_HIST")
+FIG7_WORKLOADS = ("ms-trace", "azure-diurnal")
+#: depth of the plain runs that hold phase 14's fused runs
+N_LIFE_PLAIN = 1_000
+LIFE_PHASE_S = 60.0
+
+
+def keepalive_axis(torch, np, report, pool):
+    """Phase 14: the container lifecycle through ``simulate_many`` on the
+    card, every run fused: (a) fig12's full mode (its budget and balancer
+    lanes), (b) fig7's keep-alive axis, with two timing runs beside
+    fig12's budget lane (its Hermes inputs without the lifecycle, and
+    under FIXED_TTL without the budget).  The batched engine's runs that
+    hold them, the plain version's and the repair's go to ``pool``'s
+    workers while the card runs.  Returns (``sim_engine`` launches of the
+    fused runs, the kernel's max abs error against ``sim_engine_ref``)."""
+    from repro_torch.core import (E_LL_PS, E_LOC_PS, HERMES, PAPER_TESTBED,
+                                  WORKLOADS, ClusterCfg, LifecycleCfg,
+                                  ms_trace, replicate_workload,
+                                  stack_workloads, summarize_batch_sim,
+                                  synth_workload)
+    from repro_torch.core.simulator import LoopStats, simulate_many
+    from repro_torch.kernels.hermes_select import kernel as hk
+    from repro_torch.kernels.sim_engine import kernel as ek
+    from repro_torch.policy import balancer_names, engine
+
+    t_phase = time.perf_counter()
+    testbed = PAPER_TESTBED
+    schedulers = {"hermes": HERMES, "least-loaded": E_LL_PS,
+                  "vanilla-ow": E_LOC_PS}
+
+    def life(keepalive, max_idle=0):
+        return testbed._replace(lifecycle=LifecycleCfg(
+            keepalive, LIFE_TTL_S, max_idle, LIFE_PRESET))
+
+    def batch(name, loads):
+        return replicate_workload(WORKLOADS[name], testbed, loads, N_LIFE,
+                                  seeds=(LIFE_SEED,))
+
+    budget_wb = batch("azure-cold-heavy", FIG12_LOADS)
+    lanes = {"balancer": batch("azure-diurnal", FIG12_LOADS),
+             **{name: batch(name, FIG7_LOADS) for name in FIG7_WORKLOADS}}
+    # every fused run: key -> (policy, cluster, workloads)
+    plan = {f"fig12 budget {ka} hermes": (HERMES, life(ka, LIFE_MAX_IDLE),
+                                          budget_wb)
+            for ka in LIFE_KEEPALIVES}
+    plan.update({f"fig12 balancer FIXED_TTL {s}": (
+        p, life("FIXED_TTL"), lanes["balancer"])
+        for s, p in schedulers.items()})
+    plan.update({f"fig7 {name} {ka} {s}": (p, life(ka), lanes[name])
+                 for name in FIG7_WORKLOADS for ka in LIFE_KEEPALIVES
+                 for s, p in schedulers.items()})
+    timing = {"timing budget lifecycle off hermes": (HERMES, testbed,
+                                                     budget_wb),
+              "timing budget FIXED_TTL unbudgeted hermes": (
+                  HERMES, life("FIXED_TTL"), budget_wb)}
+    # the repaired route: S = 2048 slots, beyond the kernel's 2047
+    big = ClusterCfg(n_workers=8, cores=256)
+    big_wb = replicate_workload(ms_trace, big, (0.5, 0.9), N_SHORT,
+                                seeds=(SEED,))
+    # the plain version's check: phase 5's overloaded cluster, where
+    # slot-pressure and budget evictions, stale pools and rejections occur
+    tiny = ClusterCfg(n_workers=4, cores=3, capacity_factor=2,
+                      cold_start_penalty=0.25)
+    overload = stack_workloads(
+        synth_workload(tiny, load, N_SHORT, n_functions=5, hot_fraction=0.8,
+                       seed=SEED) for load in (1.3, 3.0, 6.0))
+    ref_lives = (LifecycleCfg("FIXED_TTL", 2.0, 2, "aws-lambda"),
+                 LifecycleCfg("HYBRID_HIST", 2.0, 2))
+    ref_jobs = [(b, tiny._replace(lifecycle=lc), overload)
+                for lc in ref_lives for b in balancer_names()]
+
+    # the batched engine's runs and the plain version's, on the CPU in the
+    # worker processes, while the card runs the fused ones
+    t0 = time.perf_counter()
+    plain_jobs = [(p, cl, prefix(wb, N_LIFE_PLAIN), "cpu")
+                  for p, cl, wb in plan.values()]
+    plain_jobs.append((HERMES, big, big_wb, "cpu"))
+    plain_done = pool.starmap_async(plain_run, plain_jobs, chunksize=1)
+    ref_done = pool.starmap_async(plain_engine_ref, ref_jobs, chunksize=1)
+
+    runs, outs, launches = {}, {}, 0
+    for key, (policy, cl, wb) in {**plan, **timing}.items():
+        out, wall, stats, kern = fused_run(torch, np, policy, cl, wb, key)
+        launches += 1
+        outs[key] = out
+        bound_ms, bound_by, nbytes, ops = engine_bound(
+            kern["res"], wb.n, wb.n_reps, wb.n_functions,
+            budget=cl.lifecycle is not None and cl.lifecycle.max_idle > 0)
+        summ = summarize_batch_sim(out, wb, warmup_frac=0.1).per_rep
+        loads = FIG7_LOADS if key.startswith("fig7") else FIG12_LOADS
+        runs[key] = dict(
+            n=wb.n, reps=wb.n_reps, functions=wb.n_functions, wall_s=wall,
+            us_per_arrival=wall / wb.n * 1e6, ms=kern["ms"],
+            idle_share=1 - kern["ms"] / (wall * 1e3),
+            iters=int(kern["res"]["iters"].sum()), bound_ms=bound_ms,
+            bound_by=bound_by, bytes=nbytes, operations=ops,
+            rows={load: dict(cold_frac=s.cold_frac, slow_p99=s.slow_p99,
+                             n_rejected=s.n_rejected)
+                  for load, s in zip(loads, summ)})
+    # the held runs' first arrivals, fused, for the every-plane check
+    prefix_out = {key: fused_run(torch, np, p, cl, prefix(wb, N_LIFE_PLAIN),
+                                 f"{key} N={N_LIFE_PLAIN}")[0]
+                  for key, (p, cl, wb) in plan.items()}
+    launches += len(prefix_out)
+
+    for key, r in runs.items():
+        log(f"{key} R={r['reps']} F={r['functions']} N={r['n']}: wall "
+            f"{r['wall_s']:.3f} s ({r['us_per_arrival']:.2f} us per "
+            f"arrival); sim_engine {r['ms']:.3f} ms "
+            f"({r['ms'] / r['n'] * 1e3:.3f} us per arrival), idle share "
+            f"{r['idle_share']:.3f} at most; bound {r['bound_ms']:.5f} ms, "
+            f"{r['bound_by']} ({r['bytes']} B, {r['operations']} f64 "
+            f"operations over {r['iters']} advance iterations), kernel / "
+            f"bound {r['ms'] / r['bound_ms']:.0f}; 1 launch, 0 host syncs")
+        for load, row in r["rows"].items():
+            log(f"  {key} load {load}: cold {row['cold_frac']:.4f}, p99 "
+                f"slowdown {row['slow_p99']:.3f}, rejected "
+                f"{row['n_rejected']}")
+
+    # fig12's claims in the reference's words (benchmarks/run.py:268-295),
+    # from the port's rows: printed, not gated
+    def cold_sum(key):
+        return sum(row["cold_frac"] for row in runs[key]["rows"].values())
+    cold_of = {ka: cold_sum(f"fig12 budget {ka} hermes")
+               for ka in LIFE_KEEPALIVES}
+    h12, l12 = (cold_sum(f"fig12 balancer FIXED_TTL {s}")
+                for s in ("hermes", "least-loaded"))
+    claims = {
+        "Lifecycle: HYBRID_HIST fewer cold starts than FIXED_TTL at equal "
+        "warm-pool budget (learned per-function windows)":
+            cold_of["HYBRID_HIST"] < cold_of["FIXED_TTL"],
+        "Lifecycle: NONE is the cold-start upper bound":
+            cold_of["NONE"] >= max(cold_of["FIXED_TTL"],
+                                   cold_of["HYBRID_HIST"]),
+        "Lifecycle: Hermes keeps its cold-start edge over LL under "
+        "FIXED_TTL on azure-diurnal": h12 < l12}
+    for claim, ok in claims.items():
+        log(f"fig12 claim (not a gate): {claim}: "
+            f"{'holds' if ok else 'does not hold'}")
+    log(f"fig12 values (cold_frac summed over the loads): NONE "
+        f"{cold_of['NONE']:.4f}, FIXED_TTL {cold_of['FIXED_TTL']:.4f}, "
+        f"HYBRID_HIST {cold_of['HYBRID_HIST']:.4f} (budget lane); hermes "
+        f"{h12:.4f} vs least-loaded {l12:.4f} (balancer lane)")
+
+    # the repaired route on the card: E/H/PS at S = 2048 takes the batched
+    # engine (one hermes_select launch an arrival, no sim_engine launch),
+    # equal to the plain engine on the card and to the CPU's
+    check(engine(HERMES, "cuda", "auto", big) == "batched",
+          f"S={big.slots}: the route is not the batched engine")
+    stats = LoopStats()
+    ek.sim_engine.launches = 0
+    hk.hermes_select_batch.launches = 0
+    t0_big = time.perf_counter()
+    big_card = simulate_many(HERMES, big, big_wb, device="cuda",
+                             stats=stats)
+    big_wall = time.perf_counter() - t0_big
+    counts = (ek.sim_engine.launches, hk.hermes_select_batch.launches)
+    check(counts == (0, N_SHORT), f"S={big.slots}: sim_engine and "
+                                  f"hermes_select launched {counts}, "
+                                  f"expected (0, {N_SHORT})")
+    validate(np, big_card, big_wb, f"E/H/PS S={big.slots}")
+    same_planes(np, big_card, simulate_many(HERMES, big, big_wb,
+                                            device="cuda", backend="torch"),
+                f"E/H/PS S={big.slots}: kernel path vs plain engine")
+
+    # the kernel against its plain version on the overloaded cluster,
+    # final life and balancer state included (these launches compare,
+    # they are not the main path's)
+    max_err = 0.0
+    for (balance, cl, wb), plain in zip(ref_jobs, ref_done.get()):
+        got = ek.sim_engine(balance, cl, *engine_inputs(torch, np, wb))
+        check(sorted(got) == sorted(plain),
+              f"sim_engine {balance}: outputs {sorted(got)} != the plain "
+              f"version's {sorted(plain)}")
+        for name, want in plain.items():
+            a = got[name].cpu().numpy()
+            check(a.dtype == want.dtype and np.array_equal(
+                a, want, equal_nan=name == "resp"),
+                f"sim_engine {balance} {cl.lifecycle.keepalive}: != "
+                f"sim_engine_ref in {name}")
+            err = float(np.abs(np.nan_to_num(a.astype(np.float64), nan=-1.0)
+                               - np.nan_to_num(want.astype(np.float64),
+                                               nan=-1.0)).max())
+            max_err = max(max_err, err)
+    log(f"sim_engine == sim_engine_ref (on the CPU) for all "
+        f"{len(balancer_names())} balancers under FIXED_TTL (max_idle 2, "
+        f"aws-lambda) and HYBRID_HIST (max_idle 2) on the overloaded "
+        f"4 x 3-core cluster at N={N_SHORT}: every plane, the final life "
+        f"and balancer state (max abs err {max_err})")
+
+    # the held runs against the batched engine on the CPU
+    plain = iter(plain_done.get())
+    plain_s = time.perf_counter() - t0
+    for key in plan:
+        cpu, _ = next(plain)
+        same_prefix(np, outs[key], cpu, key)
+        card = prefix_out[key]
+        same_planes(np, card, cpu, f"{key} N={N_LIFE_PLAIN}: card vs CPU")
+        check(sorted(card.life) == sorted(cpu.life) and all(
+            card.life[k].tobytes() == cpu.life[k].tobytes()
+            for k in cpu.life),
+            f"{key} N={N_LIFE_PLAIN}: card vs CPU differ in the life state")
+    log(f"the first {N_LIFE_PLAIN} arrivals of each of the {len(plan)} "
+        f"fused runs == the batched engine's run of them on the CPU "
+        f"(worker, cold, rejected of the fused run; every plane and the "
+        f"final life state of the fused run of just those)")
+    big_cpu, big_cpu_wall = next(plain)
+    big_gap = card_vs_cpu(np, big_card, big_cpu, f"E/H/PS S={big.slots}")
+    log(f"E/H/PS S={big.slots} R={big_wb.n_reps} N={N_SHORT}: batched engine "
+        f"on the card, {counts[1]} hermes_select launches, no sim_engine "
+        f"launch, {big_wall:.1f} s; == the plain engine on the card in "
+        f"every plane; == the CPU's run in integer planes, max float gap "
+        f"{big_gap} ({big_cpu_wall:.1f} s)")
+    log(f"{len(plain_jobs) + len(ref_jobs)} runs on the CPU in "
+        f"{PLAIN_WORKERS} worker processes: {plain_s:.1f} s from their start")
+
+    # what the lifecycle costs the kernel on the budget lane's inputs
+    off, unbudgeted, budgeted = (runs[k]["ms"] for k in (
+        "timing budget lifecycle off hermes",
+        "timing budget FIXED_TTL unbudgeted hermes",
+        "fig12 budget FIXED_TTL hermes"))
+    log(f"E/H/PS on fig12's budget inputs: sim_engine {off:.3f} ms without "
+        f"the lifecycle, {unbudgeted:.3f} ms under FIXED_TTL, "
+        f"{budgeted:.3f} ms under FIXED_TTL with max_idle "
+        f"{LIFE_MAX_IDLE} (the LRU scan at each completion)")
+
+    phase_s = time.perf_counter() - t_phase
+    report["keepalive_axis"] = dict(
+        fig12=dict(loads=FIG12_LOADS, ttl_s=LIFE_TTL_S,
+                   max_idle=LIFE_MAX_IDLE, preset=LIFE_PRESET,
+                   cold_sums=dict(cold_of, hermes=h12, least_loaded=l12),
+                   claims=claims),
+        fig7=dict(loads=FIG7_LOADS, workloads=FIG7_WORKLOADS),
+        n=N_LIFE, seed=LIFE_SEED, runs=runs,
+        repair=dict(slots=big.slots, wall_s=big_wall,
+                    hermes_select_launches=counts[1], card_vs_cpu=big_gap),
+        sim_engine_max_abs_err=max_err, plain_runs_s=plain_s,
+        sim_engine_launches=launches, phase_s=phase_s)
+    log(f"phase 14: {launches} sim_engine launches, {phase_s:.1f} s")
+    check(phase_s <= LIFE_PHASE_S, f"phase 14 took {phase_s:.1f} s (limit "
+                                   f"{LIFE_PHASE_S:.0f} s)")
+    return launches, max_err
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run it from the root of a checkout of the repo",
@@ -2166,6 +2469,9 @@ def main() -> int:
                                                     workers)
             with Phase("13 policy zoo on the card", report):
                 zoo_launches, zoo_err = policy_zoo(torch, np, report, pool)
+            with Phase("14 keep-alive axis on the card", report):
+                life_launches, life_err = keepalive_axis(torch, np, report,
+                                                         pool)
         total_s = time.perf_counter() - t_start
         check(total_s <= SCRIPT_S, f"the script took {total_s:.1f} s (limit "
                                    f"{SCRIPT_S:.0f} s)")
@@ -2177,8 +2483,8 @@ def main() -> int:
         log("report " + json.dumps(report, separators=(",", ":")))
     # hermes_select's path is serving (phase 7: one launch per dispatch);
     # the simulator's E/H/PS makes its choice inside sim_engine (phases 4,
-    # 12 and 13: every fused run's launch on those paths; its times from
-    # phase 4, where the plain engine runs the same inputs)
+    # 12, 13 and 14: every fused run's launch on those paths; its times
+    # from phase 4, where the plain engine runs the same inputs)
     kernels = [{
         "name": "hermes_select", "route": "cuda",
         "source": "src/repro_torch/csrc/hermes_select.cu",
@@ -2189,8 +2495,9 @@ def main() -> int:
         "name": "sim_engine", "route": "cuda",
         "source": "src/repro_torch/csrc/sim_engine.cu",
         "replaces": "src/repro/kernels/hermes_select/kernel.py:66",
-        "launches": engine_launches + trace_launches + zoo_launches,
-        "max_abs_err": max(engine_err, zoo_err),
+        "launches": engine_launches + trace_launches + zoo_launches
+        + life_launches,
+        "max_abs_err": max(engine_err, zoo_err, life_err),
         "ms": engine_t["ms"], "plain_ms": engine_t["plain_ms"],
         "bound_ms": engine_t["bound_ms"], "bound_by": engine_t["bound_by"],
         "library_ms": None}]

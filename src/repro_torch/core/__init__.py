@@ -6,6 +6,7 @@ generators and the trace-replay scenarios of
 :mod:`repro_torch.trace.catalog`.
 """
 from .cluster import ClusterCfg, PAPER_LARGE, PAPER_SMALL, PAPER_TESTBED
+from ..lifecycle.config import LifecycleCfg
 from .metrics import (BatchSummary, Stat, Summary, summarize,
                       summarize_batch, summarize_batch_sim, summarize_sim)
 from .taxonomy import (Binding, LoadBalance, PolicySpec, WorkerSched,
@@ -26,7 +27,8 @@ from ..trace.catalog import TRACE_SCENARIOS
 WORKLOADS.update(TRACE_SCENARIOS)
 
 __all__ = [
-    "ClusterCfg", "PAPER_LARGE", "PAPER_SMALL", "PAPER_TESTBED",
+    "ClusterCfg", "LifecycleCfg", "PAPER_LARGE", "PAPER_SMALL",
+    "PAPER_TESTBED",
     "BatchSummary", "Stat", "Summary", "summarize", "summarize_batch",
     "summarize_batch_sim", "summarize_sim",
     "Binding", "LoadBalance", "PolicySpec", "WorkerSched", "parse_policy",

@@ -3,6 +3,8 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
+from repro_torch.lifecycle.config import LifecycleCfg
+
 
 class ClusterCfg(NamedTuple):
     """A homogeneous cluster of ``n_workers`` machines.
@@ -13,16 +15,19 @@ class ClusterCfg(NamedTuple):
     ``cold_start_penalty`` is added to an invocation's service time when
     the chosen worker holds no warm executor for its function.
 
-    ``lifecycle`` and ``fleet`` mirror the reference's fields so that a
-    config carries across unchanged; this slice runs only the default
-    ``None`` of each and :meth:`validate` refuses anything else.
+    ``lifecycle`` (:class:`~repro_torch.lifecycle.LifecycleCfg`) turns
+    on the container lifecycle: keep-alive windows, LRU eviction and
+    per-function cold-start costs; ``None`` is the model without one.
+    ``fleet`` mirrors the reference's field so that a config carries
+    across unchanged; the port runs only its default ``None`` and
+    :meth:`validate` refuses anything else.
     """
 
     n_workers: int = 4
     cores: int = 12
     capacity_factor: int = 8
     cold_start_penalty: float = 0.0
-    lifecycle: Optional[Any] = None
+    lifecycle: Optional[LifecycleCfg] = None
     fleet: Optional[Any] = None
 
     @property
@@ -48,9 +53,21 @@ class ClusterCfg(NamedTuple):
                 f"ClusterCfg.capacity_factor must be positive, got "
                 f"{self.capacity_factor}")
         if self.lifecycle is not None:
-            raise NotImplementedError(
-                "ClusterCfg.lifecycle is not ported yet (ROADMAP queue 1, "
-                "'Lifecycle'); leave it None")
+            lc = self.lifecycle
+            if not isinstance(lc, LifecycleCfg):
+                raise ValueError(f"ClusterCfg.lifecycle must be a "
+                                 f"LifecycleCfg or None, got {lc!r}")
+            if not float(lc.ttl_s) >= 0.0:
+                raise ValueError(f"LifecycleCfg.ttl_s must be >= 0, got "
+                                 f"{lc.ttl_s}")
+            if int(lc.max_idle) < 0:
+                raise ValueError(f"LifecycleCfg.max_idle must be >= 0, got "
+                                 f"{lc.max_idle}")
+            # unregistered names fail with their registries' named errors
+            from repro_torch.lifecycle import (parse_cold_preset,
+                                               parse_keepalive)
+            parse_keepalive(lc.keepalive)
+            parse_cold_preset(lc.coldstart)
         if self.fleet is not None:
             raise NotImplementedError(
                 "ClusterCfg.fleet is not ported yet (ROADMAP queue 1, "

@@ -1,8 +1,7 @@
 """Discrete-event policy simulator on torch tensors.
 
-Counterpart of ``repro/core/simulator.py`` (the plain configuration:
-lifecycle, fleet, telemetry, timeline and streaming off; early and late
-binding).  The reference runs a ``lax.scan`` over arrivals under
+Counterpart of ``repro/core/simulator.py`` (early and late binding, the
+container lifecycle; fleet, telemetry, timeline and streaming off).  The reference runs a ``lax.scan`` over arrivals under
 ``jax.vmap``; here the replication axis ``R`` is written out as the
 leading axis of every state tensor and the scan is a Python loop:
 
@@ -40,6 +39,18 @@ State (``R`` replications × ``W`` workers × ``S`` slots):
 ``lb_<key>``    …         a carried-state balancer's ``[R, …]`` state
 ==============  ========  =====================================
 
+With ``cluster.lifecycle`` set (:mod:`repro_torch.lifecycle`) the
+engine carries the reference's ``life`` plane, op for op: ``idle_since
+[R, W, F+1]`` f64 (-1: no completion yet; the pad column again),
+``pre``/``keep [R, F]`` and the keep-alive's own state.  Selection sees
+the *materialized* warm column (pools inside their window), placement
+decides cold starts, slot-pressure evictions (the LRU materialized pool)
+and the preset's cost over the materialized pools, then feeds an
+adaptive keep-alive the placed pool's idle age; a completion zeroes a
+stale pool before its increment, refreshes its idle clock and enforces
+the ``max_idle`` budget.  With ``lifecycle=None`` none of these
+operations is made.
+
 A carried-state balancer (HIKU, DD, SWARM) threads its state as the
 reference does: ``select`` takes and returns it at each arrival, and
 each advance iteration calls ``on_complete`` for the argmin slot with the
@@ -56,6 +67,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.sim_engine import ops as sim_engine_ops
+from repro_torch.lifecycle import resolve_lifecycle
 from repro_torch.policy import engine, resolve
 from repro_torch.policy.registry import check_balancer
 
@@ -83,6 +95,9 @@ class SimOutput:
     prov_core_s: float = 0.0
     #: the reference's flight-recorder planes; None until ported
     timeline: None = None
+    #: the final lifecycle state (see :class:`BatchSimOutput`); None
+    #: without a lifecycle
+    life: dict | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +114,11 @@ class BatchSimOutput:
     telemetry: None = None
     prov_core_s: np.ndarray | None = None   # [R] f64
     timeline: None = None
+    #: the final lifecycle state, ``None`` without a lifecycle:
+    #: ``idle_since [R, W, F]``, ``pre``/``keep [R, F]`` f64 and the
+    #: keep-alive's own state (``hist [R, F, 32]``, ``n_obs [R, F]`` for
+    #: HYBRID_HIST), numpy
+    life: dict | None = None
 
     @property
     def n_reps(self) -> int:
@@ -113,7 +133,9 @@ class BatchSimOutput:
             core_time=float(self.core_time[r]),
             end_time=float(self.end_time[r]),
             prov_core_s=0.0 if self.prov_core_s is None
-            else float(self.prov_core_s[r]))
+            else float(self.prov_core_s[r]),
+            life=None if self.life is None
+            else {k: v[r] for k, v in self.life.items()})
 
     def __getitem__(self, sl: slice) -> "BatchSimOutput":
         """A sub-batch over a slice of the replication axis."""
@@ -123,7 +145,9 @@ class BatchSimOutput:
             server_time=self.server_time[sl], core_time=self.core_time[sl],
             end_time=self.end_time[sl],
             prov_core_s=None if self.prov_core_s is None
-            else self.prov_core_s[sl])
+            else self.prov_core_s[sl],
+            life=None if self.life is None
+            else {k: v[sl] for k, v in self.life.items()})
 
 
 @dataclasses.dataclass
@@ -162,6 +186,22 @@ def _with_lb(lb: dict) -> dict:
     return {f"lb_{k}": v for k, v in lb.items()}
 
 
+#: the life plane's own entries of ``st`` (as ``life_<key>``); its other
+#: ``life_`` entries are the keep-alive's state
+LIFE_PLANES = ("idle_since", "pre", "keep")
+
+
+def _ka_of(st: dict) -> dict:
+    """The keep-alive's carried state out of the engine's ``st``."""
+    return {k[5:]: v for k, v in st.items()
+            if k.startswith("life_") and k[5:] not in LIFE_PLANES}
+
+
+def _with_life(d: dict) -> dict:
+    """``d``'s entries under their ``life_`` keys in the engine's ``st``."""
+    return {f"life_{k}": v for k, v in d.items()}
+
+
 def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                   n_functions: int, n_reps: int, device: torch.device,
                   backend: str):
@@ -182,6 +222,14 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
     pen = torch.tensor(float(cluster.cold_start_penalty), dtype=_F64,
                        device=device)
     no_pen = torch.zeros((), dtype=_F64, device=device)
+    # the container lifecycle: every life-plane op below is gated on
+    # life_on, so lifecycle=None makes exactly the operations it made
+    # before the plane existed
+    lres = resolve_lifecycle(cluster, F, device)
+    life_on = lres is not None
+    if life_on:
+        life_costs = None if lres.cold_costs is None else torch.as_tensor(
+            lres.cold_costs, dtype=_F64, device=device)
 
     def any_(go: torch.Tensor, stats: LoopStats) -> bool:
         stats.host_syncs += 1
@@ -199,18 +247,43 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
         active_w = (row >= 0).sum(dim=1)
         warm_row = st["warm"][rows, w]                         # [R, F+1]
         warm_cnt = warm_row[rows, f]
-        is_cold = warm_cnt == 0
-        idle = warm_row[:, :F].sum(dim=1)
+        life = {}
+        if life_on:
+            # only materialized pools serve a warm hit, take memory and
+            # are eviction candidates; the victim is the LRU one (oldest
+            # idle-since, first index on ties)
+            lu_w = st["life_idle_since"][rows, w, :F]          # [R, F]
+            pre, keep = st["life_pre"], st["life_keep"]
+            ages_w = st["now"][:, None] - lu_w
+            eff = torch.where((ages_w >= pre) & (ages_w <= pre + keep),
+                              warm_row[:, :F], 0)
+            is_cold = eff[rows, f] == 0
+            idle = eff.sum(dim=1)
+            victim = torch.where(eff > 0, lu_w, torch.inf).argmin(dim=1)
+            pen_f = pen if life_costs is None else life_costs[f]
+            if lres.observe is not None:
+                # the placed pool's idle age, after the warm/cold
+                # decision; a pool without a completion is no observation
+                lu_f = lu_w[rows, f]
+                ka = lres.observe(_ka_of(st), f,
+                                  torch.clamp(st["now"] - lu_f, min=0.0),
+                                  lu_f >= 0.0)
+                pre2, keep2 = lres.windows(ka)
+                life = _with_life(dict(ka, pre=pre2, keep=keep2))
+        else:
+            is_cold = warm_cnt == 0
+            idle = warm_row[:, :F].sum(dim=1)
+            victim = warm_row[:, :F].argmax(dim=1)
+            pen_f = pen
         need_evict = is_cold & (active_w + idle >= S)
-        victim = warm_row[:, :F].argmax(dim=1)
         warm = st["warm"].index_put(
             (rows, w, f), warm_cnt - (~is_cold).to(_I32))
         warm = warm.index_put(
             (rows, w, victim), warm[rows, w, victim] - need_evict.to(_I32))
         slot = (row < 0).to(_I32).argmax(dim=1)
-        svc = svc_nom + torch.where(is_cold, pen, no_pen)
+        svc = svc_nom + torch.where(is_cold, pen_f, no_pen)
         return dict(
-            st,
+            st, **life,
             remaining=st["remaining"].index_put((rows, w, slot), svc),
             task_arr=st["task_arr"].index_put((rows, w, slot), t_arr),
             task_idx=st["task_idx"].index_put((rows, w, slot),
@@ -281,9 +354,42 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                 torch.where(completed, resp_val, 0.0))
             w_pad = torch.where(completed, wj, 0)
             f_pad = torch.where(completed, f_j, F)
-            warm = st["warm"].index_put(
-                (rows, w_pad, f_pad),
-                st["warm"][rows, w_pad, f_pad] + completed.to(_I32))
+            life = {}
+            if life_on:
+                # zero a stale pool before the increment, refresh its idle
+                # clock, then hold the worker to its max_idle budget by
+                # evicting its LRU materialized pool
+                lu = st["life_idle_since"]
+                pre, keep = st["life_pre"], st["life_keep"]
+                stale = now - lu[rows, wj, f_j] > \
+                    pre[rows, f_j] + keep[rows, f_j]
+                base = torch.where(stale, 0, st["warm"][rows, wj, f_j])
+                warm = st["warm"].index_put(
+                    (rows, w_pad, f_pad),
+                    torch.where(completed, base + 1,
+                                st["warm"][rows, w_pad, f_pad]))
+                lu = lu.index_put(
+                    (rows, w_pad, f_pad),
+                    torch.where(completed, now, lu[rows, w_pad, f_pad]))
+                life = dict(life_idle_since=lu)
+                if lres.max_idle > 0:
+                    lu_row = lu[rows, wj, :F]
+                    ages_row = now[:, None] - lu_row
+                    eff = torch.where(
+                        (ages_row >= pre) & (ages_row <= pre + keep),
+                        warm[rows, wj, :F], 0)
+                    over = completed & (eff.sum(dim=1) > lres.max_idle)
+                    evict = torch.where(eff > 0, lu_row,
+                                        torch.inf).argmin(dim=1)
+                    w_ev = torch.where(over, wj, 0)
+                    f_ev = torch.where(over, evict, F)
+                    warm = warm.index_put(
+                        (rows, w_ev, f_ev),
+                        warm[rows, w_ev, f_ev] - over.to(_I32))
+            else:
+                warm = st["warm"].index_put(
+                    (rows, w_pad, f_pad),
+                    st["warm"][rows, w_pad, f_pad] + completed.to(_I32))
             warm[:, :, F] = 0
             remaining = remaining.index_put(
                 (rows, wj, sj),
@@ -292,7 +398,8 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                 (rows, wj, sj), torch.where(completed, -1, tid))
             new = dict(st, remaining=remaining, task_idx=task_idx,
                        warm=warm, now=now, resp=resp,
-                       server_time=server_time, core_time=core_time)
+                       server_time=server_time, core_time=core_time,
+                       **life)
             if stateful:
                 # one hook call per iteration, kept where the argmin slot
                 # really completed
@@ -331,6 +438,13 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                 q_tail=st["q_tail"] + 1)
             return _merge(active.amin(dim=1) < C, placed, queued)
         warm_col = st["warm"][rows, :, f_i]                    # [R, W]
+        if life_on:
+            # selection sees the materialized warm column only
+            ages = st["now"][:, None] - st["life_idle_since"][rows, :, f_i]
+            pre_f = st["life_pre"][rows, f_i][:, None]
+            end_f = pre_f + st["life_keep"][rows, f_i][:, None]
+            warm_col = torch.where((ages >= pre_f) & (ages <= end_f),
+                                   warm_col, 0)
         if stateful:
             w, lb = select(_lb_of(st), active, warm_col, f_i, homes,
                            u_lb[:, i], i)
@@ -365,6 +479,13 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
         }
         if stateful:
             st.update(_with_lb(res.init_state(R, W, F, device)))
+        if life_on:
+            ka = lres.init_policy_state(R, W, F) or {}
+            pre, keep = lres.windows(ka or None)
+            st.update(_with_life(dict(
+                ka, idle_since=full((R, W, F + 1), -1.0, _F64),
+                pre=pre.to(_F64).expand(R, F).clone(),
+                keep=keep.to(_F64).expand(R, F).clone())))
         for i in range(N):
             st = step(st, i, arrivals, funcs, services, u_lb, homes, stats)
             stats.arrivals += 1
@@ -396,7 +517,7 @@ def simulate_many(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
                                device=dev)
 
-    if engine(policy, dev, backend) == "sim_engine":
+    if engine(policy, dev, backend, cluster) == "sim_engine":
         cluster.validate()
         if isinstance(policy, str):
             policy = parse_policy(policy)
@@ -414,6 +535,11 @@ def simulate_many(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
                  put(wb.func_home, _I32), stats)
     n = wb.n
     end = st["now"].cpu().numpy()
+    life = None
+    if cluster.lifecycle is not None:
+        life = {k[5:]: v.cpu().numpy() for k, v in st.items()
+                if k.startswith("life_")}
+        life["idle_since"] = life["idle_since"][:, :, :wb.n_functions]
     return BatchSimOutput(
         response=st["resp"][:, :n].cpu().numpy(),
         cold=st["cold"][:, :n].cpu().numpy(),
@@ -422,7 +548,7 @@ def simulate_many(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
         server_time=st["server_time"].cpu().numpy(),
         core_time=st["core_time"].cpu().numpy(),
         end_time=end,
-        prov_core_s=end * cluster.n_workers * cluster.cores)
+        prov_core_s=end * cluster.n_workers * cluster.cores, life=life)
 
 
 def simulate(policy: PolicySpec, cluster: ClusterCfg, wl: Workload, *,

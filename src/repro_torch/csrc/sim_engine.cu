@@ -78,6 +78,30 @@
 // A block has one warp per worker, up to 512 threads.  Upper bounds:
 // W <= 4096 workers and S <= 2047 slots (48 KB of shared memory).  The
 // wrapper (repro_torch/kernels/sim_engine/kernel.py) checks them.
+//
+// The container lifecycle (repro/lifecycle, the reference engine's `life`
+// plane) is a second template argument.  Off, the kernel is the one
+// above.  On, every replication carries idle_since [W, F] (the time of a
+// pool's latest completion, -1 before the first) and the keep-alive
+// windows pre, keep [F] in global tensors the wrapper allocates (the
+// windows initialised from the keep-alive policy).  A pool is
+// materialized at `now` iff pre[f] <= now - idle_since <= pre[f] +
+// keep[f]; only materialized pools are warm, take memory and can be
+// evicted:
+//   * the choice (Hermes' warm bit) reads the materialized count;
+//   * a placement, by the worker's warp, sums the materialized pools,
+//     takes the LRU one (a (idle_since, index) argmin over count > 0) as
+//     the slot-pressure victim and charges the preset's cost[f] (or the
+//     scalar penalty) for a cold start; under HYBRID_HIST it then adds the
+//     placed pool's idle gap to function f's 32-bin histogram and
+//     recomputes f's windows alone: a 32-lane prefix sum of the counts
+//     (integers in f64: exact) and the first bin at or above each
+//     quantile, the same bits as the reference's windows() over all F;
+//   * a completion, by the worker's warp, zeroes a stale pool before its
+//     increment, refreshes its idle clock and, with a max_idle budget,
+//     evicts the worker's LRU materialized executor when it holds more.
+// Every sum and product of those windows and ages goes through the
+// __d*_rn intrinsics, as above.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -164,15 +188,128 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
+// The lifecycle state of one replication (unused when the lifecycle is
+// off): idle_since [W, F]; the windows pre, keep [F]; the preset's costs
+// [F] (null: the scalar penalty); HYBRID_HIST's histograms [F, 32] and
+// observation counts [F] (null for the other keep-alives).
+struct LifeState {
+  double* idle;
+  double* pre;
+  double* keep;
+  const double* costs;
+  double* hist;
+  double* n_obs;
+  int max_idle;
+  double bin_s;
+  double ttl;
+};
+
+// HYBRID_HIST's shape and quantiles (repro/lifecycle/policies.py)
+constexpr int kHistBins = 32;
+constexpr double kHistHeadQ = 0.05;
+constexpr double kHistTailQ = 0.99;
+constexpr double kHistMargin = 0.15;
+constexpr double kHistMinObs = 3.0;
+
+// Whether a pool idle since `idle` is materialized at `now` under the
+// window [pre, end = pre + keep].
+__device__ __forceinline__ bool materialized(double now, double idle,
+                                             double pre, double end) {
+  const double age = __dsub_rn(now, idle);
+  return age >= pre && age <= end;
+}
+
+// The worker's materialized executors and its LRU materialized pool (the
+// first index among the oldest idle_since; 0 if it has none, as torch's
+// argmin of all-inf), over the worker's warp.
+__device__ __forceinline__ void lru_pool(const LifeState& life,
+                                         const int* warm_w,
+                                         const double* idle_w, int F,
+                                         double now, int lane, int* n_idle,
+                                         int* victim) {
+  int count = 0;
+  double best = INFINITY;
+  int best_g = INT_MAX;
+  for (int g = lane; g < F; g += 32) {
+    const double since = idle_w[g];
+    const int c = materialized(now, since, life.pre[g],
+                               __dadd_rn(life.pre[g], life.keep[g]))
+                      ? warm_w[g]
+                      : 0;
+    count += c;
+    if (c > 0 && since < best) {   // a lane meets its pools in order
+      best = since;
+      best_g = g;
+    }
+  }
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    const double other = __shfl_xor_sync(kFull, best, offset);
+    const int other_g = __shfl_xor_sync(kFull, best_g, offset);
+    if (other < best || (other == best && other_g < best_g)) {
+      best = other;
+      best_g = other_g;
+    }
+    count += __shfl_xor_sync(kFull, count, offset);
+  }
+  *n_idle = count;
+  *victim = best_g == INT_MAX ? 0 : best_g;
+}
+
+// HYBRID_HIST's observation of an idle gap of function f, by one warp:
+// one count more in its bin and in n_obs[f], then f's windows from its
+// histogram (repro/lifecycle/policies.py: windows(), observe()).
+__device__ __forceinline__ void hybrid_observe(const LifeState& life, int f,
+                                               double gap, int lane) {
+  long long bin = static_cast<long long>(__ddiv_rn(gap, life.bin_s));
+  bin = bin < kHistBins - 1 ? bin : kHistBins - 1;
+  bin = bin > 0 ? bin : 0;
+  double* hist_f = life.hist + static_cast<size_t>(f) * kHistBins;
+  double count = hist_f[lane];
+  if (lane == bin) {
+    count = __dadd_rn(count, 1.0);
+    hist_f[lane] = count;
+  }
+  const double n = __dadd_rn(life.n_obs[f], 1.0);
+  double cdf = count;   // integer-valued: exact in any order
+  for (int offset = 1; offset < 32; offset <<= 1) {
+    const double below = __shfl_up_sync(kFull, cdf, offset);
+    if (lane >= offset) cdf = __dadd_rn(cdf, below);
+  }
+  const int head =
+      __ffs(__ballot_sync(kFull, cdf >= __dmul_rn(kHistHeadQ, n))) - 1;
+  const int tail =
+      __ffs(__ballot_sync(kFull, cdf >= __dmul_rn(kHistTailQ, n))) - 1;
+  if (lane == 0) {
+    life.n_obs[f] = n;
+    if (n >= kHistMinObs) {
+      const double pre = __dmul_rn(
+          __dmul_rn(static_cast<double>(head), life.bin_s),
+          1.0 - kHistMargin);
+      const double end = __dmul_rn(
+          __dmul_rn(__dadd_rn(static_cast<double>(tail), 1.0), life.bin_s),
+          1.0 + kHistMargin);
+      life.pre[f] = pre;
+      life.keep[f] = __dsub_rn(end, pre);
+    } else {
+      life.pre[f] = 0.0;
+      life.keep[f] = life.ttl;
+    }
+  }
+}
+
 // The worker the balancer picks for an arrival of function f, or -1 if
 // every worker is slot-full; made by each warp on its own.  `h` is the
 // ring's start (LOC: the function's home; RR: the arrival's index mod W);
-// `head`, `tail` are HIKU's ring counters.  Writes nothing.
+// `head`, `tail` are HIKU's ring counters.  Under the lifecycle, a warm
+// executor counts only if its pool is materialized at `now`.  Writes
+// nothing.
+template <bool life_on>
 __device__ __forceinline__ int choose(int balancer, const int* n_act,
                                       const int* warm, int W, int F, int f,
                                       int cores, int S, int core_free,
                                       int slot_free, int h, double u,
                                       const LbState& lb, int head, int tail,
+                                      const LifeState& life, double now,
                                       int lane) {
   if (slot_free == 0) return -1;
   if (balancer == kLocality || balancer == kRoundRobin) {
@@ -251,13 +388,23 @@ __device__ __forceinline__ int choose(int balancer, const int* n_act,
     return best_w;
   }
   // H's score, or least loaded (LL, and JSQ2's and HIKU's fallback)
+  double pre_f = 0.0, end_f = 0.0;
+  if (life_on && balancer == kHermes) {
+    pre_f = life.pre[f];
+    end_f = __dadd_rn(pre_f, life.keep[f]);
+  }
   long long best = LLONG_MIN;
   for (int w = lane; w < W; w += 32) {
     const int nw = n_act[w];
     if (nw >= S) continue;
+    const size_t at = static_cast<size_t>(w) * F + f;
     const int score =
         balancer == kHermes
-            ? hermes::score(nw, warm[static_cast<size_t>(w) * F + f] > 0,
+            ? hermes::score(nw,
+                            warm[at] > 0 &&
+                                (!life_on ||
+                                 materialized(now, life.idle[at], pre_f,
+                                              end_f)),
                             cores, S, core_free > 0)
             : -nw;
     const long long key = hermes::pack_key(score, w);
@@ -297,9 +444,9 @@ __device__ __forceinline__ void on_complete(int balancer, const LbState& lb,
   }
 }
 
-// One instantiation per balancer: the choice and the state updates of
-// the others compile away.
-template <int balancer>
+// One instantiation per balancer and lifecycle switch: the choice and
+// the state updates of the others compile away.
+template <int balancer, bool life_on>
 __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     const double* __restrict__ arrival, const int* __restrict__ func,
     const double* __restrict__ service, const double* __restrict__ u_lb,
@@ -313,8 +460,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     int* __restrict__ lb_ring, int* __restrict__ lb_in_ring,
     int* __restrict__ lb_head, int* __restrict__ lb_tail,
     double* __restrict__ lb_est, double* __restrict__ lb_per_worker,
-    long long* __restrict__ lb_cnt, int n, int n_functions, int n_workers,
-    int cores, int slots, double penalty) {
+    long long* __restrict__ lb_cnt, double* __restrict__ life_idle,
+    double* __restrict__ life_pre, double* __restrict__ life_keep,
+    const double* __restrict__ life_costs, double* __restrict__ life_hist,
+    double* __restrict__ life_n_obs, int max_idle, double bin_s, double ttl,
+    int n, int n_functions, int n_workers, int cores, int slots,
+    double penalty) {
   extern __shared__ double shared[];
   __shared__ double red_t[2][32];
   __shared__ int red_j[2][32];
@@ -359,6 +510,17 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
       lb_est ? lb_est + static_cast<size_t>(r) * F : nullptr,
       lb_per_worker ? lb_per_worker + static_cast<size_t>(r) * W : nullptr,
       lb_cnt ? lb_cnt + static_cast<size_t>(r) * W : nullptr};
+  const LifeState life{
+      life_on ? life_idle + r * WF : nullptr,
+      life_on ? life_pre + static_cast<size_t>(r) * F : nullptr,
+      life_on ? life_keep + static_cast<size_t>(r) * F : nullptr,
+      life_costs,
+      life_hist ? life_hist + static_cast<size_t>(r) * F * kHistBins
+                : nullptr,
+      life_n_obs ? life_n_obs + static_cast<size_t>(r) * F : nullptr,
+      max_idle,
+      bin_s,
+      ttl};
 
   for (size_t k = t; k < WS; k += blockDim.x) {
     rems[k] = INFINITY;
@@ -366,6 +528,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     tix[k] = -1;
   }
   for (size_t k = t; k < WF; k += blockDim.x) pools[k] = 0;
+  if (life_on) {
+    for (size_t k = t; k < WF; k += blockDim.x) life.idle[k] = -1.0;
+  }
   const double no_response = __longlong_as_double(0x7ff8000000000000LL);
   for (int k = t; k < n; k += blockDim.x) {
     resp[k] = no_response;   // NaN, as torch.nan
@@ -488,7 +653,17 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
           done = tid >= 0 && (tmin <= dt_left || rems[j] <= kEps);
           if (done) {
             resp[tid] = __dsub_rn(now_next, arr_at[j]);
-            pools[static_cast<size_t>(wj) * F + func[tid]] += 1;
+            const int f = func[tid];
+            const size_t at = static_cast<size_t>(wj) * F + f;
+            if (life_on) {
+              // a stale pool restarts from 0; its idle clock restarts now
+              if (__dsub_rn(now_next, life.idle[at]) >
+                  __dadd_rn(life.pre[f], life.keep[f])) {
+                pools[at] = 0;
+              }
+              life.idle[at] = now_next;
+            }
+            pools[at] += 1;
             rems[j] = INFINITY;
             tix[j] = -1;
             const int nw = n_act[wj];
@@ -501,6 +676,18 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
         }
         done_prev = __shfl_sync(kFull, done, 0);
         __syncwarp();
+        if (life_on && life.max_idle > 0 && done_prev) {
+          // the max_idle budget: the worker's LRU materialized executor
+          // goes when it holds more
+          int n_idle, victim;
+          lru_pool(life, pools + static_cast<size_t>(wj) * F,
+                   life.idle + static_cast<size_t>(wj) * F, F, now_next,
+                   lane, &n_idle, &victim);
+          if (lane == 0 && n_idle > life.max_idle) {
+            pools[static_cast<size_t>(wj) * F + victim] -= 1;
+          }
+          __syncwarp();
+        }
       }
       tau_prev = tau;
       wj_prev = wj;
@@ -514,10 +701,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     now = t_i;
     const int f = f_i;
     const double svc = svc_i;
-    const int w_sel = choose(
+    const int w_sel = choose<life_on>(
         balancer, n_act, pools, W, F, f, cores, S, core_free, slot_free,
         balancer == kLocality ? home[f] : balancer == kRoundRobin ? i % W : 0,
-        u_i, lb, ring_head, ring_tail, lane);
+        u_i, lb, ring_head, ring_tail, life, now, lane);
     if (i + 1 < n) {
       t_i = arrival[i + 1];
       f_i = func[i + 1];
@@ -547,25 +734,38 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
       if (slot < 0) slot = 0;   // torch's argmax of all-false
       int* warm_w = pools + static_cast<size_t>(w) * F;
       int idle = 0;
-      long long victim = LLONG_MIN;
-      for (int g = lane; g < F; g += 32) {
-        const int c = warm_w[g];
-        idle += c;
-        const long long key = hermes::pack_key(c, g);
-        victim = key > victim ? key : victim;
+      int victim_f = 0;
+      double since_f = 0.0;
+      bool mat_f = true;
+      if (life_on) {
+        // the worker's materialized pools decide, the LRU one is the
+        // victim
+        const double* idle_w = life.idle + static_cast<size_t>(w) * F;
+        lru_pool(life, warm_w, idle_w, F, now, lane, &idle, &victim_f);
+        since_f = idle_w[f];
+        mat_f = materialized(now, since_f, life.pre[f],
+                             __dadd_rn(life.pre[f], life.keep[f]));
+      } else {
+        long long victim = LLONG_MIN;
+        for (int g = lane; g < F; g += 32) {
+          const int c = warm_w[g];
+          idle += c;
+          const long long key = hermes::pack_key(c, g);
+          victim = key > victim ? key : victim;
+        }
+        idle = warp_sum(idle);
+        victim_f = hermes::key_index(hermes::warp_max(victim));
       }
-      idle = warp_sum(idle);
-      victim = hermes::warp_max(victim);
       if (lane == 0) {
         const int active_w = n_act[w];
         const int warm_cnt = warm_w[f];
-        const bool is_cold = warm_cnt == 0;
+        const bool is_cold = !mat_f || warm_cnt == 0;
         if (!is_cold) warm_w[f] = warm_cnt - 1;
-        if (is_cold && active_w + idle >= S) {
-          warm_w[hermes::key_index(victim)] -= 1;
-        }
+        if (is_cold && active_w + idle >= S) warm_w[victim_f] -= 1;
+        const double cost =
+            life_on && life.costs != nullptr ? life.costs[f] : penalty;
         const size_t at = static_cast<size_t>(w) * S + slot;
-        rems[at] = __dadd_rn(svc, is_cold ? penalty : 0.0);
+        rems[at] = __dadd_rn(svc, is_cold ? cost : 0.0);
         arr_at[at] = now;
         tix[at] = i;
         cold[i] = is_cold;
@@ -574,6 +774,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
         core_free -= active_w == cores - 1;
         slot_free -= active_w == S - 1;
         if (slot + 1 > hw[w]) hw[w] = slot + 1;
+      }
+      if (life_on && life.hist != nullptr && since_f >= 0.0) {
+        // HYBRID_HIST learns from the placed pool's idle gap, after the
+        // warm/cold decision; a pool without a completion is no gap
+        const double gap = __dsub_rn(now, since_f);
+        hybrid_observe(life, f, gap > 0.0 ? gap : 0.0, lane);
       }
       __syncwarp();
     }
@@ -610,8 +816,14 @@ size_t shared_bytes(int n_workers, int slots) {
 // by the caller and updated in place (null where unused): HIKU's ring and
 // in_ring [R, W] i32, head and tail [R] i32; DD's and SWARM's est [R, F]
 // f64; DD's expected work or SWARM's slowness [R, W] f64; SWARM's cnt
-// [R, W] i64.  Launches one block per replication on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// [R, W] i64.  The lifecycle (on when `life` != 0): idle_since [R, W, F]
+// f64 (the kernel initialises it), the windows pre and keep [R, F] f64
+// (initialised by the caller, updated in place under HYBRID_HIST), the
+// preset's costs [F] f64 (null: `penalty`), HYBRID_HIST's hist [R, F, 32]
+// and n_obs [R, F] f64 (initialised by the caller; null for the other
+// keep-alives), the max_idle budget (0: none), HYBRID_HIST's bin width and
+// fallback window.  Launches one block per replication on `stream` and
+// returns cudaGetLastError() (0 = launched).
 extern "C" int sim_engine_launch(
     const double* arrival, const int* func, const double* service,
     const double* u_lb, const int* home, double* remaining, double* task_arr,
@@ -619,28 +831,40 @@ extern "C" int sim_engine_launch(
     unsigned char* rejected, int* worker_of, double* server_time,
     double* core_time, double* now, long long* iters, long long* active,
     int* lb_ring, int* lb_in_ring, int* lb_head, int* lb_tail, double* lb_est,
-    double* lb_per_worker, long long* lb_cnt, int n_reps, int n,
-    int n_functions, int n_workers, int cores, int slots, int balancer,
-    double penalty, void* stream) {
+    double* lb_per_worker, long long* lb_cnt, double* life_idle,
+    double* life_pre, double* life_keep, const double* life_costs,
+    double* life_hist, double* life_n_obs, int life, int max_idle,
+    double bin_s, double ttl, int n_reps, int n, int n_functions,
+    int n_workers, int cores, int slots, int balancer, double penalty,
+    void* stream) {
   const bool state_given =
       balancer == kHiku
           ? lb_ring && lb_in_ring && lb_head && lb_tail
           : balancer == kDataDriven ? lb_est && lb_per_worker
           : balancer == kSwarm ? lb_est && lb_per_worker && lb_cnt : true;
+  const bool life_given =
+      !life || (life_idle && life_pre && life_keep &&
+                (life_hist == nullptr) == (life_n_obs == nullptr) &&
+                max_idle >= 0);
   if (n_reps < 1 || n < 0 || n_functions < 1 || n_workers < 1 ||
       n_workers > kMaxWorkers || cores < 1 || slots < 1 ||
       slots > kMaxSlots || balancer < 0 || balancer > kSwarm ||
-      !state_given) {
+      !state_given || !life_given) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  using Kernel = decltype(&sim_engine_kernel<kHermes>);
-  const Kernel kernels[] = {
-      sim_engine_kernel<kHermes>,     sim_engine_kernel<kLeastLoaded>,
-      sim_engine_kernel<kLocality>,   sim_engine_kernel<kRandom>,
-      sim_engine_kernel<kJsq2>,       sim_engine_kernel<kRoundRobin>,
-      sim_engine_kernel<kHiku>,       sim_engine_kernel<kDataDriven>,
-      sim_engine_kernel<kSwarm>};
-  const Kernel kernel = kernels[balancer];
+  using Kernel = decltype(&sim_engine_kernel<kHermes, false>);
+  const Kernel kernels[2][9] = {
+      {sim_engine_kernel<kHermes, false>, sim_engine_kernel<kLeastLoaded, false>,
+       sim_engine_kernel<kLocality, false>, sim_engine_kernel<kRandom, false>,
+       sim_engine_kernel<kJsq2, false>, sim_engine_kernel<kRoundRobin, false>,
+       sim_engine_kernel<kHiku, false>, sim_engine_kernel<kDataDriven, false>,
+       sim_engine_kernel<kSwarm, false>},
+      {sim_engine_kernel<kHermes, true>, sim_engine_kernel<kLeastLoaded, true>,
+       sim_engine_kernel<kLocality, true>, sim_engine_kernel<kRandom, true>,
+       sim_engine_kernel<kJsq2, true>, sim_engine_kernel<kRoundRobin, true>,
+       sim_engine_kernel<kHiku, true>, sim_engine_kernel<kDataDriven, true>,
+       sim_engine_kernel<kSwarm, true>}};
+  const Kernel kernel = kernels[life ? 1 : 0][balancer];
   // one warp per worker, up to kMaxThreads
   const int threads =
       n_workers < kMaxThreads / 32 ? 32 * n_workers : kMaxThreads;
@@ -653,6 +877,8 @@ extern "C" int sim_engine_launch(
       arrival, func, service, u_lb, home, remaining, task_arr, task_idx, warm,
       resp, cold, rejected, worker_of, server_time, core_time, now, iters,
       active, lb_ring, lb_in_ring, lb_head, lb_tail, lb_est, lb_per_worker,
-      lb_cnt, n, n_functions, n_workers, cores, slots, penalty);
+      lb_cnt, life_idle, life_pre, life_keep, life_costs, life_hist,
+      life_n_obs, max_idle, bin_s, ttl, n, n_functions, n_workers, cores,
+      slots, penalty);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,8 +7,10 @@ replication; its Hermes choice redesigns the Pallas TPU kernel
 ``repro/kernels/hermes_select/kernel.py`` (``hermes_select_batch``) for
 the card.  :func:`sim_engine` checks its inputs, allocates the state and
 the outputs (a carried-state balancer's state initialised by its
-``init_state``), launches on PyTorch's current stream and raises if the
-launch was refused.  ``sim_engine.launches`` counts its launches.
+``init_state``, and under a lifecycle the life plane's state initialised
+by :func:`.ref.life_plane`), launches on PyTorch's current stream and
+raises if the launch was refused.  ``sim_engine.launches`` counts its
+launches.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.kernel import UnsupportedShapeError
 from repro_torch.policy import INIT_STATE
 
-from .ref import BALANCER_CODES, balancer_name
+from .ref import BALANCER_CODES, balancer_name, life_plane
 
 #: the kernel keeps two ints per worker and a rate per slot count in
 #: shared memory
@@ -32,7 +34,8 @@ MAX_SLOTS = 2047
 @functools.cache
 def _launcher():
     fn = _build.load("sim_engine").sim_engine_launch
-    fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 31 + [ctypes.c_int] * 2 \
+        + [ctypes.c_double] * 2 + [ctypes.c_int] * 7 \
         + [ctypes.c_double, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -53,8 +56,8 @@ def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
 def sim_engine(balance, cluster, arrival, func, service, u_lb, home):
     """The fused engine on the card: see :func:`.ref.sim_engine_ref` for
     the inputs and the outputs.  Raises :class:`NotPortedError` for a
-    balancer it does not have and :class:`UnsupportedShapeError` for a
-    cluster larger than it takes."""
+    balancer or a keep-alive it does not have and
+    :class:`UnsupportedShapeError` for a cluster larger than it takes."""
     balance = balancer_name(balance)
     W, C, S = int(cluster.n_workers), int(cluster.cores), int(cluster.slots)
     if not (1 <= W <= MAX_WORKERS and 1 <= S <= MAX_SLOTS):
@@ -88,6 +91,7 @@ def sim_engine(balance, cluster, arrival, func, service, u_lb, home):
                iters=empty((R,), torch.int64),
                active=empty((R,), torch.int64))
     lb = INIT_STATE[balance](R, W, F, dev) if balance in INIT_STATE else {}
+    life = life_plane(cluster, R, W, F, dev)
     ptrs = [x.data_ptr() for x in (arrival, func, service, u_lb, home,
                                    *state, *out.values())]
     # the kernel's balancer-state arguments; null where unused (DD's ew
@@ -96,15 +100,25 @@ def sim_engine(balance, cluster, arrival, func, service, u_lb, home):
     ptrs += [0 if x is None else x.data_ptr() for x in (
         lb.get("ring"), lb.get("in_ring"), lb.get("head"), lb.get("tail"),
         lb.get("est"), per_worker, lb.get("cnt"))]
+    # the life plane's arguments; null (and 0) without a lifecycle
+    ls = {} if life is None else life.state
+    ptrs += [0 if x is None else x.data_ptr() for x in (
+        ls.get("life_idle_since"), ls.get("life_pre"), ls.get("life_keep"),
+        None if life is None else life.costs, ls.get("life_hist"),
+        ls.get("life_n_obs"))]
+    life_args = (0, 0, 0.0, 0.0) if life is None else (
+        1, life.max_idle, life.bin_s, life.ttl)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _launcher()(*ptrs, R, N, F, W, C, S, BALANCER_CODES[balance],
+        err = _launcher()(*ptrs, *life_args, R, N, F, W, C, S,
+                          BALANCER_CODES[balance],
                           float(cluster.cold_start_penalty), stream)
     if err != 0:
         raise RuntimeError(f"sim_engine: kernel launch failed with CUDA "
                            f"error {err}")
     sim_engine.launches += 1
     out.update({f"lb_{k}": v for k, v in lb.items()})
+    out.update(ls)
     return out
 
 

@@ -17,15 +17,32 @@ active count after it.  It returns what the port's batched engine
 (``core/simulator.py``, ``backend="torch"``) returns, bit for bit, and
 the final balancer state.  The CPU tests and the chip check hold the
 kernel against it.
+
+Under a lifecycle (``cluster.lifecycle`` with a built-in keep-alive:
+NONE, FIXED_TTL, HYBRID_HIST) it carries the kernel's life plane: the
+choice reads the materialized warm column; placement takes its cold
+start, its slot-pressure victim (the LRU materialized pool) and the
+preset's cost over the worker's materialized pools, then HYBRID_HIST's
+observation adds one bin and recomputes only that function's windows,
+as the kernel's warp does (a prefix sum over the 32 bins, the first bin
+at or above each quantile); a completion zeroes a stale pool, refreshes
+its idle clock and holds the worker to ``max_idle``.  The final life
+state comes back as ``life_<key>``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch import NotPortedError
 from repro_torch.kernels.hermes_select.ref import hermes_select_ref
+from repro_torch.lifecycle import is_builtin, resolve_lifecycle
+from repro_torch.lifecycle.policies import (HIST_BINS, HIST_HEAD_Q,
+                                            HIST_MARGIN, HIST_MIN_OBS,
+                                            HIST_TAIL_Q, hybrid_params)
 from repro_torch.policy import INIT_STATE
 from repro_torch.policy.balancers import (
     _SW_COLD_DN, _SW_COLD_UP, _SW_EST_DN, _SW_EST_UP, _SW_HOT_DN,
@@ -51,6 +68,81 @@ def balancer_name(balance) -> str:
             f"sim_engine runs the balancers {', '.join(BALANCER_CODES)}; "
             f"got {name!r}")
     return name
+
+
+@dataclasses.dataclass(frozen=True)
+class LifePlane:
+    """The fused engine's lifecycle inputs: the preset's costs ``[F]``
+    (``None``: the scalar penalty), the ``max_idle`` budget, whether the
+    keep-alive is HYBRID_HIST with its bin width and fallback, and the
+    initial state (``life_idle_since [R, W, F]`` at -1, ``life_pre`` and
+    ``life_keep [R, F]``, HYBRID_HIST's ``life_hist [R, F, 32]`` and
+    ``life_n_obs [R, F]``)."""
+
+    costs: Optional[torch.Tensor]
+    max_idle: int
+    hybrid: bool
+    bin_s: float
+    ttl: float
+    state: dict
+
+
+def life_plane(cluster, R: int, W: int, F: int, device) -> \
+        Optional[LifePlane]:
+    """``cluster``'s life plane for the fused engine, ``None`` without a
+    lifecycle; :class:`NotPortedError` for a keep-alive that is not a
+    built-in (the batched engine runs those)."""
+    lres = resolve_lifecycle(cluster, F, device)
+    if lres is None:
+        return None
+    if not is_builtin(lres.cfg.keepalive):
+        raise NotPortedError(
+            f"sim_engine runs the built-in keep-alives NONE, FIXED_TTL and "
+            f"HYBRID_HIST; got {lres.policy.name!r}")
+    ka = lres.init_policy_state(R, W, F) or {}
+    pre, keep = lres.windows(ka or None)
+    state = {f"life_{k}": v for k, v in ka.items()}
+    state.update(
+        life_idle_since=torch.full((R, W, F), -1.0, dtype=_F64,
+                                   device=device),
+        life_pre=pre.to(_F64).expand(R, F).clone(),
+        life_keep=keep.to(_F64).expand(R, F).clone())
+    bin_s, ttl = hybrid_params(lres.cfg)
+    return LifePlane(
+        costs=None if lres.cold_costs is None else torch.as_tensor(
+            lres.cold_costs, dtype=_F64, device=device),
+        max_idle=lres.max_idle, hybrid=lres.observe is not None,
+        bin_s=bin_s, ttl=ttl, state=state)
+
+
+def _materialized(idle, pre, keep, now):
+    """Pools whose idle age ``now - idle`` lies in ``[pre, pre + keep]``."""
+    age = now - idle
+    return (age >= pre) & (age <= pre + keep)
+
+
+def _observe(life, hist_f, n_obs, pre, keep, f, gap):
+    """HYBRID_HIST's observation of an idle gap of function ``f``: one bin
+    more, then ``f``'s windows alone from its 32 bins, as the kernel's
+    warp computes them (the other functions' windows do not change)."""
+    b = max(min(int(gap / life.bin_s), HIST_BINS - 1), 0)
+    hist_f[b] += 1.0
+    n_obs[f] += 1.0
+    n = float(n_obs[f])
+    cdf, head, tail = 0.0, None, None
+    for k in range(HIST_BINS):
+        cdf += float(hist_f[k])     # integer-valued: exact
+        if head is None and cdf >= HIST_HEAD_Q * n:
+            head = k
+        if tail is None and cdf >= HIST_TAIL_Q * n:
+            tail = k
+    if n >= HIST_MIN_OBS:
+        p = float(head) * life.bin_s * (1.0 - HIST_MARGIN)
+        pre[f] = p
+        keep[f] = (float(tail) + 1.0) * life.bin_s * (1.0 + HIST_MARGIN) - p
+    else:
+        pre[f] = 0.0
+        keep[f] = life.ttl
 
 
 def _choose(balance, state, active, warm_col, home_f, u, i, cores, slots):
@@ -145,8 +237,10 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
     ``worker_of [R, N]`` i32, ``server_time``/``core_time``/``now [R]``
     f64, ``iters [R]`` i64 (advance iterations per replication),
     ``active [R]`` i64 (the active tasks summed over those iterations:
-    the slots a scan reads) and, for a carried-state balancer, its final
-    state as ``lb_<key>`` (``[R, …]``, the keys of its ``init_state``)."""
+    the slots a scan reads), for a carried-state balancer its final
+    state as ``lb_<key>`` (``[R, …]``, the keys of its ``init_state``)
+    and, under a lifecycle, the final life state as ``life_<key>`` (see
+    :class:`LifePlane`)."""
     balance = balancer_name(balance)
     W, C, S = int(cluster.n_workers), int(cluster.cores), int(cluster.slots)
     R, N = arrival.shape
@@ -164,6 +258,9 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
         active=torch.zeros(R, dtype=_I64, device=dev))
     lb = INIT_STATE[balance](R, W, F, dev) if balance in INIT_STATE else {}
     out.update({f"lb_{k}": v for k, v in lb.items()})
+    life = life_plane(cluster, R, W, F, dev)
+    if life is not None:
+        out.update(life.state)
     c = torch.tensor(float(C), dtype=_F64, device=dev)
     pen = torch.tensor(float(cluster.cold_start_penalty), dtype=_F64,
                        device=dev)
@@ -179,6 +276,11 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
         core_time = torch.zeros((), dtype=_F64, device=dev)
         iters = active_sum = 0
         state = {k: v[r] for k, v in lb.items()}     # views: in place
+        if life is not None:                          # views: in place
+            idle = out["life_idle_since"][r]
+            pre, keep = out["life_pre"][r], out["life_keep"][r]
+            if life.hybrid:
+                hist, n_obs = out["life_hist"][r], out["life_n_obs"][r]
         for i in range(N + 1):
             dt_left = arrival[r, i] - now if i < N else \
                 torch.tensor(_BIG_TIME, dtype=_F64, device=dev)
@@ -208,7 +310,23 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
                 remaining = remaining - rates * tau
                 if completed and tid >= 0:
                     resp[tid] = now - task_arr[wj, sj]
-                    warm[wj, int(func[r, tid])] += 1
+                    f = int(func[r, tid])
+                    if life is not None:
+                        # a stale pool restarts from 0; the budget evicts
+                        # the worker's LRU materialized pool
+                        if bool(now - idle[wj, f] > pre[f] + keep[f]):
+                            warm[wj, f] = 0
+                        warm[wj, f] += 1
+                        idle[wj, f] = now
+                        if life.max_idle > 0:
+                            eff = torch.where(_materialized(
+                                idle[wj], pre, keep, now), warm[wj], 0)
+                            if int(eff.sum()) > life.max_idle:
+                                warm[wj, int(torch.where(
+                                    eff > 0, idle[wj],
+                                    torch.inf).argmin())] -= 1
+                    else:
+                        warm[wj, f] += 1
                     remaining[wj, sj] = torch.inf
                     task_idx[wj, sj] = -1
                     _on_complete(balance, state, wj, int(func[r, tid]),
@@ -220,23 +338,44 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
             now = arrival[r, i]
             f = int(func[r, i])
             active = (task_idx >= 0).sum(dim=1).to(_I32)
-            w = _choose(balance, state, active, warm[:, f], home[r, f],
+            warm_col = warm[:, f]
+            if life is not None:
+                warm_col = torch.where(
+                    _materialized(idle[:, f], pre[f], keep[f], now),
+                    warm_col, 0)
+            w = _choose(balance, state, active, warm_col, home[r, f],
                         u_lb[r, i], i, C, S)
             _commit(balance, state, w, f)
             out["rejected"][r, i] = w < 0
             if w < 0:
                 continue
             row, warm_row = task_idx[w], warm[w]
-            is_cold = bool(warm_row[f] == 0)
-            victim = int(warm_row.argmax())
-            need_evict = is_cold and \
-                int((row >= 0).sum()) + int(warm_row.sum()) >= S
+            cost = pen
+            if life is not None:
+                # the worker's materialized pools decide; the victim is
+                # the LRU one
+                eff = torch.where(_materialized(idle[w], pre, keep, now),
+                                  warm_row, 0)
+                is_cold = bool(eff[f] == 0)
+                victim = int(torch.where(eff > 0, idle[w],
+                                         torch.inf).argmin())
+                n_idle = int(eff.sum())
+                if life.costs is not None:
+                    cost = life.costs[f]
+            else:
+                is_cold = bool(warm_row[f] == 0)
+                victim = int(warm_row.argmax())
+                n_idle = int(warm_row.sum())
+            need_evict = is_cold and int((row >= 0).sum()) + n_idle >= S
             if not is_cold:
                 warm_row[f] -= 1
             if need_evict:
                 warm_row[victim] -= 1
+            if life is not None and life.hybrid and float(idle[w, f]) >= 0:
+                _observe(life, hist[f], n_obs, pre, keep, f,
+                         max(float(now - idle[w, f]), 0.0))
             slot = int((row < 0).to(_I32).argmax())
-            remaining[w, slot] = service[r, i] + (pen if is_cold else no_pen)
+            remaining[w, slot] = service[r, i] + (cost if is_cold else no_pen)
             task_arr[w, slot] = now
             task_idx[w, slot] = i
             out["cold"][r, i] = is_cold

@@ -1,0 +1,104 @@
+"""Host-side lifecycle state machine for one event-driven run
+(counterpart of ``repro/lifecycle/runtime.py``).
+
+An event loop that places and completes one invocation at a time (the
+serving controller) keeps its lifecycle state here, in numpy on the
+host; the engines of :mod:`repro_torch.core.simulator` and
+:mod:`repro_torch.kernels.sim_engine` make the same operations in their
+own form, and each method names the engine step it mirrors.  The
+keep-alive policy's state is the resolved policy's own, with one
+replication (``R = 1``), on the resolved device.
+
+State: ``idle_since [W, F]``, the time of each pool's latest completion
+(``-1``: none yet; a warm placement does not refresh it), and the
+windows ``pre``/``keep [F]``, recomputed after each observation of an
+adaptive policy.  A pool is materialized at ``now`` iff ``pre <= now -
+idle_since <= pre + keep``.  The eviction victim is the materialized
+pool with the oldest ``idle_since``, the lowest function id on ties.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .registry import ResolvedLifecycle
+
+
+def _host(x) -> np.ndarray:
+    """A window tensor (``[F]``, or ``[1, F]`` from a state) as ``[F]``."""
+    return x.detach().cpu().numpy().reshape(-1).astype(np.float64)
+
+
+class LifecycleRuntime:
+    """Mutable lifecycle state for one event-driven run."""
+
+    def __init__(self, res: ResolvedLifecycle, n_workers: int,
+                 n_functions: int):
+        self.res = res
+        self.W, self.F = int(n_workers), int(n_functions)
+        self.idle_since = np.full((self.W, self.F), -1.0, dtype=np.float64)
+        self.ka = res.init_policy_state(1, self.W, self.F)
+        self._windows()
+        self.max_idle = res.max_idle
+
+    def _windows(self) -> None:
+        pre, keep = self.res.windows(self.ka)
+        self.pre, self.keep = _host(pre), _host(keep)
+
+    def materialized_col(self, warm_col: np.ndarray, f: int,
+                         now: float) -> np.ndarray:
+        """Warm counts of function ``f`` visible to placement, per worker
+        (the engines' selection-time warm column)."""
+        age = now - self.idle_since[:, f]
+        ok = (age >= self.pre[f]) & (age <= self.pre[f] + self.keep[f])
+        return np.where(ok, warm_col, 0)
+
+    def eff_row(self, warm_row: np.ndarray, w: int,
+                now: float) -> np.ndarray:
+        """Materialized (memory-holding) counts of worker ``w``."""
+        age = now - self.idle_since[w]
+        ok = (age >= self.pre) & (age <= self.pre + self.keep)
+        return np.where(ok, warm_row, 0)
+
+    def evict_victim(self, warm_row: np.ndarray, w: int, now: float) -> int:
+        """The LRU victim on worker ``w`` (the engines' placement and
+        budget eviction); called only when a materialized pool exists."""
+        eff = self.eff_row(warm_row, w, now)
+        return int(np.argmin(np.where(eff > 0, self.idle_since[w],
+                                      np.inf)))
+
+    def on_complete(self, warm: np.ndarray, w: int, f: int,
+                    now: float) -> bool:
+        """A task of function ``f`` completed on worker ``w`` at ``now``:
+        zero a stale pool before the increment, refresh its idle clock,
+        then evict the LRU pool if the worker holds more than
+        ``max_idle`` materialized executors (the engines' completion
+        step).  Returns whether the budget evicted one."""
+        age = now - self.idle_since[w, f]
+        if age > self.pre[f] + self.keep[f]:
+            warm[w, f] = 0
+        warm[w, f] += 1
+        self.idle_since[w, f] = now
+        if self.max_idle > 0:
+            eff = self.eff_row(warm[w], w, now)
+            if eff.sum() > self.max_idle:
+                v = int(np.argmin(np.where(eff > 0, self.idle_since[w],
+                                           np.inf)))
+                warm[w, v] -= 1
+                return True
+        return False
+
+    def observe_place(self, w: int, f: int, now: float) -> None:
+        """Feed the policy the placed pool's idle age, after the warm or
+        cold decision, and recompute the windows (the engines' placement
+        step).  A pool without a completion yet is not an observation."""
+        if self.res.observe is None:
+            return
+        if self.idle_since[w, f] >= 0.0:
+            dev = self.res.device
+            self.ka = self.res.observe(
+                self.ka, torch.tensor([f], dtype=torch.int64, device=dev),
+                torch.tensor([now - self.idle_since[w, f]],
+                             dtype=torch.float64, device=dev),
+                torch.ones(1, dtype=torch.bool, device=dev))
+            self._windows()

@@ -18,8 +18,9 @@ Engines: :data:`ENGINES` and :func:`engine` say which engine runs a
 policy.  On a CUDA device under ``"kernel"`` or ``"auto"``, early
 binding with PS under any of the nine balancers runs whole in the fused
 ``sim_engine`` kernel (:mod:`repro_torch.kernels.sim_engine`), one launch
-per ``simulate_many``; everything else, every CPU device and ``"torch"``
-run the batched engine of :mod:`repro_torch.core.simulator`.
+per ``simulate_many``, unless the cluster is one the kernel does not take
+(:func:`engine`'s ``cluster``); everything else, every CPU device and
+``"torch"`` run the batched engine of :mod:`repro_torch.core.simulator`.
 """
 from __future__ import annotations
 
@@ -137,10 +138,17 @@ def default_backend(policy) -> str:
     return "kernel" if has_kernel else "torch"
 
 
-def engine(policy, device, backend: str = "auto") -> str:
+def engine(policy, device, backend: str = "auto", cluster=None) -> str:
     """``"sim_engine"`` or ``"batched"``: the engine that runs ``policy``
     (a PolicySpec or ``"T/LB/S"`` text) on ``device`` under ``backend``.
-    A table lookup; it needs no card."""
+    A table lookup; it needs no card.
+
+    With a ``cluster``, a policy of the table still takes the batched
+    engine (on the card too: a route, not a fallback) where the fused
+    kernel does not take the cluster: more workers or slots than the
+    kernel holds (``MAX_WORKERS``, ``MAX_SLOTS``), or a lifecycle whose
+    keep-alive is not one of the built-ins the kernel runs.
+    """
     if isinstance(policy, str):
         from repro_torch.core.taxonomy import parse_policy
         policy = parse_policy(policy)
@@ -151,7 +159,22 @@ def engine(policy, device, backend: str = "auto") -> str:
         return "batched"
     key = (_name(policy.binding), check_balancer(policy.balance),
            check_sched(policy.sched))
-    return ENGINES.get(key, "batched")
+    route = ENGINES.get(key, "batched")
+    if route == "sim_engine" and cluster is not None and \
+            not _fused_takes(cluster):
+        return "batched"
+    return route
+
+
+def _fused_takes(cluster) -> bool:
+    """Whether the fused kernel takes ``cluster``'s shape and lifecycle."""
+    from repro_torch.kernels.sim_engine.kernel import MAX_SLOTS, MAX_WORKERS
+    from repro_torch.lifecycle import is_builtin
+    if int(cluster.n_workers) > MAX_WORKERS or \
+            int(cluster.slots) > MAX_SLOTS:
+        return False
+    life = cluster.lifecycle
+    return life is None or is_builtin(life.keepalive)
 
 
 def resolve(policy, cluster, device=None, backend: str = "auto"

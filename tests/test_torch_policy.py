@@ -108,5 +108,6 @@ def test_named_errors_and_late_binding():
     assert res.late and res.select is None and res.rates is None
     assert resolve("E/H/PS", ClusterCfg(), device="cpu").backend == "kernel"
     assert resolve("E/LL/PS", ClusterCfg(), device="cpu").backend == "torch"
-    with pytest.raises(NotImplementedError, match="lifecycle"):
+    # the lifecycle is ported: what is not a LifecycleCfg is refused
+    with pytest.raises(ValueError, match="lifecycle must be a LifecycleCfg"):
         ClusterCfg(lifecycle=object()).validate()

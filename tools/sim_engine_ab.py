@@ -1,0 +1,155 @@
+#!/usr/bin/env python3
+"""Device times of the fused engine's runs in ``chip_smoke.py``'s phases
+4, 12 and 13, for comparing two trees of the port on one card.
+
+    python3 tools/sim_engine_ab.py --src PATH/src --out times.json
+    python3 tools/sim_engine_ab.py --compare A.json B.json B2.json A2.json
+
+The first form imports ``repro_torch`` from ``PATH/src`` (so one copy of
+this script times any checkout that has the same ``simulate_many``),
+builds its ``sim_engine`` and times, by CUDA events just around each
+launch, the fused runs of phase 4 (fig4: E/{H,LL,LOC}/PS, W = 100,
+N = 12 000, R = 4), phase 12 (fig10's full mode: the five ``azure-*``
+scenarios × the three policies, R = 20; fig14's horizon lane, W = 1000,
+N = 86 400) and phase 13 (fig11's quick lanes, the nine policies; fig4's
+five zoo rows), each without a lifecycle, each run once after a warm-up
+launch.  It writes ``{run: ms}`` as JSON.  The second form reads the
+JSON of runs made in turns in one call (old, new, new, old) and prints,
+for each run and phase, the new tree's mean time over the old's.  It
+needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import types
+from pathlib import Path
+
+#: phase -> the fused runs' shapes, as chip_smoke.py makes them
+LOADS = (0.5, 0.7, 0.9, 0.97)
+AZURE = ("azure-diurnal", "azure-bursty", "azure-cold-heavy",
+         "azure-flash-crowd", "azure-fixture")
+
+
+def _runs():
+    """(phase, key, policy, cluster, workload batch), in phase order."""
+    from repro_torch.core import (E_DD_PS, E_HIKU_PS, E_JSQ2_PS, E_LL_PS,
+                                  E_LOC_PS, E_RR_PS, E_SWARM_PS, HERMES,
+                                  PAPER_LARGE, PAPER_SMALL, PAPER_TESTBED,
+                                  WORKLOADS, ZOO_POLICIES, ClusterCfg,
+                                  bimodal_exec, ms_trace,
+                                  replicate_workload)
+    from repro_torch.policy import balancer_names
+    fused = (HERMES, E_LL_PS, E_LOC_PS)
+    zoo = (E_JSQ2_PS, E_RR_PS, E_HIKU_PS, E_DD_PS, E_SWARM_PS)
+    fig4 = replicate_workload(ms_trace, PAPER_LARGE, LOADS, 12_000,
+                              seeds=(1,))
+    for p in fused:
+        yield "4", f"fig4 {p.name}", p, PAPER_LARGE, fig4
+    testbed = PAPER_TESTBED._replace(cold_start_penalty=0.5)
+    for name in AZURE:
+        wb = replicate_workload(WORKLOADS[name], testbed,
+                                (0.3, 0.5, 0.7, 0.85), 12_000,
+                                seeds=(1, 2, 3, 4, 5))
+        for p in fused:
+            yield "12", f"fig10 {name} {p.name}", p, testbed, wb
+    lane_cl = ClusterCfg(n_workers=1000, cores=2, capacity_factor=2)
+    lane = replicate_workload(WORKLOADS["azure-diurnal"], lane_cl, LOADS,
+                              86_400, seeds=(1,))
+    for p in fused:
+        yield "12", f"horizon {p.name}", p, lane_cl, lane
+    names = {p.name for p in ZOO_POLICIES}
+    fig11 = list(ZOO_POLICIES) + [p for p in map(_early_ps, balancer_names())
+                                  if p.name not in names]
+    for lane_name, make in (("ms-trace", ms_trace),
+                            ("bimodal-exec", bimodal_exec)):
+        wb = replicate_workload(make, PAPER_SMALL, (0.5, 0.7, 0.8, 0.9),
+                                6_000, seeds=(0,))
+        for p in fig11:
+            yield "13", f"fig11 {lane_name} {p.name}", p, PAPER_SMALL, wb
+    for p in zoo:
+        yield "13", f"fig4 {p.name}", p, PAPER_LARGE, fig4
+
+
+def _early_ps(balancer):
+    from repro_torch.core import Binding, PolicySpec, WorkerSched
+    return PolicySpec(Binding.EARLY, balancer, WorkerSched.PS)
+
+
+def measure(src: Path) -> dict:
+    sys.path.insert(0, str(src))
+    import torch
+
+    from repro_torch.core.simulator import simulate_many
+    from repro_torch.kernels.sim_engine import kernel, ops
+    from repro_torch.policy import engine
+
+    if not torch.cuda.is_available():
+        raise SystemExit("sim_engine_ab: needs a CUDA card")
+    seen = []
+
+    def timed(*args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        res = kernel.sim_engine(*args)
+        end.record()
+        seen.append((start, end))
+        return res
+
+    ops.kernel = types.SimpleNamespace(sim_engine=timed)
+    times, warm = {}, set()
+    for phase, key, policy, cluster, wb in _runs():
+        if engine(policy, "cuda") != "sim_engine":
+            continue
+        if (policy.name, cluster) not in warm:
+            # a short launch first: module load and first-use costs
+            simulate_many(policy, cluster, dataclasses.replace(wb, **{
+                f: getattr(wb, f)[:, :50] for f in ("arrival", "func",
+                                                    "service", "u_lb")}),
+                device="cuda")
+            warm.add((policy.name, cluster))
+        seen.clear()
+        simulate_many(policy, cluster, wb, device="cuda")
+        torch.cuda.synchronize()
+        start, end = seen[0]
+        times[f"{phase} {key}"] = start.elapsed_time(end)
+        print(f"{phase} {key}: {times[f'{phase} {key}']:.3f} ms",
+              flush=True)
+    return times
+
+
+def compare(paths) -> None:
+    runs = [json.loads(Path(p).read_text()) for p in paths]
+    old = [r for i, r in enumerate(runs) if i in (0, len(runs) - 1)]
+    new = [r for i, r in enumerate(runs) if i not in (0, len(runs) - 1)]
+    by_phase: dict[str, list[float]] = {}
+    for key in old[0]:
+        o = sum(r[key] for r in old) / len(old)
+        n = sum(r[key] for r in new) / len(new)
+        by_phase.setdefault(key.split()[0], []).append(n / o)
+        print(f"{key}: old {o:.3f} ms, new {n:.3f} ms, new / old "
+              f"{n / o:.4f}")
+    for phase, ratios in by_phase.items():
+        print(f"phase {phase}: new / old over {len(ratios)} runs: min "
+              f"{min(ratios):.4f}, mean {sum(ratios) / len(ratios):.4f}, "
+              f"max {max(ratios):.4f}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", type=Path)
+    ap.add_argument("--out", type=Path)
+    ap.add_argument("--compare", nargs="+")
+    args = ap.parse_args()
+    if args.compare:
+        compare(args.compare)
+        return 0
+    times = measure(args.src.resolve())
+    args.out.write_text(json.dumps(times, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
