@@ -11,7 +11,9 @@ non-zero):
 1. environment: python/torch/CUDA versions, the card's name and power
    limit as ``nvidia-smi`` reports them, capability (9, 0);
 2. build: every ``src/repro_torch/csrc/*.cu`` with ``nvcc`` (in parallel),
-   each kernel's registers and spills as ``ptxas`` reports them;
+   each kernel's registers and spills as ``ptxas`` reports them (36
+   instantiations of ``sim_engine``: balancer × lifecycle × observation
+   plane);
 3. kernel against its plain version on the card: ``hermes_select`` at
    W ∈ {100, 1000}, R ∈ {1, 8}, N ∈ {1, 256}, random and edge states,
    exactly equal; CUDA-event times of both at the serving and per-arrival
@@ -43,9 +45,11 @@ non-zero):
    launch; E/H/FCFS and E/H/SRPT, which keep the batched engine, one
    ``hermes_select`` launch per arrival); there the fused kernel equal to
    the plain engine on the card and to its plain version
-   (``sim_engine_ref``, on the card) in every plane and iteration count,
+   (``sim_engine_ref``, on the CPU) in every plane and iteration count,
    and E/H/FCFS and E/H/SRPT equal to the plain engine on the card
-   (``backend="kernel"`` against ``"torch"``) in every plane;
+   (``backend="kernel"`` against ``"torch"``) in every plane; the plain
+   runs go side by side in the worker processes that phases 12-15 use
+   too, while the card runs the kernel paths;
 6. the attention kernels against their plain versions on the card, in f32
    (atol = rtol = 1e-4: the same f32 math in another summation order) and
    bf16 (2e-2, ``tests/test_kernels.py``'s bf16 tolerance: the output is
@@ -132,8 +136,8 @@ non-zero):
     batched engine's run of them on the CPU (and a fused run of just
     those equal to it in every plane); ``sim_engine`` equal to
     ``sim_engine_ref`` for the five at W = 4, final balancer state
-    included; fig11's verdicts printed, not gated; the CPU runs in
-    phase 12's worker processes; the phase ≤ 60 s;
+    included; fig11's verdicts printed, not gated; the CPU runs in the
+    worker processes; the phase ≤ 60 s;
 14. the keep-alive axis on the card (``repro_torch.lifecycle``, the life
     plane of ``sim_engine``), every run fused (one ``sim_engine`` launch,
     no host sync, no ``hermes_select`` launch) on the paper's testbed (8 ×
@@ -156,7 +160,34 @@ non-zero):
     takes the batched engine on the card (one ``hermes_select`` launch an
     arrival, no ``sim_engine`` launch), equal to the plain engine on the
     card and to the CPU; fig12's claims printed, not gated; the CPU runs
-    in phase 12's worker processes; the phase ≤ 60 s.
+    in the worker processes; the phase ≤ 60 s;
+15. telemetry and the heterogeneous fleet on the card
+    (``repro_torch.telemetry``, ``repro_torch.fleet``: the observation
+    plane of ``sim_engine``), every run fused (one ``sim_engine`` launch,
+    no host sync, no ``hermes_select`` launch): (a) bench_telemetry's
+    sketch lane in full mode (8 × 8 cores, ``ms-trace`` at loads
+    0.3/0.6/0.8, seeds 17-21, N = 60 000; the nine E/<B>/PS policies, 27
+    runs), the sketch's p50/p99 slowdown within 2 % of the exact pooled
+    ``summarize_batch_sim`` (gated); (b) fig13's full mode on the testbed
+    (``azure-diurnal``, N = 6000, R = 1): the balancer lane (a ``two-gen``
+    fleet, loads 0.5/0.65/0.8 × E/{H,LL,SWARM}/PS) and the frontier lane
+    (seeds 1-3 × static W ∈ {5, 6, 7, 8} and the ``TARGET_P99``
+    autoscaler, target 3.0, ``min_workers`` 2, cooldown 2 s), its two
+    claims printed, not gated; the first 1000 arrivals of each of the 51
+    runs equal to the batched engine's run of them on the CPU (and a fused
+    run of just those equal to it in every plane, the telemetry, the
+    autoscaler's state and ``prov_core_s``; an autoscaler's prefix at the
+    full run's warmup cutoff); (c) a user's autoscaler on the batched
+    engine on the card (no ``sim_engine`` launch, equal to the CPU), and
+    ``TARGET_P99``'s two named errors (late binding, no telemetry); (d)
+    the plane's cost: phase 4's E/H/PS inputs without it, with a
+    ``uniform`` fleet (which changes nothing, so the plane stays off), with
+    telemetry and with a ``two-gen`` fleet (other dynamics: more tasks
+    at once), CUDA-event times in turns; and
+    ``sim_engine`` equal to ``sim_engine_ref`` for the nine balancers
+    under telemetry, a ``two-gen`` fleet and ``TARGET_P99`` on phase 5's
+    overloaded cluster; the CPU runs in the worker processes; the phase
+    ≤ 60 s.
 
 TF32 is off for matrix products and cuDNN throughout.  The line before the
 last is ``{"kernels": [...]}``; the last line is
@@ -442,10 +473,11 @@ def profile_main_path(torch, np, report, cluster):
         host_syncs=stats.host_syncs, advance_iters=stats.advance_iters)
 
 
-def validate(np, out, wb, name, penalty=0.0):
+def validate(np, out, wb, name, penalty=0.0, speed=None):
     """The reference's invariants (tests/test_simulator.py); a cold start
     adds ``penalty`` to its invocation's work (a scalar, or a cost per
-    function)."""
+    function), and under a fleet an invocation holds its core for its
+    work over its worker's ``speed``."""
     R, N = wb.arrival.shape
     check(out.response.shape == (R, N) and out.worker.dtype == np.int32,
           f"{name}: bad output shape/dtype")
@@ -457,7 +489,10 @@ def validate(np, out, wb, name, penalty=0.0):
     for r in range(R):
         pen = penalty if np.ndim(penalty) == 0 else \
             np.asarray(penalty)[wb.func[r]]
-        work = (wb.service[r] + pen * out.cold[r])[done[r]].sum()
+        held = wb.service[r] + pen * out.cold[r]
+        if speed is not None:
+            held = held / np.asarray(speed)[np.maximum(out.worker[r], 0)]
+        work = held[done[r]].sum()
         check(abs(out.core_time[r] - work) < 1e-6 * work,
               f"{name}: core-time {out.core_time[r]} != work {work}")
 
@@ -483,7 +518,7 @@ def engine_inputs(torch, np, wb):
             put(wb.func_home, torch.int32))
 
 
-def engine_bound(out, n, n_reps, n_functions, budget=False
+def engine_bound(out, n, n_reps, n_functions, budget=False, speed=None
                  ) -> tuple[float, str, int, int]:
     """(ms, "bytes" | "operations", bytes, operations): the least time the
     card could take for a fused run.  Bytes: each input read once (28 B an
@@ -497,8 +532,19 @@ def engine_bound(out, n, n_reps, n_functions, budget=False
     preset's costs read once, and each placement tests the window of each
     of the worker's pools (a subtraction and an addition each), each
     completion that of its own pool, or of all the worker's pools under a
-    ``budget``.  The chain of dependent barriers, not either of these, is
-    what holds the kernel back."""
+    ``budget``.  Under the observation plane, only what the run asked
+    for: with telemetry returned, its state written once, the edges read
+    once, three operations for each busy worker of an advance iteration
+    with tau > 0 (the kernel's ``busy_iters``: the busy addition, the
+    depth product and addition) and for each recorded completion a
+    division and two binary searches of the 1537 edges (11 compares
+    each); with a ``speed`` vector not all 1.0, the speeds read once and
+    one product for each such busy worker (its rate by its speed; the
+    iterations with tau = 0 need it too, so this counts at least what
+    the run needs); under the autoscaler, its state written once and the
+    provisioned-time integral's three operations an arrival (its rare
+    decisions are not counted).  The chain of dependent barriers, not
+    either of these, is what holds the kernel back."""
     nbytes = n_reps * (42 * n + 4 * n_functions + 40)
     ops = 2 * int(out["active"].sum())
     if "life_pre" in out:
@@ -507,6 +553,17 @@ def engine_bound(out, n, n_reps, n_functions, budget=False
         nbytes += 8 * n_functions + sum(
             v.numel() * v.element_size() for k, v in out.items()
             if k.startswith("life_"))
+    busy = int(out["busy_iters"].sum()) if "busy_iters" in out else 0
+    if "tel_slow_hist" in out:
+        ops += 3 * busy + 23 * int(out["tel_slow_hist"].sum())
+        nbytes += 8 * 1537
+    if speed is not None and any(float(x) != 1.0 for x in speed):
+        ops += busy
+        nbytes += 8 * len(speed)
+    if "fleet_prov_time" in out:
+        ops += 3 * n * n_reps
+    nbytes += sum(v.numel() * v.element_size() for k, v in out.items()
+                  if k.startswith(("tel_", "fleet_")))
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / F64_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -651,7 +708,12 @@ def card_vs_cpu(np, card, cpu, what: str) -> float:
     return gap
 
 
-def end_to_end(torch, np, report, cluster):
+def end_to_end(torch, np, report, cluster, pool):
+    """Phase 5: the kernel paths against the plain paths.  The batched
+    engine's runs that hold them (on the card and on the CPU) and the
+    fused kernel's plain version (``sim_engine_ref``, on the CPU) go to
+    ``pool``'s workers while the card runs the kernel paths here.
+    Returns the kernel's max abs error against its plain version."""
     from repro_torch.core import (E_LL_PS, E_LOC_PS, E_R_PS, HERMES,
                                   LATE_BINDING, ClusterCfg, WorkerSched,
                                   ms_trace, replicate_workload,
@@ -659,7 +721,6 @@ def end_to_end(torch, np, report, cluster):
     from repro_torch.core.simulator import LoopStats, simulate_many
     from repro_torch.kernels.hermes_select import kernel as hk
     from repro_torch.kernels.sim_engine import kernel as ek
-    from repro_torch.kernels.sim_engine.ref import sim_engine_ref
 
     fused = (HERMES, E_LL_PS, E_LOC_PS, E_R_PS)
     # Hermes under the other schedulers keeps the batched engine, with the
@@ -670,28 +731,14 @@ def end_to_end(torch, np, report, cluster):
     def same(a, b, what):
         same_planes(np, a, b, f"{what}: kernel path vs plain engine")
 
-    # the fused kernel against the plain batched engine, both on the card
+    # the fused kernel against the plain batched engine, both on the card,
+    # and Hermes' against the CPU's run; then every policy of phase 4,
+    # E/R/PS, E/H/FCFS and E/H/SRPT, card against CPU, on the fig4 cluster
+    # at a short horizon and on an overloaded 4x3-core cluster where
+    # rejections, evictions and the late-binding queue occur, each with
+    # its launch counts; the kernel paths also against the plain engine
+    # on the card, and the fused kernel against its plain version
     wb = replicate_workload(ms_trace, cluster, LOADS, N_CHECK, seeds=(SEED,))
-    kern = {}
-    for policy in fused:
-        kern[policy] = simulate_many(policy, cluster, wb, device="cuda")
-        plain = simulate_many(policy, cluster, wb, device="cuda",
-                              backend="torch")
-        same(kern[policy], plain, f"{policy.name} fig4 N={N_CHECK}")
-        log(f"{policy.name} N={N_CHECK}: sim_engine == plain engine on the "
-            f"card, all planes")
-    cpu = simulate_many(HERMES, cluster, wb, device="cpu")
-    gaps = {f"{HERMES.name} N={N_CHECK}": card_vs_cpu(np, kern[HERMES], cpu,
-                                                      HERMES.name)}
-    log(f"N={N_CHECK}: {HERMES.name} card == CPU in integer planes, max "
-        f"float gap {gaps[f'{HERMES.name} N={N_CHECK}']}")
-
-    # every policy of phase 4, E/R/PS, E/H/FCFS and E/H/SRPT, card against
-    # CPU, on the fig4 cluster at a short horizon and on an overloaded
-    # 4x3-core cluster where rejections, evictions and the late-binding
-    # queue occur, each with its launch counts; the kernel paths also
-    # against the plain engine on the card, and the fused kernel against
-    # its plain version (sim_engine_ref, on the card), iteration counts too
     tiny = ClusterCfg(n_workers=4, cores=3, capacity_factor=2,
                       cold_start_penalty=0.25)
     cases = (
@@ -701,16 +748,37 @@ def end_to_end(torch, np, report, cluster):
             synth_workload(tiny, load, N_SHORT, n_functions=5,
                            hot_fraction=0.8, seed=SEED)
             for load in (1.3, 3.0, 6.0))))
-    max_err = 0.0
+    # (key, device) -> plain_run's arguments, longest first; the CPU's
+    # runs take the default backend, as a user's CPU run does
+    fig4_key = {p: f"{p.name} fig4 N={N_CHECK}" for p in fused}
+    jobs = {(fig4_key[p], "cuda"): (p, cluster, wb, "cuda") for p in fused}
+    jobs[fig4_key[HERMES], "cpu"] = (HERMES, cluster, wb, "cpu", None,
+                                     "auto")
+    ref_jobs = {}
     for label, cl, wbs in cases:
-        args = engine_inputs(torch, np, wbs)
+        for policy in (*fused, *per_arrival, LATE_BINDING):
+            key = f"{policy.name} {label} N={N_SHORT}"
+            jobs[key, "cpu"] = (policy, cl, wbs, "cpu", None, "auto")
+            if policy != LATE_BINDING:
+                jobs[key, "cuda"] = (policy, cl, wbs, "cuda")
+            if policy in fused:
+                ref_jobs[key] = (policy.balance, cl, wbs)
+    t0 = time.perf_counter()
+    plain_done = pool.starmap_async(plain_run, jobs.values(), chunksize=1)
+    ref_done = pool.starmap_async(plain_engine_ref, ref_jobs.values(),
+                                  chunksize=1)
+
+    # the kernel paths on the card, while the workers run
+    kern = {p: simulate_many(p, cluster, wb, device="cuda") for p in fused}
+    card = {}
+    for label, cl, wbs in cases:
         for policy in (*fused, *per_arrival, LATE_BINDING):
             stats = LoopStats()
             backend = "kernel" if policy in per_arrival else "auto"
             ek.sim_engine.launches = 0
             hk.hermes_select_batch.launches = 0
-            card = simulate_many(policy, cl, wbs, device="cuda",
-                                 backend=backend, stats=stats)
+            out = simulate_many(policy, cl, wbs, device="cuda",
+                                backend=backend, stats=stats)
             counts = (ek.sim_engine.launches,
                       hk.hermes_select_batch.launches)
             want = (1, 0) if policy in fused else \
@@ -719,35 +787,41 @@ def end_to_end(torch, np, report, cluster):
             check(counts == want, f"{key} ({backend}): sim_engine and "
                                   f"hermes_select launched {counts}, "
                                   f"expected {want}")
-            ref = simulate_many(policy, cl, wbs, device="cpu")
-            gaps[key] = card_vs_cpu(np, card, ref, key)
-            log(f"{key}: card == CPU in integer planes, max float gap "
-                f"{gaps[key]}; {int(card.rejected.sum())} rejected, "
-                f"{stats.pop_iters} queue pops; sim_engine and "
-                f"hermes_select launched {counts}")
-            if policy == LATE_BINDING:
-                continue
-            same(card, simulate_many(policy, cl, wbs, device="cuda",
-                                     backend="torch"), key)
-            if policy in per_arrival:
-                log(f"{key}: kernel == plain engine on the card in every "
-                    f"plane")
-                continue
-            k = ek.sim_engine(policy.balance, cl, *args)
-            p = sim_engine_ref(policy.balance, cl, *args)
-            for name in k:
-                a = k[name].double().cpu().nan_to_num(nan=-1.0)
-                b = p[name].double().cpu().nan_to_num(nan=-1.0)
-                err = float((a - b).abs().max())
-                max_err = max(max_err, err)
-                check(err == 0, f"{key}: sim_engine != sim_engine_ref in "
-                                f"{name} (max abs err {err})")
-            log(f"{key}: sim_engine == plain engine and == sim_engine_ref "
-                f"on the card in every plane, {int(k['iters'].sum())} "
-                f"advance iterations")
+            card[key] = (out, counts, stats)
+
+    plain = {k: out for k, (out, _) in zip(jobs, plain_done.get())}
+    plain_s = time.perf_counter() - t0
+    for policy in fused:
+        same(kern[policy], plain[fig4_key[policy], "cuda"],
+             f"{policy.name} fig4 N={N_CHECK}")
+        log(f"{policy.name} N={N_CHECK}: sim_engine == plain engine on the "
+            f"card, all planes")
+    key = fig4_key[HERMES]
+    gaps = {key: card_vs_cpu(np, kern[HERMES], plain[key, "cpu"], key)}
+    log(f"N={N_CHECK}: {HERMES.name} card == CPU in integer planes, max "
+        f"float gap {gaps[key]}")
+    for key, (out, counts, stats) in card.items():
+        gaps[key] = card_vs_cpu(np, out, plain[key, "cpu"], key)
+        log(f"{key}: card == CPU in integer planes, max float gap "
+            f"{gaps[key]}; {int(out.rejected.sum())} rejected, "
+            f"{stats.pop_iters} queue pops; sim_engine and hermes_select "
+            f"launched {counts}")
+        if (key, "cuda") in plain:
+            same(out, plain[key, "cuda"], key)
+            log(f"{key}: kernel path == plain engine on the card in every "
+                f"plane")
+    max_err = 0.0
+    for (key, job), ref in zip(ref_jobs.items(), ref_done.get()):
+        max_err = max(max_err, kernel_vs_ref(torch, np, job, ref, key))
+    log(f"sim_engine == sim_engine_ref (on the CPU) for "
+        f"{', '.join(p.name for p in fused)} on both clusters at "
+        f"N={N_SHORT}: every plane (max abs err {max_err})")
+    log(f"{len(jobs) + len(ref_jobs)} plain runs in {PLAIN_WORKERS} worker "
+        f"processes: {plain_s:.1f} s from their start")
     report["end_to_end"] = dict(n=N_CHECK, n_short=N_SHORT,
                                 card_vs_cpu_max_gap=gaps,
-                                sim_engine_max_abs_err=max_err)
+                                sim_engine_max_abs_err=max_err,
+                                plain_runs_s=plain_s)
     return max_err
 
 
@@ -1488,7 +1562,7 @@ HORIZON = dict(n_workers=1000, cores=2, capacity_factor=2)
 HORIZON_N = 86_400
 TRACE_PHASE_S = 60.0
 SCRIPT_S = 600.0
-#: worker processes for phase 12's batched-engine runs.  Each run is
+#: worker processes for the batched engine's check runs.  Each run is
 #: bound by the host's op issue (~300 launches an arrival), so they go
 #: side by side, each in a process of its own; those that need not be on
 #: the card run on the CPU, beside the horizon runs, and those on the card
@@ -1507,12 +1581,15 @@ def _warm_worker():
     torch.zeros(1, device="cuda")
 
 
-def plain_run(policy, cluster, wb, device):
-    """One run of the batched engine (``backend="torch"``) on ``device``:
+def plain_run(policy, cluster, wb, device, telemetry=None,
+              backend="torch"):
+    """One run of the batched engine (``backend="torch"``, or on the CPU
+    ``"auto"``, whose route is the batched engine too) on ``device``:
     (output, wall s).  Top-level, so that a worker process can run it."""
     from repro_torch.core.simulator import simulate_many
     t0 = time.perf_counter()
-    out = simulate_many(policy, cluster, wb, device=device, backend="torch")
+    out = simulate_many(policy, cluster, wb, device=device, backend=backend,
+                        telemetry=telemetry)
     return out, time.perf_counter() - t0
 
 
@@ -1541,7 +1618,7 @@ def engine_events(torch):
         ops.kernel = ek
 
 
-def fused_run(torch, np, policy, cluster, wb, what):
+def fused_run(torch, np, policy, cluster, wb, what, telemetry=None):
     """One ``simulate_many`` on the card with the launch counts zeroed just
     before it and read just after: (output, wall s, LoopStats, kernel),
     ``kernel`` the launch's device time in ms (CUDA events just around
@@ -1557,7 +1634,8 @@ def fused_run(torch, np, policy, cluster, wb, what):
     hk.hermes_select_batch.launches = 0
     with engine_events(torch) as seen:
         t0 = time.perf_counter()
-        out = simulate_many(policy, cluster, wb, device="cuda", stats=stats)
+        out = simulate_many(policy, cluster, wb, device="cuda", stats=stats,
+                            telemetry=telemetry)
         wall = time.perf_counter() - t0
     counts = (ek.sim_engine.launches, hk.hermes_select_batch.launches)
     check(counts == (1, 0) and len(seen) == 1,
@@ -1565,9 +1643,17 @@ def fused_run(torch, np, policy, cluster, wb, what):
           f"expected (1, 0)")
     check(stats.host_syncs == 0, f"{what}: {stats.host_syncs} host syncs "
                                  f"in the fused loop")
-    validate(np, out, wb, what, cold_cost(cluster, wb.n_functions))
+    validate(np, out, wb, what, cold_cost(cluster, wb.n_functions),
+             speed_of(cluster))
     start, end, res = seen[0]
     return out, wall, stats, dict(ms=start.elapsed_time(end), res=res)
+
+
+def speed_of(cluster):
+    """The cluster's per-worker speeds, ``None`` without a fleet."""
+    from repro_torch.fleet import speeds_for
+    fleet = cluster.fleet
+    return None if fleet is None else speeds_for(fleet, cluster.n_workers)
 
 
 def cold_cost(cluster, n_functions):
@@ -1624,22 +1710,22 @@ def _log_rows(label, rows):
 
 
 def plain_pool():
-    """The worker processes of phases 12 and 13's batched-engine runs."""
+    """The worker processes of the batched engine's check runs (phases 5
+    and 12-15)."""
     import multiprocessing
     return multiprocessing.get_context("spawn").Pool(
         PLAIN_WORKERS, initializer=_warm_worker)
 
 
-def trace_replay(torch, np, report, workers):
+def trace_replay(torch, np, report, pool):
     """Phase 12: the Azure-schema trace scenarios (``repro_torch.trace``)
     through ``simulate_many`` on the card.  (a) fig10's full mode on the
     testbed, (b) the five scenarios in one mixed batch, (c) fig14's
     horizon lane, each run alone on the card; the batched engine's runs go
     side by side in worker processes, those on the CPU beside (c) and
-    those on the card after it.  The pool of workers starts after (a) and
-    (b), so that its start does not share the host with their runs, and
-    stays open in ``workers`` (an ExitStack) for phase 13.  Returns the
-    ``sim_engine`` launches of every fused run here, and the pool."""
+    those on the card after it, in ``pool``'s workers (idle while (a) and
+    (b) run).  Returns the ``sim_engine`` launches of every fused run
+    here."""
     from repro_torch.core import (E_LL_PS, E_LOC_PS, HERMES, LATE_BINDING,
                                   PAPER_TESTBED, WORKLOADS, ClusterCfg,
                                   replicate_workload, summarize_batch_sim)
@@ -1765,7 +1851,6 @@ def trace_replay(torch, np, report, workers):
     # and the plain runs fit beside (c)
     checked = {name: fused[i % len(fused)] for i, name in enumerate(AZURE)}
     lane_prefix = prefix(lane, N_TRACE_PLAIN)
-    pool = workers.enter_context(plain_pool())
     # the plain runs that need not be on the card, on the CPU (whose
     # engine the card equals in every plane: the card-vs-CPU check
     # below), while (c) runs: the prefixes of (a) and (c), and (b)'s
@@ -1879,7 +1964,7 @@ def trace_replay(torch, np, report, workers):
     log(f"phase 12: {launches} sim_engine launches, {phase_s:.1f} s")
     check(phase_s <= TRACE_PHASE_S, f"phase 12 took {phase_s:.1f} s "
                                     f"(limit {TRACE_PHASE_S:.0f} s)")
-    return launches, pool
+    return launches
 
 
 # -- the policy zoo (phase 13) --
@@ -1910,7 +1995,7 @@ def registry_policies(base):
     return tuple(pols)
 
 
-def plain_engine_ref(balance, cluster, wb):
+def plain_engine_ref(balance, cluster, wb, telemetry=None):
     """``sim_engine_ref`` on the CPU for a workload batch, as numpy.
     Top-level, so that a worker process can run it."""
     import numpy as np
@@ -1924,8 +2009,32 @@ def plain_engine_ref(balance, cluster, wb):
                          put(wb.func, torch.int32),
                          put(wb.service, torch.float64),
                          put(wb.u_lb, torch.float64),
-                         put(wb.func_home, torch.int32))
+                         put(wb.func_home, torch.int32), telemetry)
     return {k: v.numpy() for k, v in out.items()}
+
+
+def kernel_vs_ref(torch, np, job, plain, what: str) -> float:
+    """``sim_engine`` on the card for one of :func:`plain_engine_ref`'s
+    jobs (balance, cluster, workloads[, telemetry]) against that job's
+    output ``plain``: the same outputs, dtypes and values, the final state
+    included.  These launches compare; they are not a main path's.
+    Returns the max abs error."""
+    from repro_torch.kernels.sim_engine import kernel as ek
+    balance, cl, wb, *tel = job
+    got = ek.sim_engine(balance, cl, *engine_inputs(torch, np, wb), *tel)
+    check(sorted(got) == sorted(plain),
+          f"sim_engine {balance}: outputs {sorted(got)} != the plain "
+          f"version's {sorted(plain)}")
+    err = 0.0
+    for name, want in plain.items():
+        a = got[name].cpu().numpy()
+        check(a.dtype == want.dtype and np.array_equal(
+            a, want, equal_nan=name == "resp"),
+            f"{what}: sim_engine != sim_engine_ref in {name}")
+        err = max(err, float(np.abs(
+            np.nan_to_num(a.astype(np.float64), nan=-1.0)
+            - np.nan_to_num(want.astype(np.float64), nan=-1.0)).max()))
+    return err
 
 
 def policy_zoo(torch, np, report, pool):
@@ -1941,7 +2050,6 @@ def policy_zoo(torch, np, report, pool):
                                   bimodal_exec, ms_trace,
                                   replicate_workload, stack_workloads,
                                   summarize_batch_sim, synth_workload)
-    from repro_torch.kernels.sim_engine import kernel as ek
     from repro_torch.trace import resample_workloads
 
     t_phase = time.perf_counter()
@@ -2086,21 +2194,11 @@ def policy_zoo(torch, np, report, pool):
     # balancer state included (these launches compare, they are not the
     # main path's)
     max_err = 0.0
-    for (balance, cl, wb), plain in zip(ref_jobs, ref_done.get()):
-        got = ek.sim_engine(balance, cl, *engine_inputs(torch, np, wb))
-        check(sorted(got) == sorted(plain),
-              f"sim_engine {balance}: outputs {sorted(got)} != the plain "
-              f"version's {sorted(plain)}")
-        for name, want in plain.items():
-            a = got[name].cpu().numpy()
-            check(a.dtype == want.dtype and np.array_equal(
-                a, want, equal_nan=name == "resp"),
-                f"sim_engine {balance} W={cl.n_workers} R={wb.n_reps}: != "
-                f"sim_engine_ref in {name}")
-            err = float(np.abs(np.nan_to_num(a.astype(np.float64), nan=-1.0)
-                               - np.nan_to_num(want.astype(np.float64),
-                                               nan=-1.0)).max())
-            max_err = max(max_err, err)
+    for job, plain in zip(ref_jobs, ref_done.get()):
+        balance, cl, wb = job
+        max_err = max(max_err, kernel_vs_ref(
+            torch, np, job, plain,
+            f"{balance} W={cl.n_workers} R={wb.n_reps}"))
     log(f"sim_engine == sim_engine_ref (on the CPU) for "
         f"{', '.join(p.balance for p in zoo)} at W=4, N={N_SHORT}, the fig11 "
         f"mixed batch and an overloaded cluster: every plane and the final "
@@ -2330,21 +2428,10 @@ def keepalive_axis(torch, np, report, pool):
     # final life and balancer state included (these launches compare,
     # they are not the main path's)
     max_err = 0.0
-    for (balance, cl, wb), plain in zip(ref_jobs, ref_done.get()):
-        got = ek.sim_engine(balance, cl, *engine_inputs(torch, np, wb))
-        check(sorted(got) == sorted(plain),
-              f"sim_engine {balance}: outputs {sorted(got)} != the plain "
-              f"version's {sorted(plain)}")
-        for name, want in plain.items():
-            a = got[name].cpu().numpy()
-            check(a.dtype == want.dtype and np.array_equal(
-                a, want, equal_nan=name == "resp"),
-                f"sim_engine {balance} {cl.lifecycle.keepalive}: != "
-                f"sim_engine_ref in {name}")
-            err = float(np.abs(np.nan_to_num(a.astype(np.float64), nan=-1.0)
-                               - np.nan_to_num(want.astype(np.float64),
-                                               nan=-1.0)).max())
-            max_err = max(max_err, err)
+    for job, plain in zip(ref_jobs, ref_done.get()):
+        balance, cl, _ = job
+        max_err = max(max_err, kernel_vs_ref(
+            torch, np, job, plain, f"{balance} {cl.lifecycle.keepalive}"))
     log(f"sim_engine == sim_engine_ref (on the CPU) for all "
         f"{len(balancer_names())} balancers under FIXED_TTL (max_idle 2, "
         f"aws-lambda) and HYBRID_HIST (max_idle 2) on the overloaded "
@@ -2405,6 +2492,398 @@ def keepalive_axis(torch, np, report, pool):
     return launches, max_err
 
 
+# -- telemetry and the fleet (phase 15) --
+
+#: bench_telemetry's sketch lane in full mode (benchmarks/
+#: bench_telemetry.py:50-80): 8 workers × 8 cores, ms-trace at three loads,
+#: seeds 17-21 (R = 5), N = 60 000, a 10 % warm-up, the 2 % gate
+TEL_CLUSTER = dict(n_workers=8, cores=8)
+TEL_LOADS = (0.3, 0.6, 0.8)
+TEL_SEEDS = (17, 18, 19, 20, 21)
+N_TEL = 60_000
+TEL_WARMUP = 0.1
+TEL_TOL = 0.02
+#: fig13's full mode (benchmarks/fig13_autoscale.py:33-56, 60-112) on the
+#: testbed: azure-diurnal, N = 6000, R = 1; the balancer lane's two-gen
+#: fleet and loads, the frontier lane's static fleets and TARGET_P99
+FIG13_WORKLOAD = "azure-diurnal"
+FIG13_BAL_LOADS = (0.5, 0.65, 0.8)
+FIG13_BAL_LOAD = 0.8
+FIG13_FRONTIER_LOAD = 0.85
+FIG13_SEEDS = (1, 2, 3)
+FIG13_STATIC = (5, 6, 7, 8)
+FIG13_TARGET = 3.0
+N_FIG13 = 6_000
+#: depth of the plain runs that hold phase 15's fused runs
+N_OBS_PLAIN = 1_000
+OBS_PHASE_S = 60.0
+TEL_FIELDS = ("slow_hist", "lat_hist", "n_cold", "n_warm", "n_evict",
+              "n_reject", "busy_time", "depth_time", "qlen_time",
+              "decisions")
+
+
+def shed_autoscaler(cfg, n_workers, device):
+    """A user's autoscaler (15c): one worker fewer at each decision, down
+    to ``min_workers``.  Top-level, so that it pickles."""
+    import torch
+
+    def decide(n_on, window):
+        return torch.clamp(n_on - 1, min=int(cfg.min_workers)).to(
+            torch.int32)
+    return decide
+
+
+def held_telemetry(n_full, n_held, cfg):
+    """The telemetry config whose warmup cutoff on the first ``n_held``
+    arrivals is ``cfg``'s on all ``n_full``: an autoscaler reads the
+    sketch, so its decisions on the prefix follow the full run's only
+    with the same cutoff."""
+    from repro_torch.telemetry import TelemetryCfg, warmup_cutoff
+    cut = warmup_cutoff(n_full, cfg)
+    held = TelemetryCfg(warmup_frac=cut / n_held)
+    check(warmup_cutoff(n_held, held) == cut,
+          f"no warmup fraction gives cutoff {cut} on {n_held} arrivals")
+    return held
+
+
+def same_obs(np, a, b, what: str) -> None:
+    """Two runs' telemetry, autoscaler state and provisioned core-seconds
+    equal bit for bit."""
+    check((a.telemetry is None) == (b.telemetry is None)
+          and (a.fleet is None) == (b.fleet is None),
+          f"{what}: one run has telemetry or a fleet state, not the other")
+    if a.telemetry is not None:
+        for f in TEL_FIELDS:
+            check(getattr(a.telemetry, f).tobytes()
+                  == getattr(b.telemetry, f).tobytes(),
+                  f"{what}: not equal in the telemetry's {f}")
+    for k in b.fleet or {}:
+        check(a.fleet[k].tobytes() == b.fleet[k].tobytes(),
+              f"{what}: not equal in the autoscaler's {k}")
+    check(np.asarray(a.prov_core_s).tobytes()
+          == np.asarray(b.prov_core_s).tobytes(),
+          f"{what}: not equal in prov_core_s")
+
+
+def telemetry_fleet(torch, np, report, pool):
+    """Phase 15: telemetry and the heterogeneous fleet through
+    ``simulate_many`` on the card, every run fused (one ``sim_engine``
+    launch, the observation plane): (a) bench_telemetry's sketch lane in
+    full mode, gated at 2 %; (b) fig13's full mode (its balancer and
+    frontier lanes); the first arrivals of each run held to the batched
+    engine on the CPU in every plane, telemetry and autoscaler state too;
+    (c) the routes: a user's autoscaler on the batched engine on the card,
+    and the two named errors; (d) the plane's cost on fig4's E/H/PS
+    inputs; and ``sim_engine`` against ``sim_engine_ref`` for the nine
+    balancers under the plane.  The CPU runs go to ``pool``'s workers
+    while the card runs.  Returns (``sim_engine`` launches of the fused
+    runs, the kernel's max abs error against ``sim_engine_ref``, the
+    plane's timing on fig4's inputs)."""
+    from repro_torch.core import (E_LL_PS, E_SWARM_PS, HERMES, LATE_BINDING,
+                                  PAPER_LARGE, PAPER_TESTBED, WORKLOADS,
+                                  ClusterCfg, FleetCfg, ms_trace,
+                                  replicate_workload, stack_workloads,
+                                  summarize, summarize_batch_sim,
+                                  synth_workload)
+    from repro_torch.core.simulator import LoopStats, simulate_many
+    from repro_torch.fleet import register_autoscaler, unregister_autoscaler
+    from repro_torch.kernels.hermes_select import kernel as hk
+    from repro_torch.kernels.sim_engine import kernel as ek
+    from repro_torch.policy import balancer_names, engine
+    from repro_torch.telemetry import TelemetryCfg
+
+    t_phase = time.perf_counter()
+    tel_cfg = TelemetryCfg(warmup_frac=TEL_WARMUP)
+    tel_cl = ClusterCfg(**TEL_CLUSTER)
+    # every fused run: key -> (policy, cluster, workloads, telemetry)
+    plan = {}
+    for load in TEL_LOADS:
+        wb = stack_workloads(ms_trace(tel_cl, load, N_TEL, seed=s)
+                             for s in TEL_SEEDS)
+        for p in registry_policies(()):
+            plan[f"sketch {p.name} {load}"] = (p, tel_cl, wb, tel_cfg)
+    make = WORKLOADS[FIG13_WORKLOAD]
+    two_gen = PAPER_TESTBED._replace(fleet=FleetCfg(preset="two-gen"))
+    auto = PAPER_TESTBED._replace(fleet=FleetCfg(
+        preset="uniform", autoscale="TARGET_P99", target_p99=FIG13_TARGET,
+        min_workers=2, cooldown_s=2.0))
+    schedulers = {"hermes": HERMES, "least-loaded": E_LL_PS,
+                  "swarm": E_SWARM_PS}
+    for load in FIG13_BAL_LOADS:
+        wb = stack_workloads([make(PAPER_TESTBED, load, N_FIG13, seed=1)])
+        for s, p in schedulers.items():
+            plan[f"fig13 balancer {load} {s}"] = (p, two_gen, wb, None)
+    for seed in FIG13_SEEDS:
+        wb = stack_workloads([make(PAPER_TESTBED, FIG13_FRONTIER_LOAD,
+                                   N_FIG13, seed=seed)])
+        for wn in FIG13_STATIC:
+            plan[f"fig13 frontier {seed} static-{wn}"] = (
+                HERMES, ClusterCfg(n_workers=wn, cores=PAPER_TESTBED.cores),
+                wb, None)
+        plan[f"fig13 frontier {seed} auto"] = (HERMES, auto, wb,
+                                                TelemetryCfg())
+
+    def held(key):
+        """The run that holds ``key``'s first arrivals: with telemetry
+        (the autoscaler's at the full run's cutoff) so that its planes are
+        held too."""
+        p, cl, wb, tel = plan[key]
+        if cl.fleet is not None and cl.fleet.autoscale != "STATIC":
+            tel = held_telemetry(wb.n, N_OBS_PLAIN, tel)
+        return p, cl, prefix(wb, N_OBS_PLAIN), tel or TelemetryCfg()
+
+    # the plain version's check: phase 5's overloaded cluster (rejections,
+    # evictions) under telemetry, a two-gen fleet and TARGET_P99
+    tiny = ClusterCfg(n_workers=4, cores=3, capacity_factor=2,
+                      cold_start_penalty=0.25)
+    overload = stack_workloads(
+        synth_workload(tiny, load, N_SHORT, n_functions=5, hot_fraction=0.8,
+                       seed=SEED) for load in (0.7, 1.3, 3.0))
+    ref_cases = {
+        "telemetry": (tiny, TelemetryCfg()),
+        "two-gen": (tiny._replace(fleet=FleetCfg(preset="two-gen")), None),
+        "TARGET_P99": (tiny._replace(fleet=FleetCfg(
+            preset="long-tail", autoscale="TARGET_P99", target_p99=4.0,
+            cooldown_s=1.0)), TelemetryCfg())}
+    ref_jobs = [(b, cl, overload, tel) for cl, tel in ref_cases.values()
+                for b in balancer_names()]
+
+    # the CPU runs, in the worker processes, while the card runs
+    t0 = time.perf_counter()
+    plain_jobs = [(p, cl, wb, "cpu", tel)
+                  for p, cl, wb, tel in map(held, plan)]
+    plain_done = pool.starmap_async(plain_run, plain_jobs, chunksize=1)
+    ref_done = pool.starmap_async(plain_engine_ref, ref_jobs, chunksize=1)
+
+    # (a) and (b), fused
+    runs, outs, launches = {}, {}, 0
+    for key, (policy, cl, wb, tel) in plan.items():
+        out, wall, stats, kern = fused_run(torch, np, policy, cl, wb, key,
+                                           telemetry=tel)
+        launches += 1
+        outs[key] = out
+        bound_ms, bound_by, nbytes, ops = engine_bound(
+            kern["res"], wb.n, wb.n_reps, wb.n_functions,
+            speed=speed_of(cl))
+        runs[key] = dict(
+            n=wb.n, reps=wb.n_reps, wall_s=wall,
+            us_per_arrival=wall / wb.n * 1e6, ms=kern["ms"],
+            idle_share=1 - kern["ms"] / (wall * 1e3),
+            iters=int(kern["res"]["iters"].sum()), bound_ms=bound_ms,
+            bound_by=bound_by, bytes=nbytes, operations=ops)
+        if key.startswith("sketch"):
+            exact = summarize_batch_sim(out, wb,
+                                        warmup_frac=TEL_WARMUP).pooled
+            row = {}
+            for q, want in ((50, exact.slow_p50), (99, exact.slow_p99)):
+                got = out.telemetry.slow_percentile(q)
+                row.update({f"sketch_p{q}": got, f"exact_p{q}": want,
+                            f"rel_err_p{q}": abs(got - want)
+                            / max(abs(want), 1e-12)})
+            runs[key].update(row)
+            check(row["rel_err_p50"] <= TEL_TOL
+                  and row["rel_err_p99"] <= TEL_TOL,
+                  f"{key}: sketch p50/p99 {row['sketch_p50']:.6f}/"
+                  f"{row['sketch_p99']:.6f} vs exact {row['exact_p50']:.6f}/"
+                  f"{row['exact_p99']:.6f}: beyond {TEL_TOL:.0%}")
+        else:
+            s = summarize(out.response[0], wb.service[0], out.cold[0],
+                          out.rejected[0], out.server_time[0],
+                          out.core_time[0], out.end_time[0])
+            runs[key].update(slow_p50=s.slow_p50, slow_p99=s.slow_p99,
+                             cold_frac=s.cold_frac, n_rejected=s.n_rejected,
+                             prov_core_s=float(out.prov_core_s[0]))
+    prefix_out = {key: fused_run(torch, np, p, cl, wb,
+                                 f"{key} N={N_OBS_PLAIN}", telemetry=tel)[0]
+                  for key, (p, cl, wb, tel) in zip(plan, map(held, plan))}
+    launches += len(prefix_out)
+
+    for key, r in runs.items():
+        extra = (f"sketch p50 {r['sketch_p50']:.6f} (exact "
+                 f"{r['exact_p50']:.6f}, rel err {r['rel_err_p50']:.5f}), "
+                 f"p99 {r['sketch_p99']:.6f} (exact {r['exact_p99']:.6f}, "
+                 f"rel err {r['rel_err_p99']:.5f})"
+                 if key.startswith("sketch") else
+                 f"p99 slowdown {r['slow_p99']:.4f}, cold "
+                 f"{r['cold_frac']:.4f}, rejected {r['n_rejected']}, "
+                 f"prov_core_s {r['prov_core_s']:.1f}")
+        log(f"{key} R={r['reps']} N={r['n']}: wall {r['wall_s']:.3f} s "
+            f"({r['us_per_arrival']:.2f} us per arrival); sim_engine "
+            f"{r['ms']:.3f} ms, idle share {r['idle_share']:.3f} at most; "
+            f"bound {r['bound_ms']:.5f} ms, {r['bound_by']} ({r['bytes']} "
+            f"B, {r['operations']} f64 operations); {extra}")
+
+    # fig13's claims in the reference's words (benchmarks/run.py:300-330),
+    # from the port's rows: printed, not gated
+    sw = runs[f"fig13 balancer {FIG13_BAL_LOAD} swarm"]["slow_p99"]
+    ll = runs[f"fig13 balancer {FIG13_BAL_LOAD} least-loaded"]["slow_p99"]
+    auto_ok, bits = True, []
+    for seed in FIG13_SEEDS:
+        a = runs[f"fig13 frontier {seed} auto"]
+        meet = [(runs[f"fig13 frontier {seed} static-{wn}"]["prov_core_s"],
+                 f"static-{wn}") for wn in FIG13_STATIC
+                if runs[f"fig13 frontier {seed} static-{wn}"]["slow_p99"]
+                <= FIG13_TARGET]
+        cap, best = min(meet) if meet else (float("inf"), "none")
+        auto_ok &= a["slow_p99"] <= FIG13_TARGET and a["prov_core_s"] < cap
+        bits.append(f"seed{seed}: p99={a['slow_p99']:.2f} "
+                    f"prov={a['prov_core_s']:.0f} vs {best}={cap:.0f}")
+    claims = {
+        "Fleet: SWARM ≤ speed-blind LL p99 slowdown on a two-gen fleet "
+        "@0.8 (learned per-worker slowness)": sw <= ll,
+        "Fleet: TARGET_P99 autoscaler meets the p99 target with fewer "
+        "provisioned core-seconds than the smallest static fleet meeting "
+        f"it (target={FIG13_TARGET})": auto_ok}
+    for claim, ok in claims.items():
+        log(f"fig13 claim (not a gate): {claim}: "
+            f"{'holds' if ok else 'does not hold'}")
+    log(f"fig13 values: SWARM={sw:.2f} vs LL={ll:.2f}; {'; '.join(bits)}")
+
+    # (d) the plane's cost on fig4's E/H/PS inputs (phase 4's), the
+    # variants in turns, twice; telemetry must not change a plane
+    fig4 = replicate_workload(ms_trace, PAPER_LARGE, LOADS, N_MAIN,
+                              seeds=(SEED,))
+    args = engine_inputs(torch, np, fig4)
+    variants = {"off": (PAPER_LARGE, None),
+                "uniform": (PAPER_LARGE._replace(fleet=FleetCfg()), None),
+                "telemetry": (PAPER_LARGE, TelemetryCfg()),
+                "two-gen": (PAPER_LARGE._replace(fleet=FleetCfg(
+                    preset="two-gen")), None)}
+    short = [a[:, :50].contiguous() for a in args[:4]] + [args[4]]
+    for cl, tel in variants.values():     # first-use costs
+        ek.sim_engine("H", cl, *short, tel)
+    torch.cuda.synchronize()
+    plane_ms, plane_res = {k: [] for k in variants}, {}
+    for _ in range(2):
+        for name, (cl, tel) in variants.items():
+            res = {}
+            plane_ms[name].append(_event_ms(torch, lambda: res.update(
+                ek.sim_engine("H", cl, *args, tel))))
+            plane_res[name] = res
+    for key in ENGINE_PLANES.values():
+        for name in ("uniform", "telemetry"):
+            check(np.array_equal(plane_res["off"][key].cpu().numpy(),
+                                 plane_res[name][key].cpu().numpy(),
+                                 equal_nan=key == "resp"),
+                  f"fig4 E/H/PS: the plane ({name}) changed {key}")
+    plane = {}
+    for name, ms in plane_ms.items():
+        b_ms, b_by, nbytes, ops = engine_bound(
+            plane_res[name], N_MAIN, len(LOADS), fig4.n_functions,
+            speed=speed_of(variants[name][0]))
+        plane[name] = dict(ms=min(ms), ms_runs=ms, bound_ms=b_ms,
+                           bound_by=b_by, bytes=nbytes, operations=ops)
+        runs_ms = ", ".join(f"{m:.3f}" for m in ms)
+        log(f"fig4 E/H/PS R={len(LOADS)} N={N_MAIN}, plane {name}: "
+            f"sim_engine {min(ms):.3f} ms (runs {runs_ms}), "
+            f"{min(ms) / min(plane_ms['off']):.3f} x off; bound "
+            f"{b_ms:.5f} ms, {b_by} ({nbytes} B, {ops} f64 operations)")
+
+    # (c) the routes: a user's autoscaler takes the batched engine on the
+    # card (no sim_engine launch; Hermes' choice by hermes_select, one
+    # launch an arrival), equal to the CPU's run; the two named errors
+    small = replicate_workload(ms_trace, PAPER_TESTBED, (0.5, 0.9), N_SHORT,
+                               seeds=(SEED,))
+    register_autoscaler("SHED", make_torch=shed_autoscaler,
+                        doc="one worker fewer at each decision")
+    try:
+        shed = PAPER_TESTBED._replace(fleet=FleetCfg(
+            autoscale="SHED", min_workers=2, cooldown_s=1.0))
+        check(engine(HERMES, "cuda", "auto", shed) == "batched",
+              "a user's autoscaler: the route is not the batched engine")
+        stats = LoopStats()
+        ek.sim_engine.launches = 0
+        hk.hermes_select_batch.launches = 0
+        card = simulate_many(HERMES, shed, small, device="cuda",
+                             telemetry=TelemetryCfg(), stats=stats)
+        counts = (ek.sim_engine.launches, hk.hermes_select_batch.launches)
+        check(counts == (0, N_SHORT), f"a user's autoscaler: sim_engine and "
+                                      f"hermes_select launched {counts}, "
+                                      f"expected (0, {N_SHORT})")
+        cpu = simulate_many(HERMES, shed, small, device="cpu",
+                            telemetry=TelemetryCfg())
+        shed_gap = card_vs_cpu(np, card, cpu, "E/H/PS under SHED")
+        for f in TEL_FIELDS:
+            a, b = getattr(card.telemetry, f), getattr(cpu.telemetry, f)
+            check(np.array_equal(a, b) if a.dtype.kind == "i" else
+                  np.allclose(a, b, rtol=1e-9, atol=0.0),
+                  f"E/H/PS under SHED: card != CPU in the telemetry's {f}")
+        check(card.fleet["n_on"].tolist() == cpu.fleet["n_on"].tolist()
+              and max(card.fleet["n_on"]) < PAPER_TESTBED.n_workers,
+              f"E/H/PS under SHED: n_on {card.fleet['n_on']} (CPU "
+              f"{cpu.fleet['n_on']})")
+    finally:
+        unregister_autoscaler("SHED")
+    errors = {}
+    for what, policy, tel, words in (
+            ("late binding", LATE_BINDING, TelemetryCfg(),
+             "requires early binding"),
+            ("no telemetry", HERMES, None, "telemetry")):
+        ek.sim_engine.launches = 0
+        try:
+            simulate_many(policy, auto, small, device="cuda", telemetry=tel)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        check(raised is not None and words in raised
+              and ek.sim_engine.launches == 0,
+              f"TARGET_P99 under {what}: expected a ValueError naming "
+              f"{words!r} before any launch, got {raised!r}")
+        errors[what] = raised
+    log(f"a user's autoscaler (SHED): the batched engine on the card, "
+        f"{counts[1]} hermes_select launches, no sim_engine launch, == the "
+        f"CPU's run (float gap {shed_gap}, n_on {card.fleet['n_on']}); "
+        f"TARGET_P99 raises under late binding and without telemetry")
+
+    # the kernel against its plain version under the plane, final state
+    # included (these launches compare, they are not the main path's)
+    max_err = 0.0
+    for job, plain in zip(ref_jobs, ref_done.get()):
+        balance, cl, _, _ = job
+        max_err = max(max_err, kernel_vs_ref(
+            torch, np, job, plain, f"{balance} under {cl.fleet}"))
+    log(f"sim_engine == sim_engine_ref (on the CPU) for all "
+        f"{len(balancer_names())} balancers under telemetry, a two-gen "
+        f"fleet and TARGET_P99 on the overloaded 4 x 3-core cluster at "
+        f"N={N_SHORT}: every plane, the telemetry and the autoscaler's "
+        f"state (max abs err {max_err})")
+
+    # the held runs against the batched engine on the CPU
+    plain = iter(plain_done.get())
+    plain_s = time.perf_counter() - t0
+    for key in plan:
+        cpu, _ = next(plain)
+        same_prefix(np, outs[key], cpu, key)
+        card = prefix_out[key]
+        same_planes(np, card, cpu, f"{key} N={N_OBS_PLAIN}: card vs CPU")
+        same_obs(np, card, cpu, f"{key} N={N_OBS_PLAIN}: card vs CPU")
+    log(f"the first {N_OBS_PLAIN} arrivals of each of the {len(plan)} "
+        f"fused runs == the batched engine's run of them on the CPU "
+        f"(worker, cold, rejected of the fused run; every plane, the "
+        f"telemetry and the autoscaler's state of the fused run of just "
+        f"those)")
+    log(f"{len(plain_jobs) + len(ref_jobs)} runs on the CPU in "
+        f"{PLAIN_WORKERS} worker processes: {plain_s:.1f} s from their start")
+
+    phase_s = time.perf_counter() - t_phase
+    report["telemetry_fleet"] = dict(
+        sketch=dict(cluster=TEL_CLUSTER, loads=TEL_LOADS, seeds=TEL_SEEDS,
+                    n=N_TEL, tol=TEL_TOL),
+        fig13=dict(workload=FIG13_WORKLOAD, n=N_FIG13,
+                   balancer_loads=FIG13_BAL_LOADS, seeds=FIG13_SEEDS,
+                   target=FIG13_TARGET, claims=claims,
+                   swarm_p99=sw, ll_p99=ll, frontier=bits),
+        runs=runs, plane=plane, routes=dict(
+            shed_hermes_select_launches=counts[1], shed_gap=shed_gap,
+            errors=errors),
+        sim_engine_max_abs_err=max_err, plain_runs_s=plain_s,
+        sim_engine_launches=launches, phase_s=phase_s)
+    log(f"phase 15: {launches} sim_engine launches, {phase_s:.1f} s")
+    check(phase_s <= OBS_PHASE_S, f"phase 15 took {phase_s:.1f} s (limit "
+                                  f"{OBS_PHASE_S:.0f} s)")
+    return launches, max_err, plane
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run it from the root of a checkout of the repo",
@@ -2435,43 +2914,50 @@ def main() -> int:
                                                   PAPER_LARGE)
         with Phase("4b profile of the main path", report):
             profile_main_path(torch, np, report, PAPER_LARGE)
-        with Phase("5 kernel path vs plain path", report):
-            engine_err = end_to_end(torch, np, report, PAPER_LARGE)
-        with Phase("6 attention kernels vs plain", report):
-            attn_t = attention_kernels(torch, np, report)
-        with Phase("7 serving path at full width", report):
-            frontend, serve_launches = serving_path(
-                torch, np, report, SERVED, 1, "serving")
-        with Phase("7b profile of decode steps", report):
-            profile_decode(torch, report, frontend, SERVED, "decode_profile")
-        del frontend
-        torch.cuda.empty_cache()
-        with Phase("8 prefill and decode vs full forward", report):
-            prefill_decode_vs_forward(torch, np, report, CHECKED_DENSE,
-                                      "prefill_decode_vs_forward")
-        with Phase("9 scan kernels vs plain", report):
-            scan_t = scan_kernels(torch, report)
-        with Phase("10 recurrent serving at full width", report):
-            frontend, rec_launches = serving_path(
-                torch, np, report, RECURRENT, 2, "recurrent_serving")
-        with Phase("10b profile of recurrent decode steps", report):
-            profile_decode(torch, report, frontend, RECURRENT,
-                           "recurrent_decode_profile")
-        del frontend
-        torch.cuda.empty_cache()
-        with Phase("11 recurrent prefill and decode vs full forward",
-                   report):
-            prefill_decode_vs_forward(torch, np, report, RECURRENT,
-                                      "recurrent_prefill_decode_vs_forward")
+        # the batched engine's check runs of phases 5 and 12-15 go to
+        # worker processes
         with contextlib.ExitStack() as workers:
+            with Phase("5 kernel path vs plain path", report):
+                pool = workers.enter_context(plain_pool())
+                engine_err = end_to_end(torch, np, report, PAPER_LARGE, pool)
+            with Phase("6 attention kernels vs plain", report):
+                attn_t = attention_kernels(torch, np, report)
+            with Phase("7 serving path at full width", report):
+                frontend, serve_launches = serving_path(
+                    torch, np, report, SERVED, 1, "serving")
+            with Phase("7b profile of decode steps", report):
+                profile_decode(torch, report, frontend, SERVED,
+                               "decode_profile")
+            del frontend
+            torch.cuda.empty_cache()
+            with Phase("8 prefill and decode vs full forward", report):
+                prefill_decode_vs_forward(torch, np, report, CHECKED_DENSE,
+                                          "prefill_decode_vs_forward")
+            with Phase("9 scan kernels vs plain", report):
+                scan_t = scan_kernels(torch, report)
+            with Phase("10 recurrent serving at full width", report):
+                frontend, rec_launches = serving_path(
+                    torch, np, report, RECURRENT, 2, "recurrent_serving")
+            with Phase("10b profile of recurrent decode steps", report):
+                profile_decode(torch, report, frontend, RECURRENT,
+                               "recurrent_decode_profile")
+            del frontend
+            torch.cuda.empty_cache()
+            with Phase("11 recurrent prefill and decode vs full forward",
+                       report):
+                prefill_decode_vs_forward(
+                    torch, np, report, RECURRENT,
+                    "recurrent_prefill_decode_vs_forward")
             with Phase("12 trace replay on the card", report):
-                trace_launches, pool = trace_replay(torch, np, report,
-                                                    workers)
+                trace_launches = trace_replay(torch, np, report, pool)
             with Phase("13 policy zoo on the card", report):
                 zoo_launches, zoo_err = policy_zoo(torch, np, report, pool)
             with Phase("14 keep-alive axis on the card", report):
                 life_launches, life_err = keepalive_axis(torch, np, report,
                                                          pool)
+            with Phase("15 telemetry and fleet on the card", report):
+                obs_launches, obs_err, _ = telemetry_fleet(torch, np,
+                                                           report, pool)
         total_s = time.perf_counter() - t_start
         check(total_s <= SCRIPT_S, f"the script took {total_s:.1f} s (limit "
                                    f"{SCRIPT_S:.0f} s)")
@@ -2483,7 +2969,7 @@ def main() -> int:
         log("report " + json.dumps(report, separators=(",", ":")))
     # hermes_select's path is serving (phase 7: one launch per dispatch);
     # the simulator's E/H/PS makes its choice inside sim_engine (phases 4,
-    # 12, 13 and 14: every fused run's launch on those paths; its times
+    # 12, 13, 14 and 15: every fused run's launch on those paths; its times
     # from phase 4, where the plain engine runs the same inputs)
     kernels = [{
         "name": "hermes_select", "route": "cuda",
@@ -2496,8 +2982,8 @@ def main() -> int:
         "source": "src/repro_torch/csrc/sim_engine.cu",
         "replaces": "src/repro/kernels/hermes_select/kernel.py:66",
         "launches": engine_launches + trace_launches + zoo_launches
-        + life_launches,
-        "max_abs_err": max(engine_err, zoo_err, life_err),
+        + life_launches + obs_launches,
+        "max_abs_err": max(engine_err, zoo_err, life_err, obs_err),
         "ms": engine_t["ms"], "plain_ms": engine_t["plain_ms"],
         "bound_ms": engine_t["bound_ms"], "bound_by": engine_t["bound_by"],
         "library_ms": None}]

@@ -6,6 +6,7 @@ generators and the trace-replay scenarios of
 :mod:`repro_torch.trace.catalog`.
 """
 from .cluster import ClusterCfg, PAPER_LARGE, PAPER_SMALL, PAPER_TESTBED
+from ..fleet.config import FleetCfg
 from ..lifecycle.config import LifecycleCfg
 from .metrics import (BatchSummary, Stat, Summary, summarize,
                       summarize_batch, summarize_batch_sim, summarize_sim)
@@ -27,7 +28,7 @@ from ..trace.catalog import TRACE_SCENARIOS
 WORKLOADS.update(TRACE_SCENARIOS)
 
 __all__ = [
-    "ClusterCfg", "LifecycleCfg", "PAPER_LARGE", "PAPER_SMALL",
+    "ClusterCfg", "FleetCfg", "LifecycleCfg", "PAPER_LARGE", "PAPER_SMALL",
     "PAPER_TESTBED",
     "BatchSummary", "Stat", "Summary", "summarize", "summarize_batch",
     "summarize_batch_sim", "summarize_sim",

@@ -1,8 +1,9 @@
 """Cluster configuration (counterpart of ``repro/core/cluster.py``)."""
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
+from repro_torch.fleet.config import FleetCfg
 from repro_torch.lifecycle.config import LifecycleCfg
 
 
@@ -18,9 +19,9 @@ class ClusterCfg(NamedTuple):
     ``lifecycle`` (:class:`~repro_torch.lifecycle.LifecycleCfg`) turns
     on the container lifecycle: keep-alive windows, LRU eviction and
     per-function cold-start costs; ``None`` is the model without one.
-    ``fleet`` mirrors the reference's field so that a config carries
-    across unchanged; the port runs only its default ``None`` and
-    :meth:`validate` refuses anything else.
+    ``fleet`` (:class:`~repro_torch.fleet.FleetCfg`) makes the workers
+    heterogeneous (per-worker speeds) and can run an autoscaler; ``None``
+    is the homogeneous fixed fleet.
     """
 
     n_workers: int = 4
@@ -28,7 +29,7 @@ class ClusterCfg(NamedTuple):
     capacity_factor: int = 8
     cold_start_penalty: float = 0.0
     lifecycle: Optional[LifecycleCfg] = None
-    fleet: Optional[Any] = None
+    fleet: Optional[FleetCfg] = None
 
     @property
     def slots(self) -> int:
@@ -69,9 +70,31 @@ class ClusterCfg(NamedTuple):
             parse_keepalive(lc.keepalive)
             parse_cold_preset(lc.coldstart)
         if self.fleet is not None:
-            raise NotImplementedError(
-                "ClusterCfg.fleet is not ported yet (ROADMAP queue 1, "
-                "'Fleet'); leave it None")
+            if not isinstance(self.fleet, FleetCfg):
+                raise ValueError(f"ClusterCfg.fleet must be a FleetCfg or "
+                                 f"None, got {self.fleet!r}")
+            W = int(self.n_workers)
+            for field in ("speed", "mem"):
+                vec = getattr(self.fleet, field)
+                if not vec:
+                    continue
+                if len(vec) != W:
+                    raise ValueError(
+                        f"FleetCfg.{field} has {len(vec)} entries for "
+                        f"n_workers={W}, got {tuple(vec)}")
+                if any(not v > 0 for v in vec):
+                    raise ValueError(
+                        f"FleetCfg.{field} entries must be positive, "
+                        f"got {tuple(vec)}")
+            if not 1 <= int(self.fleet.min_workers) <= W:
+                raise ValueError(
+                    f"FleetCfg.min_workers must be in [1, n_workers="
+                    f"{W}], got {self.fleet.min_workers}")
+            # unregistered names fail with their registries' named errors
+            from repro_torch.fleet import parse_autoscale, parse_fleet_preset
+            if not self.fleet.speed:
+                parse_fleet_preset(self.fleet.preset)
+            parse_autoscale(self.fleet.autoscale)
         return self
 
 

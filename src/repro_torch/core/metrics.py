@@ -63,8 +63,23 @@ def summarize(response: np.ndarray, service: np.ndarray,
     )
 
 
+def _check_warmup_contract(out, kw) -> None:
+    """Raise :class:`~repro_torch.telemetry.WarmupMismatchError` when the
+    engine's telemetry sketches were filled with another warmup cutoff
+    than the one this summarize call applies: the two would describe
+    different task populations."""
+    tel = getattr(out, "telemetry", None)
+    if tel is None or getattr(tel, "cfg", None) is None:
+        return
+    wf = float(kw.get("warmup_frac", 0.1))
+    if float(tel.cfg.warmup_frac) != wf:
+        from repro_torch.telemetry import WarmupMismatchError
+        raise WarmupMismatchError(tel.cfg.warmup_frac, wf)
+
+
 def summarize_sim(out, wl, **kw) -> Summary:
     """Convenience wrapper over a SimOutput + Workload pair."""
+    _check_warmup_contract(out, kw)
     return summarize(out.response, wl.service, out.cold, out.rejected,
                      out.server_time, out.core_time, out.end_time, **kw)
 
@@ -184,6 +199,7 @@ def summarize_batch(response: np.ndarray, service: np.ndarray,
 
 def summarize_batch_sim(out, wb, **kw) -> BatchSummary:
     """Convenience wrapper over a BatchSimOutput + WorkloadBatch pair."""
+    _check_warmup_contract(out, kw)
     return summarize_batch(out.response, wb.service, out.cold, out.rejected,
                            out.server_time, out.core_time, out.end_time,
                            **kw)

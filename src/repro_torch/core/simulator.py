@@ -1,8 +1,9 @@
 """Discrete-event policy simulator on torch tensors.
 
 Counterpart of ``repro/core/simulator.py`` (early and late binding, the
-container lifecycle; fleet, telemetry, timeline and streaming off).  The reference runs a ``lax.scan`` over arrivals under
-``jax.vmap``; here the replication axis ``R`` is written out as the
+container lifecycle, telemetry, the heterogeneous fleet and its
+autoscaler; the timeline and streaming are not ported).  The reference
+runs a ``lax.scan`` over arrivals under ``jax.vmap``; here the replication axis ``R`` is written out as the
 leading axis of every state tensor and the scan is a Python loop:
 
 * per arrival, ``advance`` fast-forwards every replication to the
@@ -54,9 +55,25 @@ operations is made.
 A carried-state balancer (HIKU, DD, SWARM) threads its state as the
 reference does: ``select`` takes and returns it at each arrival, and
 each advance iteration calls ``on_complete`` for the argmin slot with the
-task's nominal service (no cold-start penalty) and the worker's active
-count after the slot is cleared, keeping the update only where that slot
-completed.
+task's nominal service (no cold-start penalty; divided by the worker's
+speed under a fleet) and the worker's active count after the slot is
+cleared, keeping the update only where that slot completed.
+
+With ``telemetry`` (:class:`~repro_torch.telemetry.TelemetryCfg`) the
+engine carries the reference's ``tel`` plane as ``tel_<key>`` entries
+(:mod:`repro_torch.telemetry.engine`), updated where the reference
+updates it: each placement (cold/warm, slot-pressure eviction, the
+decision count), each advance iteration (busy, depth and queue-length
+integrals over the pre-advance occupancy), each completion (both
+histograms, past the warmup cutoff), each budget eviction and each
+rejection.  With ``cluster.fleet`` every rate is multiplied by the
+worker's speed (late binding too), and an autoscaler carries
+``fleet_n_on``, ``fleet_cool_until``, ``fleet_prov_time`` and
+``fleet_snap``: per arrival, the provisioned-time integral over the gap,
+then after the advance the gated decision (cooldown elapsed and a
+recorded completion since the last snapshot) and the mask that makes
+workers ``>= n_on`` read as slot-full at the choice.  Without either,
+none of these operations is made.
 """
 from __future__ import annotations
 
@@ -65,11 +82,17 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import NotPortedError
 from repro_torch.device import resolve_device
+from repro_torch.fleet import STATIC, get_autoscaler, resolve_fleet
 from repro_torch.kernels.sim_engine import ops as sim_engine_ops
 from repro_torch.lifecycle import resolve_lifecycle
 from repro_torch.policy import engine, resolve
-from repro_torch.policy.registry import check_balancer
+from repro_torch.policy.registry import check_balancer, check_binding
+from repro_torch.telemetry import engine as tel_engine
+from repro_torch.telemetry.sketch import N_BINS
+from repro_torch.telemetry.state import (TelemetryCfg, TelemetryResult,
+                                         warmup_cutoff)
 
 from .cluster import ClusterCfg
 from .taxonomy import PolicySpec, parse_policy
@@ -89,15 +112,19 @@ class SimOutput:
     server_time: float
     core_time: float
     end_time: float
-    #: the reference's in-engine metrics; None until telemetry is ported
-    telemetry: None = None
-    #: provisioned core-seconds: ``end_time × total_cores`` (fixed fleet)
+    #: streaming in-engine metrics (None unless ``telemetry=`` was passed)
+    telemetry: TelemetryResult | None = None
+    #: provisioned core-seconds: the autoscaler's ``n_on × cores`` time
+    #: integral, or ``end_time × total_cores`` for a fixed fleet
     prov_core_s: float = 0.0
-    #: the reference's flight-recorder planes; None until ported
+    #: the reference's flight-recorder planes; None (not ported)
     timeline: None = None
     #: the final lifecycle state (see :class:`BatchSimOutput`); None
     #: without a lifecycle
     life: dict | None = None
+    #: the autoscaler's final state (see :class:`BatchSimOutput`); None
+    #: without one
+    fleet: dict | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,7 +138,8 @@ class BatchSimOutput:
     server_time: np.ndarray  # [R] f64
     core_time: np.ndarray    # [R] f64
     end_time: np.ndarray     # [R] f64
-    telemetry: None = None
+    #: batched streaming metrics, leading axis R (None unless enabled)
+    telemetry: TelemetryResult | None = None
     prov_core_s: np.ndarray | None = None   # [R] f64
     timeline: None = None
     #: the final lifecycle state, ``None`` without a lifecycle:
@@ -119,6 +147,10 @@ class BatchSimOutput:
     #: keep-alive's own state (``hist [R, F, 32]``, ``n_obs [R, F]`` for
     #: HYBRID_HIST), numpy
     life: dict | None = None
+    #: the autoscaler's final state, ``None`` without one: ``n_on [R]``
+    #: i32, ``cool_until``/``prov_time [R]`` f64, ``snap [R, N_BINS]``
+    #: i64 (the slowdown sketch at the last decision), numpy
+    fleet: dict | None = None
 
     @property
     def n_reps(self) -> int:
@@ -132,10 +164,14 @@ class BatchSimOutput:
             server_time=float(self.server_time[r]),
             core_time=float(self.core_time[r]),
             end_time=float(self.end_time[r]),
+            telemetry=None if self.telemetry is None
+            else self.telemetry.rep(r),
             prov_core_s=0.0 if self.prov_core_s is None
             else float(self.prov_core_s[r]),
             life=None if self.life is None
-            else {k: v[r] for k, v in self.life.items()})
+            else {k: v[r] for k, v in self.life.items()},
+            fleet=None if self.fleet is None
+            else {k: v[r] for k, v in self.fleet.items()})
 
     def __getitem__(self, sl: slice) -> "BatchSimOutput":
         """A sub-batch over a slice of the replication axis."""
@@ -144,10 +180,14 @@ class BatchSimOutput:
             rejected=self.rejected[sl], worker=self.worker[sl],
             server_time=self.server_time[sl], core_time=self.core_time[sl],
             end_time=self.end_time[sl],
+            telemetry=None if self.telemetry is None
+            else self.telemetry[sl],
             prov_core_s=None if self.prov_core_s is None
             else self.prov_core_s[sl],
             life=None if self.life is None
-            else {k: v[sl] for k, v in self.life.items()})
+            else {k: v[sl] for k, v in self.life.items()},
+            fleet=None if self.fleet is None
+            else {k: v[sl] for k, v in self.fleet.items()})
 
 
 @dataclasses.dataclass
@@ -202,14 +242,47 @@ def _with_life(d: dict) -> dict:
     return {f"life_{k}": v for k, v in d.items()}
 
 
+def _tel_of(st: dict) -> dict:
+    """The telemetry state out of the engine's ``st``."""
+    return {k[4:]: v for k, v in st.items() if k.startswith("tel_")}
+
+
+def _with_tel(tel: dict) -> dict:
+    """``tel``'s entries under their ``tel_`` keys in the engine's ``st``."""
+    return {f"tel_{k}": v for k, v in tel.items()}
+
+
+def _check_autoscale(policy, cluster: ClusterCfg,
+                     telemetry: TelemetryCfg | None) -> None:
+    """The reference's two named errors of an autoscaler
+    (``repro/core/simulator.py:332-343``): under late binding, and one
+    that reads the sketch without telemetry."""
+    fl = cluster.fleet
+    if fl is None or str(fl.autoscale).strip().upper() == STATIC:
+        return
+    pol = get_autoscaler(fl.autoscale)
+    if isinstance(policy, str):
+        policy = parse_policy(policy)
+    if check_binding(policy.binding):
+        raise ValueError(
+            f"autoscaler {pol.name!r} requires early binding"
+            f" — late binding has no per-worker placement to mask")
+    if pol.needs_telemetry and telemetry is None:
+        raise ValueError(
+            f"autoscaler {pol.name!r} reads the telemetry slowdown sketch "
+            f"as its sensor; pass telemetry=TelemetryCfg() to the "
+            f"simulator")
+
+
 def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                   n_functions: int, n_reps: int, device: torch.device,
-                  backend: str):
+                  backend: str, telemetry: TelemetryCfg | None = None):
     """The batched engine for (policy, cluster, N, F, R) on ``device``.
 
     Returns ``run(arrivals, funcs, services, u_lb, homes, stats) -> state``
     over ``[R, N]`` / ``[R, F]`` tensors on ``device``.
     """
+    _check_autoscale(policy, cluster, telemetry)
     W, C, S = cluster.n_workers, cluster.cores, cluster.slots
     F, N, R = n_functions, n_arrivals, n_reps
     Q = N  # the late-binding controller queue can hold every arrival
@@ -230,6 +303,20 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
     if life_on:
         life_costs = None if lres.cold_costs is None else torch.as_tensor(
             lres.cold_costs, dtype=_F64, device=device)
+    # telemetry and the fleet: gated as the life plane is
+    tel_on = telemetry is not None
+    if tel_on:
+        tel_edges = tel_engine.edges_for(device)
+        tel_cutoff = warmup_cutoff(N, telemetry)
+    fres = resolve_fleet(cluster, backend="torch", device=device)
+    fleet_on = fres is not None
+    auto_on = fleet_on and fres.auto_on
+    if fleet_on:
+        speed = torch.as_tensor(fres.speeds, dtype=_F64, device=device)
+    if auto_on:
+        auto_decide = fres.decide
+        auto_cool = float(fres.cfg.cooldown_s)
+        worker_ids = torch.arange(W, dtype=_I32, device=device)
 
     def any_(go: torch.Tensor, stats: LoopStats) -> bool:
         stats.host_syncs += 1
@@ -237,8 +324,14 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
 
     def rates_of(st):
         if late:
-            return (st["task_idx"] >= 0).to(_F64)
-        return res.rates(st["task_idx"], st["remaining"])
+            r = (st["task_idx"] >= 0).to(_F64)
+        else:
+            r = res.rates(st["task_idx"], st["remaining"])
+        if fleet_on:
+            # the worker's speed multiplies every rate: the work stays
+            # nominal, fast workers drain it faster
+            r = r * speed[:, None]
+        return r
 
     def place(st, tid, w, f, svc_nom, t_arr):
         """Place arrival ``tid [R]`` (fn ``f``, nominal service
@@ -276,6 +369,8 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
             victim = warm_row[:, :F].argmax(dim=1)
             pen_f = pen
         need_evict = is_cold & (active_w + idle >= S)
+        tel = {} if not tel_on else _with_tel(tel_engine.on_place(
+            _tel_of(st), rows, w, is_cold, need_evict))
         warm = st["warm"].index_put(
             (rows, w, f), warm_cnt - (~is_cold).to(_I32))
         warm = warm.index_put(
@@ -283,7 +378,7 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
         slot = (row < 0).to(_I32).argmax(dim=1)
         svc = svc_nom + torch.where(is_cold, pen_f, no_pen)
         return dict(
-            st, **life,
+            st, **life, **tel,
             remaining=st["remaining"].index_put((rows, w, slot), svc),
             task_arr=st["task_arr"].index_put((rows, w, slot), t_arr),
             task_idx=st["task_idx"].index_put((rows, w, slot),
@@ -339,6 +434,10 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
             n_w = active.sum(dim=2)
             server_time = st["server_time"] + tau * (n_w > 0).sum(dim=1)
             core_time = st["core_time"] + tau * n_w.clamp(max=C).sum(dim=1)
+            if tel_on:
+                # the same pre-advance occupancy, per worker
+                tel = tel_engine.on_advance(_tel_of(st), tau, n_w > 0, n_w,
+                                            st["q_tail"] - st["q_head"])
             now = st["now"] + tau
             remaining = remaining - rates * tau[:, None, None]
             # complete the argmin slot only (idx N / col F are scratch)
@@ -349,6 +448,11 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                 ((tid >= 0) & (st["remaining"][rows, wj, sj] <= EPS))
             resp_val = now - st["task_arr"][rows, wj, sj]
             f_j = funcs[rows, tid.clamp(min=0).to(_I64)]
+            svc_nom = services[rows, tid.clamp(min=0).to(_I64)]
+            if tel_on:
+                tel = tel_engine.on_complete(tel, rows, resp_val, svc_nom,
+                                             tid, completed, tel_cutoff,
+                                             tel_edges)
             resp = st["resp"].index_put(
                 (rows, torch.where(completed, tid.to(_I64), N)),
                 torch.where(completed, resp_val, 0.0))
@@ -386,6 +490,8 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                     warm = warm.index_put(
                         (rows, w_ev, f_ev),
                         warm[rows, w_ev, f_ev] - over.to(_I32))
+                    if tel_on:
+                        tel = tel_engine.on_evict(tel, over)
             else:
                 warm = st["warm"].index_put(
                     (rows, w_pad, f_pad),
@@ -400,13 +506,16 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                        warm=warm, now=now, resp=resp,
                        server_time=server_time, core_time=core_time,
                        **life)
+            if tel_on:
+                new.update(_with_tel(tel))
             if stateful:
                 # one hook call per iteration, kept where the argmin slot
-                # really completed
+                # really completed; under a fleet it observes the time the
+                # task took on its worker
                 lb = _lb_of(st)
-                upd = res.on_complete(
-                    lb, wj, f_j, services[rows, tid.clamp(min=0).to(_I64)],
-                    (task_idx[rows, wj] >= 0).sum(dim=1))
+                svc_obs = svc_nom / speed[wj] if fleet_on else svc_nom
+                upd = res.on_complete(lb, wj, f_j, svc_obs,
+                                      (task_idx[rows, wj] >= 0).sum(dim=1))
                 new.update(_with_lb(_merge(completed, upd, lb)))
             return new, dt_left - tau
 
@@ -425,6 +534,11 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
     def step(st, i, arrivals, funcs, services, u_lb, homes, stats):
         t_i, f_i = arrivals[:, i], funcs[:, i]
         tid = arrival_ids[i].expand(R)
+        if auto_on:
+            # provisioned time over [now, t_i] at the current n_on (a
+            # decision takes effect at an arrival only)
+            st = dict(st, fleet_prov_time=st["fleet_prov_time"]
+                      + (t_i - st["now"]) * st["fleet_n_on"].to(_F64))
         st = advance(st, t_i - st["now"], funcs, services, arrivals, stats)
         st = dict(st, now=t_i)
         active = n_active(st).to(_I32)
@@ -445,14 +559,33 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
             end_f = pre_f + st["life_keep"][rows, f_i][:, None]
             warm_col = torch.where((ages >= pre_f) & (ages <= end_f),
                                    warm_col, 0)
+        sel_active = active
+        if auto_on:
+            # the decision: read the sketch's window since the last
+            # snapshot, decide where the cooldown elapsed and the window
+            # holds a completion, then snapshot and re-arm
+            n_on, snap = st["fleet_n_on"], st["fleet_snap"]
+            hist = st["tel_slow_hist"][:, :N_BINS] if tel_on else snap
+            window = hist - snap
+            do = (t_i >= st["fleet_cool_until"]) & (window.sum(dim=1) >= 1)
+            n_on = torch.where(do, auto_decide(n_on, window), n_on)
+            st = dict(st, fleet_n_on=n_on,
+                      fleet_cool_until=torch.where(
+                          do, t_i + auto_cool, st["fleet_cool_until"]),
+                      fleet_snap=torch.where(do[:, None], hist, snap))
+            # workers past n_on read as slot-full at the choice; their
+            # running tasks drain as before
+            sel_active = torch.where(worker_ids < n_on[:, None], active, S)
         if stateful:
-            w, lb = select(_lb_of(st), active, warm_col, f_i, homes,
+            w, lb = select(_lb_of(st), sel_active, warm_col, f_i, homes,
                            u_lb[:, i], i)
             st = dict(st, **_with_lb(lb))
         else:
-            w = select(active, warm_col, f_i, homes, u_lb[:, i], i)
+            w = select(sel_active, warm_col, f_i, homes, u_lb[:, i], i)
         st = dict(st, rejected=st["rejected"].index_put((rows, tid),
                                                          w < 0))
+        if tel_on:
+            st.update(_with_tel(tel_engine.on_reject(_tel_of(st), w < 0)))
         placed = place(st, tid, w.clamp(min=0).to(_I64), f_i,
                        services[:, i], t_i)
         return _merge(w >= 0, placed, st)
@@ -486,17 +619,42 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                 ka, idle_since=full((R, W, F + 1), -1.0, _F64),
                 pre=pre.to(_F64).expand(R, F).clone(),
                 keep=keep.to(_F64).expand(R, F).clone())))
+        if tel_on:
+            st.update(_with_tel(tel_engine.init_state(R, W, device)))
+        if auto_on:
+            # fully provisioned at the start
+            st.update(fleet_n_on=full((R,), W, _I32),
+                      fleet_cool_until=full((R,), 0.0, _F64),
+                      fleet_prov_time=full((R,), 0.0, _F64),
+                      fleet_snap=full((R, N_BINS), 0, _I64))
         for i in range(N):
             st = step(st, i, arrivals, funcs, services, u_lb, homes, stats)
             stats.arrivals += 1
-        return advance(st, full((R,), _BIG_TIME, _F64), funcs, services,
-                       arrivals, stats)
+        t_last = st["now"]
+        st = advance(st, full((R,), _BIG_TIME, _F64), funcs, services,
+                     arrivals, stats)
+        if auto_on:
+            # the fleet stays provisioned until the last completion
+            st["fleet_prov_time"] = st["fleet_prov_time"] + \
+                (st["now"] - t_last) * st["fleet_n_on"].to(_F64)
+        return st
 
     return run
 
 
+def _prov_core_s(st: dict, cluster: ClusterCfg) -> np.ndarray:
+    """Provisioned core-seconds, ``∫ n_on(t)·cores dt`` (fig. 13's
+    x-axis); without an autoscaler the whole fleet for the whole run,
+    ``end_time × W × C``."""
+    if "fleet_prov_time" in st:
+        return st["fleet_prov_time"].cpu().numpy() * cluster.cores
+    return st["now"].cpu().numpy() * cluster.n_workers * cluster.cores
+
+
 def simulate_many(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
                   device=None, backend: str = "auto",
+                  telemetry: TelemetryCfg | None = None,
+                  timeline=None,
                   stats: LoopStats | None = None) -> BatchSimOutput:
     """Run ``R`` stacked replications in lockstep on ``device``.
 
@@ -506,9 +664,19 @@ def simulate_many(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
     a card).  ``backend`` is ``"auto"`` or ``"kernel"`` (on the card,
     the fused ``sim_engine`` kernel for every E/<B>/PS policy and the
     ``hermes_select`` kernel for the other ``H`` policies) or ``"torch"``
-    (the batched engine in plain tensor code throughout).
+    (the batched engine in plain tensor code throughout).  With
+    ``telemetry`` the output carries a :class:`TelemetryResult` with the
+    leading ``R`` axis (its readers pool over it).  ``timeline`` is the
+    reference's flight recorder, not ported: passing one raises
+    :class:`~repro_torch.NotPortedError`.
     """
+    if timeline is not None:
+        raise NotPortedError(
+            "the timeline plane (repro.telemetry.timeline) is not ported "
+            "yet (ROADMAP Queue 1, 'Timeline'); pass timeline=None")
     dev = resolve_device(device)
+    cluster.validate()
+    _check_autoscale(policy, cluster, telemetry)
     wb = workloads if isinstance(workloads, WorkloadBatch) \
         else stack_workloads(workloads)
     stats = LoopStats() if stats is None else stats
@@ -518,18 +686,17 @@ def simulate_many(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
                                device=dev)
 
     if engine(policy, dev, backend, cluster) == "sim_engine":
-        cluster.validate()
         if isinstance(policy, str):
             policy = parse_policy(policy)
         st = sim_engine_ops.sim_engine(
-            check_balancer(policy.balance), cluster, put(wb.arrival, _F64), put(wb.func, _I32),
-            put(wb.service, _F64), put(wb.u_lb, _F64),
-            put(wb.func_home, _I32))
+            check_balancer(policy.balance), cluster, put(wb.arrival, _F64),
+            put(wb.func, _I32), put(wb.service, _F64), put(wb.u_lb, _F64),
+            put(wb.func_home, _I32), telemetry=telemetry)
         stats.arrivals += wb.n
         stats.advance_iters += int(st["iters"].sum())
     else:
         run = _build_engine(policy, cluster, wb.n, wb.n_functions,
-                            wb.n_reps, dev, backend)
+                            wb.n_reps, dev, backend, telemetry)
         st = run(put(wb.arrival, _F64), put(wb.func, _I64),
                  put(wb.service, _F64), put(wb.u_lb, _F64),
                  put(wb.func_home, _I32), stats)
@@ -540,6 +707,8 @@ def simulate_many(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
         life = {k[5:]: v.cpu().numpy() for k, v in st.items()
                 if k.startswith("life_")}
         life["idle_since"] = life["idle_since"][:, :, :wb.n_functions]
+    fleet = {k[6:]: v.cpu().numpy() for k, v in st.items()
+             if k.startswith("fleet_")} or None
     return BatchSimOutput(
         response=st["resp"][:, :n].cpu().numpy(),
         cold=st["cold"][:, :n].cpu().numpy(),
@@ -548,12 +717,16 @@ def simulate_many(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
         server_time=st["server_time"].cpu().numpy(),
         core_time=st["core_time"].cpu().numpy(),
         end_time=end,
-        prov_core_s=end * cluster.n_workers * cluster.cores, life=life)
+        telemetry=None if telemetry is None else tel_engine.result_of(
+            _tel_of(st), telemetry),
+        prov_core_s=_prov_core_s(st, cluster), life=life, fleet=fleet)
 
 
 def simulate(policy: PolicySpec, cluster: ClusterCfg, wl: Workload, *,
              device=None, backend: str = "auto",
+             telemetry: TelemetryCfg | None = None, timeline=None,
              stats: LoopStats | None = None) -> SimOutput:
     """Run one workload: :func:`simulate_many` with ``R = 1``."""
     return simulate_many(policy, cluster, [wl], device=device,
-                         backend=backend, stats=stats).rep(0)
+                         backend=backend, telemetry=telemetry,
+                         timeline=timeline, stats=stats).rep(0)

@@ -102,6 +102,45 @@
 //     evicts the worker's LRU materialized executor when it holds more.
 // Every sum and product of those windows and ages goes through the
 // __d*_rn intrinsics, as above.
+//
+// The observation plane (the reference engine's `tel` and `fleet` planes:
+// repro/telemetry, repro/fleet) is a third template argument.  Off, the
+// kernel is the one above.  On, it carries per replication, in global
+// tensors the wrapper allocates zeroed (ObsArgs):
+//   * the fleet's speeds: every PS rate is min(1, C / n) * speed[w] (1.0
+//     without a fleet: exact), and SWARM and DD observe service / speed;
+//   * per advance iteration with tau > 0, tau and tau * n_w are added to
+//     the busy and depth integrals of each worker that had a task (the
+//     batched engine's pre-advance occupancy; a worker without one adds
+//     0.0, which changes nothing).  Like the subtraction of rate * tau,
+//     this is made by the next iteration's scan, from n_w and the
+//     completion it knows of, as atomicAdd reductions that the thread
+//     does not wait for; each worker's are made by one thread, so they
+//     land in iteration order and the f64 sums are the batched engine's;
+//   * per completion of an arrival at or past the warmup cutoff, one count
+//     in the slowdown histogram (response / max(service, 1e-12)) and one
+//     in the latency histogram.  The bin is the count of edges <= x less
+//     one, clamped, over the 1537 edges' bits the host sends (never
+//     recomputed here), found by the completing warp in two rounds of
+//     ballots (every 48th edge, then the 48 after the last one <= x).
+//     The increments are atomicAdd reductions, which the completing
+//     thread does not wait for;
+//   * the cold, warm, evicted (slot pressure and the max_idle budget) and
+//     rejected counters (shared memory), and each worker's placements (a
+//     reduction);
+//   * TARGET_P99 (a runtime switch inside the plane; the decision is
+//     rare): per arrival the provisioned-time integral over the gap at the
+//     current n_on; then, when t_i >= cool_until and a completion was
+//     recorded since the last snapshot (a running count makes the gate
+//     O(1)), warp 0 reads the window slow_hist - snap (48 bins a lane, a
+//     shuffle prefix sum), takes the first bin whose cumulative count
+//     reaches k = clamp(ceil(0.99 * total), 1, total), p99 =
+//     sqrt(edges[b] * edges[b + 1]), grows n_on by max(1, n_on / 2) above
+//     the host's band or shrinks it by 1 below, clamps it to [min_workers,
+//     W], copies the snapshot and recounts the free workers.  During the
+//     choice, workers >= n_on read as slot-full (the reference's mask), so
+//     the balancers are untouched; core_free and slot_free count the
+//     workers below n_on.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -204,6 +243,107 @@ struct LifeState {
   double ttl;
 };
 
+// The observation plane's arguments (base pointers of [R, ...] tensors,
+// zeroed by the wrapper, n_on at W) and scalars: the speeds [W] f64, the
+// sketch's edges [kBins + 1] f64, the histograms [R, kBins] i64, the
+// counters [R, 4] i64 (cold, warm, evicted, rejected), the busy and depth
+// integrals [R, W] f64, the placements [R, W] i64, the busy workers
+// summed over the iterations with tau > 0 [R] i64 (the integrals' updates:
+// what the bound counts); TARGET_P99's n_on [R]
+// i32, cool_until and prov_time [R] f64 and snapshot [R, kBins] i64; the
+// warmup cutoff, whether TARGET_P99 runs, its floor, band and cooldown.
+struct ObsArgs {
+  const double* speed;
+  const double* edges;
+  long long* slow_hist;
+  long long* lat_hist;
+  long long* counters;
+  double* busy;
+  double* depth;
+  long long* decisions;
+  long long* busy_iters;
+  int* n_on;
+  double* cool_until;
+  double* prov_time;
+  long long* snap;
+  long long cutoff;
+  int auto_on;
+  int min_workers;
+  double hi;
+  double lo;
+  double cooldown;
+};
+
+constexpr int kBins = 1536;   // repro/telemetry/sketch.py's N_BINS
+enum Counter { kCold = 0, kWarm = 1, kEvicted = 2, kRejected = 3 };
+
+// The sketch's bin of x, by one warp: the count of the kBins + 1 sorted
+// edges <= x (torch.searchsorted, right=True) less one, clamped to
+// [0, kBins - 1].  The first ballot counts the edges 48 * lane <= x (a
+// prefix of the lanes), the second the 48 edges after the last of them.
+__device__ __forceinline__ int sketch_bin(const double* edges, double x,
+                                          int lane) {
+  constexpr int kStep = kBins / 32;   // 48
+  const int s = __popc(__ballot_sync(kFull, edges[kStep * lane] <= x));
+  if (s == 0) return 0;
+  const int base = kStep * (s - 1);   // edges[base] <= x
+  const bool lo = edges[base + 1 + lane] <= x;
+  const bool hi = lane < kStep - 32 && edges[base + 33 + lane] <= x;
+  const int b = base + __popc(__ballot_sync(kFull, lo)) +
+                __popc(__ballot_sync(kFull, hi));
+  return b > kBins - 1 ? kBins - 1 : b;
+}
+
+// TARGET_P99's decision, by one warp, on the window slow_hist - snap (a
+// completion recorded in it), then the snapshot's copy: the new n_on
+// (repro/fleet/policies.py, the sketch_percentile op sequence).  The
+// histogram, which atomics update in L2, is read past L1 (__ldcg).
+__device__ __forceinline__ int target_p99(const ObsArgs& obs,
+                                          long long* slow_hist,
+                                          long long* snap, int n_on, int W,
+                                          int lane) {
+  constexpr int kPer = kBins / 32;
+  const int b0 = lane * kPer;
+  long long part = 0;
+  for (int q = 0; q < kPer; ++q) {
+    part += __ldcg(slow_hist + b0 + q) - snap[b0 + q];
+  }
+  long long incl = part;
+  for (int offset = 1; offset < 32; offset <<= 1) {
+    const long long below = __shfl_up_sync(kFull, incl, offset);
+    if (lane >= offset) incl += below;
+  }
+  const long long total = __shfl_sync(kFull, incl, 31);
+  long long k = static_cast<long long>(
+      ceil(__dmul_rn(0.99, static_cast<double>(total))));
+  k = k < 1 ? 1 : k;
+  k = k > total ? total : k;
+  const long long excl = incl - part;
+  const int src = __ffs(__ballot_sync(kFull, excl < k && k <= incl)) - 1;
+  int b = 0;
+  if (lane == src) {
+    long long c = excl;
+    for (int q = 0; q < kPer; ++q) {
+      c += __ldcg(slow_hist + b0 + q) - snap[b0 + q];
+      if (c >= k) {
+        b = b0 + q;
+        break;
+      }
+    }
+  }
+  b = __shfl_sync(kFull, b, src);
+  for (int q = 0; q < kPer; ++q) snap[b0 + q] = __ldcg(slow_hist + b0 + q);
+  const double p99 = __dsqrt_rn(__dmul_rn(obs.edges[b], obs.edges[b + 1]));
+  int n = n_on;
+  if (p99 > obs.hi) {
+    n += n_on / 2 > 1 ? n_on / 2 : 1;
+  } else if (p99 < obs.lo) {
+    n -= 1;
+  }
+  n = n < obs.min_workers ? obs.min_workers : n;
+  return n > W ? W : n;
+}
+
 // HYBRID_HIST's shape and quantiles (repro/lifecycle/policies.py)
 constexpr int kHistBins = 32;
 constexpr double kHistHeadQ = 0.05;
@@ -301,16 +441,20 @@ __device__ __forceinline__ void hybrid_observe(const LifeState& life, int f,
 // every worker is slot-full; made by each warp on its own.  `h` is the
 // ring's start (LOC: the function's home; RR: the arrival's index mod W);
 // `head`, `tail` are HIKU's ring counters.  Under the lifecycle, a warm
-// executor counts only if its pool is materialized at `now`.  Writes
+// executor counts only if its pool is materialized at `now`; under the
+// observation plane, a worker >= n_on reads as slot-full.  Writes
 // nothing.
-template <bool life_on>
-__device__ __forceinline__ int choose(int balancer, const int* n_act,
+template <bool life_on, bool obs_on>
+__device__ __forceinline__ int choose(int balancer, const int* n_act_s,
                                       const int* warm, int W, int F, int f,
                                       int cores, int S, int core_free,
                                       int slot_free, int h, double u,
                                       const LbState& lb, int head, int tail,
                                       const LifeState& life, double now,
-                                      int lane) {
+                                      int n_on, int lane) {
+  const auto n_act = [=](int w) {
+    return obs_on && w >= n_on ? S : n_act_s[w];
+  };
   if (slot_free == 0) return -1;
   if (balancer == kLocality || balancer == kRoundRobin) {
     // the first worker with a free slot on the ring from h
@@ -318,7 +462,7 @@ __device__ __forceinline__ int choose(int balancer, const int* n_act,
       int w = h + k0 + lane;
       w = w >= W ? w - W : w;
       const unsigned free =
-          __ballot_sync(kFull, k0 + lane < W && n_act[w] < S);
+          __ballot_sync(kFull, k0 + lane < W && n_act(w) < S);
       if (free) return __shfl_sync(kFull, w, __ffs(free) - 1);
     }
     return -1;
@@ -331,7 +475,7 @@ __device__ __forceinline__ int choose(int balancer, const int* n_act,
     int base = 0;
     for (int w0 = 0; w0 < W; w0 += 32) {
       const int w = w0 + lane;
-      const bool has = w < W && n_act[w] < S;
+      const bool has = w < W && n_act(w) < S;
       const unsigned free = __ballot_sync(kFull, has);
       const int rank = base + __popc(free & ((1u << lane) - 1u));
       const unsigned hit = __ballot_sync(kFull, has && rank == target);
@@ -348,15 +492,15 @@ __device__ __forceinline__ int choose(int balancer, const int* n_act,
     const int b = min(static_cast<int>(__dmul_rn(__dsub_rn(x, floor(x)),
                                                  static_cast<double>(W))),
                       W - 1);
-    const int key_a = n_act[a] < S ? n_act[a] : hermes::kBig;
-    const int key_b = n_act[b] < S ? n_act[b] : hermes::kBig;
+    const int key_a = n_act(a) < S ? n_act(a) : hermes::kBig;
+    const int key_b = n_act(b) < S ? n_act(b) : hermes::kBig;
     const int w = key_b < key_a ? b : a;
-    if (n_act[w] < S) return w;
+    if (n_act(w) < S) return w;
   } else if (balancer == kHiku) {
     // the ring's oldest idle worker, else least loaded below
     if (tail > head) {
       const int cand = lb.ring[head % W];
-      if (n_act[cand] < S) return cand;
+      if (n_act(cand) < S) return cand;
     }
   } else if (balancer == kDataDriven || balancer == kSwarm) {
     // first-index argmin of an f64 key over the workers with a free slot:
@@ -365,7 +509,7 @@ __device__ __forceinline__ int choose(int balancer, const int* n_act,
     double best = INFINITY;
     int best_w = INT_MAX;
     for (int w = lane; w < W; w += 32) {
-      const int nw = n_act[w];
+      const int nw = n_act(w);
       if (nw >= S) continue;
       const double v = lb.per_worker[w];
       const double key =
@@ -395,7 +539,7 @@ __device__ __forceinline__ int choose(int balancer, const int* n_act,
   }
   long long best = LLONG_MIN;
   for (int w = lane; w < W; w += 32) {
-    const int nw = n_act[w];
+    const int nw = n_act(w);
     if (nw >= S) continue;
     const size_t at = static_cast<size_t>(w) * F + f;
     const int score =
@@ -444,9 +588,9 @@ __device__ __forceinline__ void on_complete(int balancer, const LbState& lb,
   }
 }
 
-// One instantiation per balancer and lifecycle switch: the choice and
-// the state updates of the others compile away.
-template <int balancer, bool life_on>
+// One instantiation per balancer, lifecycle switch and observation
+// switch: the choice and the state updates of the others compile away.
+template <int balancer, bool life_on, bool obs_on>
 __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     const double* __restrict__ arrival, const int* __restrict__ func,
     const double* __restrict__ service, const double* __restrict__ u_lb,
@@ -464,7 +608,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     double* __restrict__ life_pre, double* __restrict__ life_keep,
     const double* __restrict__ life_costs, double* __restrict__ life_hist,
     double* __restrict__ life_n_obs, int max_idle, double bin_s, double ttl,
-    int n, int n_functions, int n_workers, int cores, int slots,
+    ObsArgs obs, int n, int n_functions, int n_workers, int cores, int slots,
     double penalty) {
   extern __shared__ double shared[];
   __shared__ double red_t[2][32];
@@ -477,6 +621,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
   __shared__ int slot_free;   // workers with n_w < S
   __shared__ int ring_head;   // HIKU's ring counters
   __shared__ int ring_tail;
+  __shared__ int on_count;              // TARGET_P99's n_on (else W)
+  __shared__ long long rec_since;       // recorded since the snapshot
+  __shared__ long long obs_count[4];    // Counter
 
   const int W = n_workers, S = slots, F = n_functions;
   const int r = blockIdx.x;
@@ -521,6 +668,15 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
       max_idle,
       bin_s,
       ttl};
+  // this replication's observation state (unused when obs_on is off)
+  const size_t rb = static_cast<size_t>(r) * kBins;
+  long long* slow_hist = obs_on ? obs.slow_hist + rb : nullptr;
+  long long* lat_hist = obs_on ? obs.lat_hist + rb : nullptr;
+  long long* snap = obs_on && obs.auto_on ? obs.snap + rb : nullptr;
+  double* busy = obs_on ? obs.busy + static_cast<size_t>(r) * W : nullptr;
+  double* depth = obs_on ? obs.depth + static_cast<size_t>(r) * W : nullptr;
+  long long* decisions =
+      obs_on ? obs.decisions + static_cast<size_t>(r) * W : nullptr;
 
   for (size_t k = t; k < WS; k += blockDim.x) {
     rems[k] = INFINITY;
@@ -551,6 +707,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
   if (t == 0) {
     core_free = W;
     slot_free = W;
+    if (obs_on) {
+      on_count = W;
+      rec_since = 0;
+      for (int k = 0; k < 4; ++k) obs_count[k] = 0;
+    }
     if (balancer == kHiku) {
       ring_head = lb_head[r];
       ring_tail = lb_tail[r];
@@ -562,6 +723,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
   double now = 0.0, server_time = 0.0, core_time = 0.0;
   long long iters = 0;
   long long active_sum = 0;   // active tasks summed over the iterations
+  long long busy_iters = 0;   // busy workers summed, iterations with tau > 0
   int parity = 0;
   // The subtraction rate*tau of an iteration is made by the next
   // iteration's scan, which every iteration is followed by (the scan that
@@ -570,6 +732,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
   double tau_prev = 0.0;
   int wj_prev = -1;
   int done_prev = 0;   // meaningful in the warp that owns wj_prev
+  // TARGET_P99's scalars, the same in every thread
+  int n_on = W;
+  double cool_until = 0.0, prov_time = 0.0, t_last = 0.0;
   // arrival i's inputs, loaded one arrival ahead
   double t_i = n > 0 ? arrival[0] : 0.0;
   int f_i = n > 0 ? func[0] : 0;
@@ -579,19 +744,43 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
   for (int i = 0; i <= n; ++i) {
     // -- advance to arrival i (after the last one: drain) ---------------
     double dt_left = i < n ? __dsub_rn(t_i, now) : kBigTime;
+    if (obs_on && obs.auto_on) {
+      // provisioned time over the gap at the current n_on (to the drain's
+      // end after the last arrival, from t_last)
+      t_last = now;
+      if (i < n) {
+        prov_time = __dadd_rn(
+            prov_time,
+            __dmul_rn(__dsub_rn(t_i, now), static_cast<double>(n_on)));
+      }
+    }
     while (true) {
       Scan a{INFINITY, INT_MAX, 0, 0, 0, 0};
       for (int w = warp; w < W; w += n_warps) {
         const int nw = n_act[w];
+        if (obs_on && lane == 0 && tau_prev > 0) {
+          // the last iteration's integrals over its n_w (this one's, and
+          // the task it completed), as reductions the thread does not wait
+          // for; one thread per worker, so they land in iteration order
+          const int n_prev = nw + (w == wj_prev ? done_prev : 0);
+          if (n_prev > 0) {
+            atomicAdd(busy + w, tau_prev);   // tau * 1.0
+            atomicAdd(depth + w,
+                      __dmul_rn(tau_prev, static_cast<double>(n_prev)));
+          }
+        }
         if (nw == 0) continue;
         if (lane == 0) {
           a.total += nw;
           a.busy += 1;
           a.cores += nw < cores ? nw : cores;
         }
-        const double rate = rate_of[nw];
+        const double speed = obs_on ? obs.speed[w] : 1.0;
+        const double rate =
+            obs_on ? __dmul_rn(rate_of[nw], speed) : rate_of[nw];
+        const double rate_prev = rate_of[nw + (w == wj_prev ? done_prev : 0)];
         const double step = __dmul_rn(
-            rate_of[nw + (w == wj_prev ? done_prev : 0)], tau_prev);
+            obs_on ? __dmul_rn(rate_prev, speed) : rate_prev, tau_prev);
         const int lim = hw[w];
         for (int s = lane; s < lim; s += 32) {
           const int flat = w * S + s;
@@ -644,16 +833,25 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
                             __dmul_rn(tau, static_cast<double>(a.cores)));
       const double now_next = __dadd_rn(now, tau);
       const int wj = j / S;
+      if (obs_on && tau > 0) busy_iters += a.busy;
       if (warp == wj % n_warps) {
         // the argmin slot, by its owner warp: completion reads the
         // remaining work before this iteration's subtraction
         int done = 0;
+        int record = 0;   // a completion the sketch records
+        double response = 0.0, slow = 0.0;
         if (lane == 0) {
           const int tid = tix[j];
           done = tid >= 0 && (tmin <= dt_left || rems[j] <= kEps);
           if (done) {
-            resp[tid] = __dsub_rn(now_next, arr_at[j]);
+            response = __dsub_rn(now_next, arr_at[j]);
+            resp[tid] = response;
             const int f = func[tid];
+            if (obs_on && tid >= obs.cutoff) {
+              const double sv = service[tid];
+              slow = __ddiv_rn(response, sv > 1e-12 ? sv : 1e-12);
+              record = 1;
+            }
             const size_t at = static_cast<size_t>(wj) * F + f;
             if (life_on) {
               // a stale pool restarts from 0; its idle clock restarts now
@@ -668,14 +866,30 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
             tix[j] = -1;
             const int nw = n_act[wj];
             n_act[wj] = nw - 1;
-            core_free += nw == cores;
-            slot_free += nw == S;
+            if (!obs_on || wj < on_count) {   // the free counts: w < n_on
+              core_free += nw == cores;
+              slot_free += nw == S;
+            }
             on_complete(balancer, lb, &ring_tail, W, wj, func[tid],
-                        service[tid], nw - 1);
+                        obs_on ? __ddiv_rn(service[tid], obs.speed[wj])
+                               : service[tid],
+                        nw - 1);
           }
         }
         done_prev = __shfl_sync(kFull, done, 0);
         __syncwarp();
+        if (obs_on && __shfl_sync(kFull, record, 0)) {
+          const int b_slow =
+              sketch_bin(obs.edges, __shfl_sync(kFull, slow, 0), lane);
+          const int b_lat =
+              sketch_bin(obs.edges, __shfl_sync(kFull, response, 0), lane);
+          if (lane == 0) {   // reductions: the thread does not wait
+            using u64 = unsigned long long;
+            atomicAdd(reinterpret_cast<u64*>(slow_hist) + b_slow, 1ULL);
+            atomicAdd(reinterpret_cast<u64*>(lat_hist) + b_lat, 1ULL);
+            rec_since += 1;
+          }
+        }
         if (life_on && life.max_idle > 0 && done_prev) {
           // the max_idle budget: the worker's LRU materialized executor
           // goes when it holds more
@@ -685,6 +899,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
                    lane, &n_idle, &victim);
           if (lane == 0 && n_idle > life.max_idle) {
             pools[static_cast<size_t>(wj) * F + victim] -= 1;
+            if (obs_on) obs_count[kEvicted] += 1;
           }
           __syncwarp();
         }
@@ -694,17 +909,49 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
       now = now_next;
       dt_left = __dsub_rn(dt_left, tau);
     }
-    if (i == n) break;
+    if (i == n) {
+      if (obs_on && obs.auto_on) {
+        // the fleet stays provisioned until the last completion
+        prov_time = __dadd_rn(
+            prov_time,
+            __dmul_rn(__dsub_rn(now, t_last), static_cast<double>(n_on)));
+      }
+      break;
+    }
 
     // -- choose a worker for arrival i (every warp), then place it (the
     //    worker's warp) or reject it --------------------------------------
     now = t_i;
+    if (obs_on && obs.auto_on && t_i >= cool_until && rec_since >= 1) {
+      // TARGET_P99's decision (the same gate in every thread): warp 0
+      // decides, copies the snapshot and recounts the free workers below
+      // the new n_on
+      if (warp == 0) {
+        const int n_new = target_p99(obs, slow_hist, snap, n_on, W, lane);
+        int cf = 0, sf = 0;
+        for (int w = lane; w < n_new; w += 32) {
+          cf += n_act[w] < cores;
+          sf += n_act[w] < S;
+        }
+        cf = warp_sum(cf);
+        sf = warp_sum(sf);
+        if (lane == 0) {
+          on_count = n_new;
+          core_free = cf;
+          slot_free = sf;
+        }
+      }
+      __syncthreads();   // every thread read rec_since before it resets
+      n_on = on_count;
+      cool_until = __dadd_rn(t_i, obs.cooldown);
+      if (t == 0) rec_since = 0;
+    }
     const int f = f_i;
     const double svc = svc_i;
-    const int w_sel = choose<life_on>(
+    const int w_sel = choose<life_on, obs_on>(
         balancer, n_act, pools, W, F, f, cores, S, core_free, slot_free,
         balancer == kLocality ? home[f] : balancer == kRoundRobin ? i % W : 0,
-        u_i, lb, ring_head, ring_tail, life, now, lane);
+        u_i, lb, ring_head, ring_tail, life, now, n_on, lane);
     if (i + 1 < n) {
       t_i = arrival[i + 1];
       f_i = func[i + 1];
@@ -714,6 +961,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     __syncthreads();   // every warp has chosen before the state changes
     if (t == 0) {
       rejected[i] = w_sel < 0;
+      if (obs_on && w_sel < 0) obs_count[kRejected] += 1;
       // the choice's own writes to the balancer state
       if (w_sel >= 0 && balancer == kHiku && ring_tail > ring_head) {
         lb.in_ring[lb.ring[ring_head % W]] = 0;
@@ -762,6 +1010,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
         const bool is_cold = !mat_f || warm_cnt == 0;
         if (!is_cold) warm_w[f] = warm_cnt - 1;
         if (is_cold && active_w + idle >= S) warm_w[victim_f] -= 1;
+        if (obs_on) {
+          obs_count[is_cold ? kCold : kWarm] += 1;
+          obs_count[kEvicted] += is_cold && active_w + idle >= S;
+          atomicAdd(reinterpret_cast<unsigned long long*>(decisions) + w,
+                    1ULL);
+        }
         const double cost =
             life_on && life.costs != nullptr ? life.costs[f] : penalty;
         const size_t at = static_cast<size_t>(w) * S + slot;
@@ -796,6 +1050,15 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
       lb_head[r] = ring_head;
       lb_tail[r] = ring_tail;
     }
+    if (obs_on) {
+      for (int k = 0; k < 4; ++k) obs.counters[r * 4 + k] = obs_count[k];
+      obs.busy_iters[r] = busy_iters;
+      if (obs.auto_on) {
+        obs.n_on[r] = n_on;
+        obs.cool_until[r] = cool_until;
+        obs.prov_time[r] = prov_time;
+      }
+    }
   }
 }
 
@@ -822,8 +1085,14 @@ size_t shared_bytes(int n_workers, int slots) {
 // preset's costs [F] f64 (null: `penalty`), HYBRID_HIST's hist [R, F, 32]
 // and n_obs [R, F] f64 (initialised by the caller; null for the other
 // keep-alives), the max_idle budget (0: none), HYBRID_HIST's bin width and
-// fallback window.  Launches one block per replication on `stream` and
-// returns cudaGetLastError() (0 = launched).
+// fallback window.  The observation plane (on when `obs` != 0; see
+// ObsArgs, its tensors zeroed by the caller, n_on at W; the autoscaler's
+// pointers null unless `auto_on`): speed, edges, slow_hist, lat_hist,
+// counters, busy, depth, decisions, busy_iters, n_on, cool_until,
+// prov_time, snap,
+// the warmup cutoff, TARGET_P99's switch, floor, band (hi, lo) and
+// cooldown.  Launches one block per replication on `stream` and returns
+// cudaGetLastError() (0 = launched).
 extern "C" int sim_engine_launch(
     const double* arrival, const int* func, const double* service,
     const double* u_lb, const int* home, double* remaining, double* task_arr,
@@ -834,9 +1103,14 @@ extern "C" int sim_engine_launch(
     double* lb_per_worker, long long* lb_cnt, double* life_idle,
     double* life_pre, double* life_keep, const double* life_costs,
     double* life_hist, double* life_n_obs, int life, int max_idle,
-    double bin_s, double ttl, int n_reps, int n, int n_functions,
-    int n_workers, int cores, int slots, int balancer, double penalty,
-    void* stream) {
+    double bin_s, double ttl, const double* speed, const double* edges,
+    long long* slow_hist, long long* lat_hist, long long* counters,
+    double* busy, double* depth, long long* decisions,
+    long long* busy_iters, int* n_on,
+    double* cool_until, double* prov_time, long long* snap, int obs,
+    long long cutoff, int auto_on, int min_workers, double hi, double lo,
+    double cooldown, int n_reps, int n, int n_functions, int n_workers,
+    int cores, int slots, int balancer, double penalty, void* stream) {
   const bool state_given =
       balancer == kHiku
           ? lb_ring && lb_in_ring && lb_head && lb_tail
@@ -846,25 +1120,38 @@ extern "C" int sim_engine_launch(
       !life || (life_idle && life_pre && life_keep &&
                 (life_hist == nullptr) == (life_n_obs == nullptr) &&
                 max_idle >= 0);
+  const bool obs_given =
+      !obs || (speed && edges && slow_hist && lat_hist && counters && busy &&
+               depth && decisions && busy_iters && cutoff >= 0 &&
+               (!auto_on || (n_on && cool_until && prov_time && snap &&
+                             min_workers >= 1)));
   if (n_reps < 1 || n < 0 || n_functions < 1 || n_workers < 1 ||
       n_workers > kMaxWorkers || cores < 1 || slots < 1 ||
       slots > kMaxSlots || balancer < 0 || balancer > kSwarm ||
-      !state_given || !life_given) {
+      !state_given || !life_given || !obs_given) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  using Kernel = decltype(&sim_engine_kernel<kHermes, false>);
-  const Kernel kernels[2][9] = {
-      {sim_engine_kernel<kHermes, false>, sim_engine_kernel<kLeastLoaded, false>,
-       sim_engine_kernel<kLocality, false>, sim_engine_kernel<kRandom, false>,
-       sim_engine_kernel<kJsq2, false>, sim_engine_kernel<kRoundRobin, false>,
-       sim_engine_kernel<kHiku, false>, sim_engine_kernel<kDataDriven, false>,
-       sim_engine_kernel<kSwarm, false>},
-      {sim_engine_kernel<kHermes, true>, sim_engine_kernel<kLeastLoaded, true>,
-       sim_engine_kernel<kLocality, true>, sim_engine_kernel<kRandom, true>,
-       sim_engine_kernel<kJsq2, true>, sim_engine_kernel<kRoundRobin, true>,
-       sim_engine_kernel<kHiku, true>, sim_engine_kernel<kDataDriven, true>,
-       sim_engine_kernel<kSwarm, true>}};
-  const Kernel kernel = kernels[life ? 1 : 0][balancer];
+  using Kernel = decltype(&sim_engine_kernel<kHermes, false, false>);
+  const Kernel kernels[2][2][9] = {
+#define SIM_ENGINE_ROW(LIFE, OBS)                                          \
+  {sim_engine_kernel<kHermes, LIFE, OBS>,                                  \
+   sim_engine_kernel<kLeastLoaded, LIFE, OBS>,                             \
+   sim_engine_kernel<kLocality, LIFE, OBS>,                                \
+   sim_engine_kernel<kRandom, LIFE, OBS>,                                  \
+   sim_engine_kernel<kJsq2, LIFE, OBS>,                                    \
+   sim_engine_kernel<kRoundRobin, LIFE, OBS>,                              \
+   sim_engine_kernel<kHiku, LIFE, OBS>,                                    \
+   sim_engine_kernel<kDataDriven, LIFE, OBS>,                              \
+   sim_engine_kernel<kSwarm, LIFE, OBS>}
+      {SIM_ENGINE_ROW(false, false), SIM_ENGINE_ROW(false, true)},
+      {SIM_ENGINE_ROW(true, false), SIM_ENGINE_ROW(true, true)}};
+#undef SIM_ENGINE_ROW
+  const Kernel kernel = kernels[life ? 1 : 0][obs ? 1 : 0][balancer];
+  const ObsArgs obs_args{speed,      edges,      slow_hist,  lat_hist,
+                         counters,   busy,       depth,      decisions,
+                         busy_iters, n_on,       cool_until, prov_time,
+                         snap,       cutoff,     auto_on,    min_workers,
+                         hi,         lo,         cooldown};
   // one warp per worker, up to kMaxThreads
   const int threads =
       n_workers < kMaxThreads / 32 ? 32 * n_workers : kMaxThreads;
@@ -878,7 +1165,7 @@ extern "C" int sim_engine_launch(
       resp, cold, rejected, worker_of, server_time, core_time, now, iters,
       active, lb_ring, lb_in_ring, lb_head, lb_tail, lb_est, lb_per_worker,
       lb_cnt, life_idle, life_pre, life_keep, life_costs, life_hist,
-      life_n_obs, max_idle, bin_s, ttl, n, n_functions, n_workers, cores,
-      slots, penalty);
+      life_n_obs, max_idle, bin_s, ttl, obs_args, n, n_functions, n_workers,
+      cores, slots, penalty);
   return static_cast<int>(cudaGetLastError());
 }

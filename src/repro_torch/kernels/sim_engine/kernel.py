@@ -7,9 +7,10 @@ replication; its Hermes choice redesigns the Pallas TPU kernel
 ``repro/kernels/hermes_select/kernel.py`` (``hermes_select_batch``) for
 the card.  :func:`sim_engine` checks its inputs, allocates the state and
 the outputs (a carried-state balancer's state initialised by its
-``init_state``, and under a lifecycle the life plane's state initialised
-by :func:`.ref.life_plane`), launches on PyTorch's current stream and
-raises if the launch was refused.  ``sim_engine.launches`` counts its
+``init_state``, under a lifecycle the life plane's state initialised by
+:func:`.ref.life_plane`, and under telemetry or a fleet the observation
+plane's by :func:`.ref.obs_plane`), launches on PyTorch's current stream
+and raises if the launch was refused.  ``sim_engine.launches`` counts its
 launches.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.kernel import UnsupportedShapeError
 from repro_torch.policy import INIT_STATE
 
-from .ref import BALANCER_CODES, balancer_name, life_plane
+from .ref import BALANCER_CODES, balancer_name, life_plane, obs_plane
 
 #: the kernel keeps two ints per worker and a rate per slot count in
 #: shared memory
@@ -35,7 +36,9 @@ MAX_SLOTS = 2047
 def _launcher():
     fn = _build.load("sim_engine").sim_engine_launch
     fn.argtypes = [ctypes.c_void_p] * 31 + [ctypes.c_int] * 2 \
-        + [ctypes.c_double] * 2 + [ctypes.c_int] * 7 \
+        + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 13 \
+        + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int] \
+        + [ctypes.c_double] * 3 + [ctypes.c_int] * 7 \
         + [ctypes.c_double, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -53,11 +56,13 @@ def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
                          f"{tuple(shape)} tensor, got {tuple(x.shape)}")
 
 
-def sim_engine(balance, cluster, arrival, func, service, u_lb, home):
+def sim_engine(balance, cluster, arrival, func, service, u_lb, home,
+               telemetry=None):
     """The fused engine on the card: see :func:`.ref.sim_engine_ref` for
     the inputs and the outputs.  Raises :class:`NotPortedError` for a
-    balancer or a keep-alive it does not have and
-    :class:`UnsupportedShapeError` for a cluster larger than it takes."""
+    balancer, a keep-alive, an autoscaler or a speed preset it does not
+    have and :class:`UnsupportedShapeError` for a cluster larger than it
+    takes."""
     balance = balancer_name(balance)
     W, C, S = int(cluster.n_workers), int(cluster.cores), int(cluster.slots)
     if not (1 <= W <= MAX_WORKERS and 1 <= S <= MAX_SLOTS):
@@ -108,10 +113,28 @@ def sim_engine(balance, cluster, arrival, func, service, u_lb, home):
         ls.get("life_n_obs"))]
     life_args = (0, 0, 0.0, 0.0) if life is None else (
         1, life.max_idle, life.bin_s, life.ttl)
+    # the observation plane's arguments; null (and 0) without one.  The
+    # counters go to the kernel as one [R, 4] tensor
+    obs = obs_plane(cluster, telemetry, R, N, W, dev)
+    obs_state = {} if obs is None else obs.state
+    counters = None if obs is None else torch.zeros(
+        (R, 4), dtype=torch.int64, device=dev)
+    obs_ptrs = [0 if x is None else x.data_ptr() for x in (
+        None if obs is None else obs.speed,
+        None if obs is None else obs.edges,
+        obs_state.get("tel_slow_hist"), obs_state.get("tel_lat_hist"),
+        counters, obs_state.get("tel_busy_time"),
+        obs_state.get("tel_depth_time"), obs_state.get("tel_decisions"),
+        obs_state.get("busy_iters"), obs_state.get("fleet_n_on"),
+        obs_state.get("fleet_cool_until"), obs_state.get("fleet_prov_time"),
+        obs_state.get("fleet_snap"))]
+    obs_args = (0, 0, 0, 1, 0.0, 0.0, 0.0) if obs is None else (
+        1, obs.cutoff, int(obs.auto), obs.min_workers, obs.hi, obs.lo,
+        obs.cooldown)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _launcher()(*ptrs, *life_args, R, N, F, W, C, S,
-                          BALANCER_CODES[balance],
+        err = _launcher()(*ptrs, *life_args, *obs_ptrs, *obs_args, R, N, F,
+                          W, C, S, BALANCER_CODES[balance],
                           float(cluster.cold_start_penalty), stream)
     if err != 0:
         raise RuntimeError(f"sim_engine: kernel launch failed with CUDA "
@@ -119,6 +142,10 @@ def sim_engine(balance, cluster, arrival, func, service, u_lb, home):
     sim_engine.launches += 1
     out.update({f"lb_{k}": v for k, v in lb.items()})
     out.update(ls)
+    if obs is not None:
+        for k, name in enumerate(("n_cold", "n_warm", "n_evict", "n_reject")):
+            obs_state[f"tel_{name}"] = counters[:, k].contiguous()
+        out.update(obs.returned())
     return out
 
 

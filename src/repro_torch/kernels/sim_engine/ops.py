@@ -6,13 +6,14 @@ from . import kernel
 from .ref import sim_engine_ref
 
 
-def sim_engine(balance, cluster, arrival, func, service, u_lb, home):
+def sim_engine(balance, cluster, arrival, func, service, u_lb, home,
+               telemetry=None):
     """One early-binding, PS ``simulate_many`` under the balancer
     ``balance`` (see :func:`.ref.sim_engine_ref`).  CPU tensors take the
     plain version; CUDA tensors launch the kernel, which raises on
     anything it does not take."""
     if arrival.device.type == "cpu":
         return sim_engine_ref(balance, cluster, arrival, func, service, u_lb,
-                              home)
+                              home, telemetry)
     return kernel.sim_engine(balance, cluster, arrival, func, service, u_lb,
-                             home)
+                             home, telemetry)

@@ -28,6 +28,23 @@ as the kernel's warp does (a prefix sum over the 32 bins, the first bin
 at or above each quantile); a completion zeroes a stale pool, refreshes
 its idle clock and holds the worker to ``max_idle``.  The final life
 state comes back as ``life_<key>``.
+
+Under telemetry or a fleet (a built-in autoscaler, speeds from a
+built-in preset or an explicit vector; not a ``STATIC`` fleet of unit
+speeds alone, whose outputs are the plane-off ones) it carries the
+kernel's observation plane (:class:`ObsPlane`): every PS rate times the
+worker's speed, SWARM and DD observing the service over the speed; per
+advance iteration the busy and depth integrals of the workers with a
+task; per completion past the warmup cutoff one count in each histogram
+(the right-side search of the edges' bits); the cold, warm, eviction
+and rejection counters and the decision counts; and under ``TARGET_P99``,
+per arrival, the provisioned-time integral, then the gated decision
+(the cooldown elapsed and a recorded completion since the snapshot: the
+first bin whose cumulative count reaches ``ceil(0.99 · total)``, its
+geometric midpoint against the host's band, the MIAD step, the clamp,
+the snapshot) and the workers ``>= n_on`` read as slot-full at the
+choice.  The telemetry comes back as ``tel_<key>`` (with ``telemetry``)
+and the autoscaler's state as ``fleet_<key>``.
 """
 from __future__ import annotations
 
@@ -38,6 +55,8 @@ from typing import Optional
 import torch
 
 from repro_torch import NotPortedError
+from repro_torch import fleet as fleet_mod
+from repro_torch.fleet.policies import _p99_bounds
 from repro_torch.kernels.hermes_select.ref import hermes_select_ref
 from repro_torch.lifecycle import is_builtin, resolve_lifecycle
 from repro_torch.lifecycle.policies import (HIST_BINS, HIST_HEAD_Q,
@@ -47,6 +66,9 @@ from repro_torch.policy import INIT_STATE
 from repro_torch.policy.balancers import (
     _SW_COLD_DN, _SW_COLD_UP, _SW_EST_DN, _SW_EST_UP, _SW_HOT_DN,
     _SW_HOT_UP, DD_ALPHA, SWARM_WARM_N)
+from repro_torch.telemetry.engine import bin_index
+from repro_torch.telemetry.sketch import N_BINS, hist_edges
+from repro_torch.telemetry.state import warmup_cutoff
 
 EPS = 1e-9
 _BIG_TIME = 1e18
@@ -113,6 +135,103 @@ def life_plane(cluster, R: int, W: int, F: int, device) -> \
             lres.cold_costs, dtype=_F64, device=device),
         max_idle=lres.max_idle, hybrid=lres.observe is not None,
         bin_s=bin_s, ttl=ttl, state=state)
+
+
+@dataclasses.dataclass(frozen=True)
+class ObsPlane:
+    """The fused engine's observation inputs: the speeds ``[W]`` f64
+    (1.0 without a fleet), the sketch's edges ``[N_BINS + 1]`` f64, the
+    warmup ``cutoff``, whether ``TARGET_P99`` runs (``auto``) with its
+    band ``hi``/``lo``, ``min_workers`` and ``cooldown``, which state
+    goes back to the caller (``tel``: telemetry was asked for), and the
+    initial state: ``tel_slow_hist``/``tel_lat_hist [R, N_BINS]`` i64,
+    ``tel_n_cold``/``tel_n_warm``/``tel_n_evict``/``tel_n_reject [R]``
+    i64, ``tel_busy_time``/``tel_depth_time [R, W]`` f64,
+    ``tel_qlen_time [R]`` f64 (0 under early binding),
+    ``tel_decisions [R, W]`` i64, and for the autoscaler
+    ``fleet_n_on [R]`` i32 (W), ``fleet_cool_until``/``fleet_prov_time
+    [R]`` f64 and ``fleet_snap [R, N_BINS]`` i64, all zero but
+    ``n_on``; and ``busy_iters [R]`` i64, the busy workers summed over the
+    advance iterations with ``tau > 0`` (the integrals' updates, which a
+    bound counts), returned whenever the plane is on.
+    """
+
+    speed: torch.Tensor
+    edges: torch.Tensor
+    cutoff: int
+    auto: bool
+    hi: float
+    lo: float
+    min_workers: int
+    cooldown: float
+    tel: bool
+    state: dict
+
+    def returned(self) -> dict:
+        """The state the engine hands back: ``tel_*`` with telemetry,
+        ``fleet_*`` under the autoscaler."""
+        return {k: v for k, v in self.state.items()
+                if (k.startswith("tel_") and self.tel)
+                or (k.startswith("fleet_") and self.auto)
+                or k == "busy_iters"}
+
+
+def obs_plane(cluster, telemetry, R: int, N: int, W: int, device) -> \
+        Optional[ObsPlane]:
+    """The observation plane for ``cluster`` and ``telemetry`` (a
+    ``TelemetryCfg`` or None), ``None`` without either, or with only a
+    fleet that changes nothing (``STATIC``, every speed 1.0);
+    :class:`NotPortedError` for an autoscaler or a speed preset a user
+    registered (the batched engine runs those), ``ValueError`` for
+    ``TARGET_P99`` without telemetry."""
+    fl = cluster.fleet
+    if telemetry is None and fl is None:
+        return None
+    if fl is not None and not (fleet_mod.is_builtin(fl.autoscale)
+                               and fleet_mod.preset_is_builtin(fl)):
+        raise NotPortedError(
+            f"sim_engine runs the built-in autoscalers and speed presets "
+            f"(or an explicit speed vector); got autoscale "
+            f"{fl.autoscale!r}, preset {fl.preset!r}")
+    auto = fl is not None and \
+        str(fl.autoscale).strip().upper() != fleet_mod.STATIC
+    if auto and telemetry is None:
+        raise ValueError(
+            f"autoscaler {fl.autoscale!r} reads the telemetry slowdown "
+            f"sketch as its sensor; pass telemetry=TelemetryCfg()")
+    speeds = None if fl is None else fleet_mod.speeds_for(fl, W)
+    if telemetry is None and not auto and bool((speeds == 1.0).all()):
+        # a static fleet of unit speeds, no telemetry: the outputs are the
+        # plane-off ones, so the plane stays off
+        return None
+    speed = torch.ones(W, dtype=_F64, device=device) if fl is None else \
+        torch.tensor(speeds, dtype=_F64, device=device)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    state = {f"tel_{k}": zeros(R, _I64)
+             for k in ("n_cold", "n_warm", "n_evict", "n_reject")}
+    state.update(tel_slow_hist=zeros((R, N_BINS), _I64),
+                 tel_lat_hist=zeros((R, N_BINS), _I64),
+                 tel_busy_time=zeros((R, W), _F64),
+                 tel_depth_time=zeros((R, W), _F64),
+                 tel_qlen_time=zeros(R, _F64),
+                 tel_decisions=zeros((R, W), _I64),
+                 fleet_n_on=torch.full((R,), W, dtype=_I32, device=device),
+                 fleet_cool_until=zeros(R, _F64),
+                 fleet_prov_time=zeros(R, _F64),
+                 fleet_snap=zeros((R, N_BINS), _I64),
+                 busy_iters=zeros(R, _I64))
+    hi, lo = _p99_bounds(fl) if auto else (0.0, 0.0)
+    return ObsPlane(
+        speed=speed, edges=torch.tensor(hist_edges(), dtype=_F64,
+                                        device=device),
+        cutoff=N if telemetry is None else warmup_cutoff(N, telemetry),
+        auto=auto, hi=hi, lo=lo,
+        min_workers=int(fl.min_workers) if auto else 1,
+        cooldown=float(fl.cooldown_s) if auto else 0.0,
+        tel=telemetry is not None, state=state)
 
 
 def _materialized(idle, pre, keep, now):
@@ -229,18 +348,21 @@ def _on_complete(balance, state, w, f, service, n_active_after):
         state["cnt"][w] += 1
 
 
-def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
+def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
+                   telemetry=None):
     """Early binding with PS under the balancer ``balance`` (a name of
-    :data:`BALANCER_CODES`).  arrival, service, u_lb ``[R, N]`` f64;
+    :data:`BALANCER_CODES`), with ``telemetry`` (a ``TelemetryCfg``) or
+    None.  arrival, service, u_lb ``[R, N]`` f64;
     func ``[R, N]`` i32; home ``[R, F]`` i32 → dict of ``resp [R, N]``
     f64 (NaN until completed), ``cold``/``rejected [R, N]`` bool,
     ``worker_of [R, N]`` i32, ``server_time``/``core_time``/``now [R]``
     f64, ``iters [R]`` i64 (advance iterations per replication),
     ``active [R]`` i64 (the active tasks summed over those iterations:
     the slots a scan reads), for a carried-state balancer its final
-    state as ``lb_<key>`` (``[R, …]``, the keys of its ``init_state``)
-    and, under a lifecycle, the final life state as ``life_<key>`` (see
-    :class:`LifePlane`)."""
+    state as ``lb_<key>`` (``[R, …]``, the keys of its ``init_state``),
+    under a lifecycle the final life state as ``life_<key>`` (see
+    :class:`LifePlane`), with telemetry ``tel_<key>`` and under an
+    autoscaler ``fleet_<key>`` (see :class:`ObsPlane`)."""
     balance = balancer_name(balance)
     W, C, S = int(cluster.n_workers), int(cluster.cores), int(cluster.slots)
     R, N = arrival.shape
@@ -261,6 +383,15 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
     life = life_plane(cluster, R, W, F, dev)
     if life is not None:
         out.update(life.state)
+    obs = obs_plane(cluster, telemetry, R, N, W, dev)
+    if obs is not None:
+        ob = obs.state                   # views: in place, by row
+        ids = torch.arange(W, device=dev)
+        if obs.auto:
+            # TARGET_P99's numpy decide: the kernel's warp takes the same
+            # integer decision from the same bits
+            decide = fleet_mod.get_autoscaler(cluster.fleet.autoscale) \
+                .make_np(cluster.fleet, W)
     c = torch.tensor(float(C), dtype=_F64, device=dev)
     pen = torch.tensor(float(cluster.cold_start_penalty), dtype=_F64,
                        device=dev)
@@ -281,9 +412,18 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
             pre, keep = out["life_pre"][r], out["life_keep"][r]
             if life.hybrid:
                 hist, n_obs = out["life_hist"][r], out["life_n_obs"][r]
+        if obs is not None:
+            n_on = W
+            cool_until = prov = torch.zeros((), dtype=_F64, device=dev)
         for i in range(N + 1):
             dt_left = arrival[r, i] - now if i < N else \
                 torch.tensor(_BIG_TIME, dtype=_F64, device=dev)
+            if obs is not None and obs.auto:
+                # provisioned time over the gap (to the drain's end after
+                # the last arrival: t_last is now)
+                t_last = now
+                if i < N:
+                    prov = prov + (arrival[r, i] - now) * float(n_on)
             while True:
                 active = task_idx >= 0
                 pending = bool((active & (remaining <= EPS)).any())
@@ -295,6 +435,8 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
                 active_sum += int(n_w.sum())
                 rate = torch.clamp(c / n_w.clamp(min=1).to(_F64), max=1.0)
                 rates = torch.where(active, rate[:, None], 0.0)
+                if obs is not None:
+                    rates = rates * obs.speed[:, None]
                 t_done = torch.where(rates > 0, remaining / rates, torch.inf)
                 tmin = t_done.amin()
                 j = int(t_done.view(-1).argmin())
@@ -303,6 +445,11 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
                 tau = torch.where(torch.isfinite(tau) & (tau > 0), tau, 0.0)
                 server_time = server_time + tau * (n_w > 0).sum()
                 core_time = core_time + tau * n_w.clamp(max=C).sum()
+                if obs is not None:
+                    ob["tel_busy_time"][r] += tau * (n_w > 0).to(_F64)
+                    ob["tel_depth_time"][r] += tau * n_w.to(_F64)
+                    if bool(tau > 0):
+                        ob["busy_iters"][r] += int((n_w > 0).sum())
                 now = now + tau
                 tid = int(task_idx[wj, sj])
                 completed = bool(tmin <= dt_left) or (
@@ -311,6 +458,13 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
                 if completed and tid >= 0:
                     resp[tid] = now - task_arr[wj, sj]
                     f = int(func[r, tid])
+                    if obs is not None and tid >= obs.cutoff:
+                        slow = resp[tid] / torch.clamp(service[r, tid],
+                                                       min=1e-12)
+                        for hist_key, x in (("tel_slow_hist", slow),
+                                            ("tel_lat_hist", resp[tid])):
+                            b = int(bin_index(x.reshape(1), obs.edges))
+                            ob[hist_key][r, b] += 1
                     if life is not None:
                         # a stale pool restarts from 0; the budget evicts
                         # the worker's LRU materialized pool
@@ -325,15 +479,20 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
                                 warm[wj, int(torch.where(
                                     eff > 0, idle[wj],
                                     torch.inf).argmin())] -= 1
+                                if obs is not None:
+                                    ob["tel_n_evict"][r] += 1
                     else:
                         warm[wj, f] += 1
                     remaining[wj, sj] = torch.inf
                     task_idx[wj, sj] = -1
+                    svc = service[r, tid] if obs is None else \
+                        service[r, tid] / obs.speed[wj]
                     _on_complete(balance, state, wj, int(func[r, tid]),
-                                 float(service[r, tid]),
-                                 int((task_idx[wj] >= 0).sum()))
+                                 float(svc), int((task_idx[wj] >= 0).sum()))
                 dt_left = dt_left - tau
             if i == N:
+                if obs is not None and obs.auto:
+                    prov = prov + (now - t_last) * float(n_on)
                 break
             now = arrival[r, i]
             f = int(func[r, i])
@@ -343,11 +502,21 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
                 warm_col = torch.where(
                     _materialized(idle[:, f], pre[f], keep[f], now),
                     warm_col, 0)
+            if obs is not None and obs.auto:
+                window = ob["tel_slow_hist"][r] - ob["fleet_snap"][r]
+                if bool(now >= cool_until) and int(window.sum()) >= 1:
+                    n_on = decide(n_on, window.cpu().numpy())
+                    cool_until = now + obs.cooldown
+                    ob["fleet_snap"][r] = ob["tel_slow_hist"][r]
+                # workers past n_on read as slot-full
+                active = torch.where(ids < n_on, active, S).to(_I32)
             w = _choose(balance, state, active, warm_col, home[r, f],
                         u_lb[r, i], i, C, S)
             _commit(balance, state, w, f)
             out["rejected"][r, i] = w < 0
             if w < 0:
+                if obs is not None:
+                    ob["tel_n_reject"][r] += 1
                 continue
             row, warm_row = task_idx[w], warm[w]
             cost = pen
@@ -371,6 +540,10 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
                 warm_row[f] -= 1
             if need_evict:
                 warm_row[victim] -= 1
+            if obs is not None:
+                ob["tel_n_cold" if is_cold else "tel_n_warm"][r] += 1
+                ob["tel_n_evict"][r] += int(need_evict)
+                ob["tel_decisions"][r, w] += 1
             if life is not None and life.hybrid and float(idle[w, f]) >= 0:
                 _observe(life, hist[f], n_obs, pre, keep, f,
                          max(float(now - idle[w, f]), 0.0))
@@ -385,4 +558,10 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home):
         out["now"][r] = now
         out["iters"][r] = iters
         out["active"][r] = active_sum
+        if obs is not None:
+            ob["fleet_n_on"][r] = n_on
+            ob["fleet_cool_until"][r] = cool_until
+            ob["fleet_prov_time"][r] = prov
+    if obs is not None:
+        out.update(obs.returned())
     return out

@@ -146,8 +146,10 @@ def engine(policy, device, backend: str = "auto", cluster=None) -> str:
     With a ``cluster``, a policy of the table still takes the batched
     engine (on the card too: a route, not a fallback) where the fused
     kernel does not take the cluster: more workers or slots than the
-    kernel holds (``MAX_WORKERS``, ``MAX_SLOTS``), or a lifecycle whose
-    keep-alive is not one of the built-ins the kernel runs.
+    kernel holds (``MAX_WORKERS``, ``MAX_SLOTS``), a lifecycle whose
+    keep-alive is not one of the built-ins the kernel runs, or a fleet
+    whose autoscaler or speed preset a user registered.  Telemetry does
+    not change the route: the kernel's observation plane carries it.
     """
     if isinstance(policy, str):
         from repro_torch.core.taxonomy import parse_policy
@@ -167,14 +169,19 @@ def engine(policy, device, backend: str = "auto", cluster=None) -> str:
 
 
 def _fused_takes(cluster) -> bool:
-    """Whether the fused kernel takes ``cluster``'s shape and lifecycle."""
+    """Whether the fused kernel takes ``cluster``'s shape, lifecycle and
+    fleet."""
+    from repro_torch import fleet as fl
     from repro_torch.kernels.sim_engine.kernel import MAX_SLOTS, MAX_WORKERS
     from repro_torch.lifecycle import is_builtin
     if int(cluster.n_workers) > MAX_WORKERS or \
             int(cluster.slots) > MAX_SLOTS:
         return False
-    life = cluster.lifecycle
-    return life is None or is_builtin(life.keepalive)
+    life, fleet = cluster.lifecycle, cluster.fleet
+    if life is not None and not is_builtin(life.keepalive):
+        return False
+    return fleet is None or (fl.is_builtin(fleet.autoscale)
+                             and fl.preset_is_builtin(fleet))
 
 
 def resolve(policy, cluster, device=None, backend: str = "auto"

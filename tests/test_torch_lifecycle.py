@@ -382,5 +382,5 @@ def test_cluster_validate_named_errors():
         _life(ttl_s=float("nan")).validate()
     with pytest.raises(ValueError, match="must be a LifecycleCfg"):
         CLUSTER._replace(lifecycle=("FIXED_TTL", 1.0, 0, "x")).validate()
-    with pytest.raises(NotImplementedError, match="fleet"):
+    with pytest.raises(ValueError, match="fleet must be a FleetCfg"):
         CLUSTER._replace(fleet=object()).validate()

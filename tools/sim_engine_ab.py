@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device times of the fused engine's runs in ``chip_smoke.py``'s phases
-4, 12 and 13, for comparing two trees of the port on one card.
+"""Device times and outputs of the fused engine's runs in
+``chip_smoke.py``'s phases 4, 12, 13 and 14, for comparing two trees of
+the port on one card.
 
     python3 tools/sim_engine_ab.py --src PATH/src --out times.json
     python3 tools/sim_engine_ab.py --compare A.json B.json B2.json A2.json
@@ -11,17 +12,23 @@ builds its ``sim_engine`` and times, by CUDA events just around each
 launch, the fused runs of phase 4 (fig4: E/{H,LL,LOC}/PS, W = 100,
 N = 12 000, R = 4), phase 12 (fig10's full mode: the five ``azure-*``
 scenarios × the three policies, R = 20; fig14's horizon lane, W = 1000,
-N = 86 400) and phase 13 (fig11's quick lanes, the nine policies; fig4's
-five zoo rows), each without a lifecycle, each run once after a warm-up
-launch.  It writes ``{run: ms}`` as JSON.  The second form reads the
+N = 86 400), phase 13 (fig11's quick lanes, the nine policies; fig4's
+five zoo rows), each without a lifecycle, and phase 14 (fig12's budget
+and balancer lanes and fig7's keep-alive axis, N = 15 000, R = 5, under
+the lifecycle), none with telemetry or a fleet, each timed three times
+after a warm-up launch.  It writes ``{run: [ms, digest]}`` as JSON: the
+median of the three times, and a SHA-256 of every output tensor of the
+launch (the same in all three, or it stops).  The second form reads the
 JSON of runs made in turns in one call (old, new, new, old) and prints,
-for each run and phase, the new tree's mean time over the old's.  It
-needs a CUDA card.
+for each run and phase, the new tree's mean time over the old's, and
+whether every run's outputs are the same bits in all of them.  It needs
+a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import sys
 import types
@@ -71,6 +78,37 @@ def _runs():
             yield "13", f"fig11 {lane_name} {p.name}", p, PAPER_SMALL, wb
     for p in zoo:
         yield "13", f"fig4 {p.name}", p, PAPER_LARGE, fig4
+    yield from _keepalive_runs(fused)
+
+
+def _keepalive_runs(fused):
+    """Phase 14's runs (fig12_keepalive.py's and fig7_coldstarts.py's
+    full modes on the testbed, TTL 10 s, the ``openwhisk`` preset)."""
+    from repro_torch.core import (PAPER_TESTBED, WORKLOADS, LifecycleCfg,
+                                  replicate_workload)
+    keepalives = ("NONE", "FIXED_TTL", "HYBRID_HIST")
+    fig12, fig7 = (0.2, 0.3, 0.5, 0.7, 0.85), (0.1, 0.3, 0.5, 0.7, 0.9)
+
+    def life(keepalive, max_idle=0):
+        return PAPER_TESTBED._replace(lifecycle=LifecycleCfg(
+            keepalive, 10.0, max_idle, "openwhisk"))
+
+    def batch(name, loads):
+        return replicate_workload(WORKLOADS[name], PAPER_TESTBED, loads,
+                                  15_000, seeds=(1,))
+    budget = batch("azure-cold-heavy", fig12)
+    for ka in keepalives:
+        yield "14", f"fig12 budget {ka} {fused[0].name}", fused[0], \
+            life(ka, 4), budget
+    diurnal = batch("azure-diurnal", fig12)
+    for p in fused:
+        yield "14", f"fig12 balancer FIXED_TTL {p.name}", p, \
+            life("FIXED_TTL"), diurnal
+    for name in ("ms-trace", "azure-diurnal"):
+        wb = batch(name, fig7)
+        for ka in keepalives:
+            for p in fused:
+                yield "14", f"fig7 {name} {ka} {p.name}", p, life(ka), wb
 
 
 def _early_ps(balancer):
@@ -95,7 +133,7 @@ def measure(src: Path) -> dict:
         start.record()
         res = kernel.sim_engine(*args)
         end.record()
-        seen.append((start, end))
+        seen.append((start, end, res))
         return res
 
     ops.kernel = types.SimpleNamespace(sim_engine=timed)
@@ -111,11 +149,22 @@ def measure(src: Path) -> dict:
                 device="cuda")
             warm.add((policy.name, cluster))
         seen.clear()
-        simulate_many(policy, cluster, wb, device="cuda")
+        for _ in range(3):
+            simulate_many(policy, cluster, wb, device="cuda")
         torch.cuda.synchronize()
-        start, end = seen[0]
-        times[f"{phase} {key}"] = start.elapsed_time(end)
-        print(f"{phase} {key}: {times[f'{phase} {key}']:.3f} ms",
+        digests = set()
+        for _, _, res in seen:
+            digest = hashlib.sha256()
+            for name in sorted(res):
+                digest.update(name.encode())
+                digest.update(res[name].cpu().numpy().tobytes())
+            digests.add(digest.hexdigest())
+        if len(digests) != 1:
+            raise SystemExit(f"sim_engine_ab: {key}: three launches on the "
+                             f"same inputs gave different outputs")
+        ms = sorted(start.elapsed_time(end) for start, end, _ in seen)
+        times[f"{phase} {key}"] = [ms[1], digests.pop()]
+        print(f"{phase} {key}: {times[f'{phase} {key}'][0]:.3f} ms",
               flush=True)
     return times
 
@@ -125,9 +174,11 @@ def compare(paths) -> None:
     old = [r for i, r in enumerate(runs) if i in (0, len(runs) - 1)]
     new = [r for i, r in enumerate(runs) if i not in (0, len(runs) - 1)]
     by_phase: dict[str, list[float]] = {}
+    differ = [key for key in old[0]
+              if len({r[key][1] for r in runs}) != 1]
     for key in old[0]:
-        o = sum(r[key] for r in old) / len(old)
-        n = sum(r[key] for r in new) / len(new)
+        o = sum(r[key][0] for r in old) / len(old)
+        n = sum(r[key][0] for r in new) / len(new)
         by_phase.setdefault(key.split()[0], []).append(n / o)
         print(f"{key}: old {o:.3f} ms, new {n:.3f} ms, new / old "
               f"{n / o:.4f}")
@@ -135,6 +186,9 @@ def compare(paths) -> None:
         print(f"phase {phase}: new / old over {len(ratios)} runs: min "
               f"{min(ratios):.4f}, mean {sum(ratios) / len(ratios):.4f}, "
               f"max {max(ratios):.4f}")
+    print(f"outputs: {len(old[0]) - len(differ)} of {len(old[0])} runs "
+          f"the same bits in all {len(runs)} measurements"
+          + (f"; differ: {', '.join(differ)}" if differ else ""))
 
 
 def main() -> int:
