@@ -11,9 +11,9 @@ non-zero):
 1. environment: python/torch/CUDA versions, the card's name and power
    limit as ``nvidia-smi`` reports them, capability (9, 0);
 2. build: every ``src/repro_torch/csrc/*.cu`` with ``nvcc`` (in parallel),
-   each kernel's registers and spills as ``ptxas`` reports them (36
+   each kernel's registers and spills as ``ptxas`` reports them (54
    instantiations of ``sim_engine``: balancer × lifecycle × observation
-   plane);
+   mode: off, observation, observation and timeline);
 3. kernel against its plain version on the card: ``hermes_select`` at
    W ∈ {100, 1000}, R ∈ {1, 8}, N ∈ {1, 256}, random and edge states,
    exactly equal; CUDA-event times of both at the serving and per-arrival
@@ -187,7 +187,29 @@ non-zero):
     ``sim_engine`` equal to ``sim_engine_ref`` for the nine balancers
     under telemetry, a ``two-gen`` fleet and ``TARGET_P99`` on phase 5's
     overloaded cluster; the CPU runs in the worker processes; the phase
-    ≤ 60 s.
+    ≤ 60 s;
+16. the timeline and the serving platform (fig15's lanes,
+    ``benchmarks/fig15_timeline.py``): (a) the parity stacks (4 × 3 cores,
+    N = 240, R = 2, 32 windows), E/LL/PS, E/H/PS with its mode flips and
+    E/LL/PS on a ``two-gen`` fleet under ``TARGET_P99`` fused (one
+    ``sim_engine`` launch each), L/LL/FCFS on the batched engine on the
+    card, every timeline plane equal to the CPU engine's and the same runs
+    without a timeline equal in every other plane; (b) the diurnal lane
+    (the testbed, ``azure-diurnal`` at 0.5, N = 4000): fused E/LL/PS and
+    ``ServingCluster`` with Hermes on the card (exactly one
+    ``hermes_select`` launch per arrival), both through fig15's shape
+    checks, the platform equal to its CPU run, wall µs per arrival of
+    both; (c) the decision lane (``two-gen`` + ``TARGET_P99``, N = 6000,
+    512 events): fused, every plane equal to the CPU engine's, the log
+    replaying ``n_on``, a decision logged, every sensor p99 finite; then
+    the same through the platform on the card; (d) the plane's cost on
+    phase 4's E/H/PS inputs: none, telemetry, telemetry and a timeline,
+    CUDA-event times in turns, with the bound; (e) ``python -m
+    repro_torch.launch.serve`` in a subprocess on the card, exit 0, its
+    CSV and ``.om`` written, its lines and CSV equal to the same run
+    in-process on the CPU; and ``sim_engine`` equal to ``sim_engine_ref``
+    under the timeline for the nine balancers, plain and under
+    ``TARGET_P99``; the CPU runs in the worker processes; the phase ≤ 60 s.
 
 TF32 is off for matrix products and cuDNN throughout.  The line before the
 last is ``{"kernels": [...]}``; the last line is
@@ -543,8 +565,14 @@ def engine_bound(out, n, n_reps, n_functions, budget=False, speed=None
     iterations with tau = 0 need it too, so this counts at least what
     the run needs); under the autoscaler, its state written once and the
     provisioned-time integral's three operations an arrival (its rare
-    decisions are not counted).  The chain of dependent barriers, not
-    either of these, is what holds the kernel back."""
+    decisions are not counted).  Under the timeline, its state written
+    once, one addition for each busy worker of an advance iteration with
+    tau > 0 (the windowed busy integral), four operations an arrival (the
+    provisioned core-seconds over the gap) and, for each completion the
+    telemetry did not record, the division and the two searches that give
+    its coarse bins (window indices are index arithmetic, not counted).
+    The chain of dependent barriers, not either of these, is what holds
+    the kernel back."""
     nbytes = n_reps * (42 * n + 4 * n_functions + 40)
     ops = 2 * int(out["active"].sum())
     if "life_pre" in out:
@@ -562,8 +590,13 @@ def engine_bound(out, n, n_reps, n_functions, budget=False, speed=None
         nbytes += 8 * len(speed)
     if "fleet_prov_time" in out:
         ops += 3 * n * n_reps
+    if "tl_n_on" in out:
+        recorded = int(out["tel_slow_hist"].sum()) \
+            if "tel_slow_hist" in out else 0
+        ops += busy + 4 * n * n_reps + \
+            23 * (int(out["tl_slow_hist"].sum()) - recorded)
     nbytes += sum(v.numel() * v.element_size() for k, v in out.items()
-                  if k.startswith(("tel_", "fleet_")))
+                  if k.startswith(("tel_", "fleet_", "tl_")))
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / F64_FLOPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -1582,14 +1615,14 @@ def _warm_worker():
 
 
 def plain_run(policy, cluster, wb, device, telemetry=None,
-              backend="torch"):
+              backend="torch", timeline=None):
     """One run of the batched engine (``backend="torch"``, or on the CPU
     ``"auto"``, whose route is the batched engine too) on ``device``:
     (output, wall s).  Top-level, so that a worker process can run it."""
     from repro_torch.core.simulator import simulate_many
     t0 = time.perf_counter()
     out = simulate_many(policy, cluster, wb, device=device, backend=backend,
-                        telemetry=telemetry)
+                        telemetry=telemetry, timeline=timeline)
     return out, time.perf_counter() - t0
 
 
@@ -1618,7 +1651,8 @@ def engine_events(torch):
         ops.kernel = ek
 
 
-def fused_run(torch, np, policy, cluster, wb, what, telemetry=None):
+def fused_run(torch, np, policy, cluster, wb, what, telemetry=None,
+              timeline=None):
     """One ``simulate_many`` on the card with the launch counts zeroed just
     before it and read just after: (output, wall s, LoopStats, kernel),
     ``kernel`` the launch's device time in ms (CUDA events just around
@@ -1635,7 +1669,7 @@ def fused_run(torch, np, policy, cluster, wb, what, telemetry=None):
     with engine_events(torch) as seen:
         t0 = time.perf_counter()
         out = simulate_many(policy, cluster, wb, device="cuda", stats=stats,
-                            telemetry=telemetry)
+                            telemetry=telemetry, timeline=timeline)
         wall = time.perf_counter() - t0
     counts = (ek.sim_engine.launches, hk.hermes_select_batch.launches)
     check(counts == (1, 0) and len(seen) == 1,
@@ -1995,7 +2029,7 @@ def registry_policies(base):
     return tuple(pols)
 
 
-def plain_engine_ref(balance, cluster, wb, telemetry=None):
+def plain_engine_ref(balance, cluster, wb, telemetry=None, timeline=None):
     """``sim_engine_ref`` on the CPU for a workload batch, as numpy.
     Top-level, so that a worker process can run it."""
     import numpy as np
@@ -2009,7 +2043,7 @@ def plain_engine_ref(balance, cluster, wb, telemetry=None):
                          put(wb.func, torch.int32),
                          put(wb.service, torch.float64),
                          put(wb.u_lb, torch.float64),
-                         put(wb.func_home, torch.int32), telemetry)
+                         put(wb.func_home, torch.int32), telemetry, timeline)
     return {k: v.numpy() for k, v in out.items()}
 
 
@@ -2029,7 +2063,7 @@ def kernel_vs_ref(torch, np, job, plain, what: str) -> float:
     for name, want in plain.items():
         a = got[name].cpu().numpy()
         check(a.dtype == want.dtype and np.array_equal(
-            a, want, equal_nan=name == "resp"),
+            a, want, equal_nan=a.dtype.kind == "f"),
             f"{what}: sim_engine != sim_engine_ref in {name}")
         err = max(err, float(np.abs(
             np.nan_to_num(a.astype(np.float64), nan=-1.0)
@@ -2884,6 +2918,404 @@ def telemetry_fleet(torch, np, report, pool):
     return launches, max_err, plane
 
 
+# -- the timeline and the serving platform (phase 16) --
+
+#: fig15's parity lane (benchmarks/fig15_timeline.py:53-57, 104-117): 4 ×
+#: 3 cores, capacity 2, N = 240, (load, seed) (0.6, 0) and (1.0, 1), 32
+#: windows, 96 coarse bins, 128 events, with telemetry
+FIG15_N = 240
+FIG15_LOADS = ((0.6, 0), (1.0, 1))
+#: the diurnal lane (:61-64, 209-244): the testbed, azure-diurnal at 0.5,
+#: N = 4000, seed 3, the default timeline
+DIURNAL = ("azure-diurnal", 0.5, 4_000, 3)
+#: the decision lane (:69-73, 247-285): HERMES on a two-gen fleet under
+#: TARGET_P99 (target 3.0, floor 2, cooldown 2 s), azure-diurnal at 0.85,
+#: N = 6000, seed 1, 512 events
+DECISION = ("azure-diurnal", 0.85, 6_000, 1)
+#: 16e: the launcher's run
+LAUNCH_FLAGS = ("--policy", "E/H/PS", "--load", "0.6", "-n", "2000")
+TL_INT = ("mode", "arrivals", "n_cold", "n_warm", "n_evict", "n_reject",
+          "slow_hist", "lat_hist", "n_on", "ev_kind", "ev_val", "ev_count")
+TL_F64 = ("window_s", "busy_time", "qlen_time", "prov_core", "ev_t",
+          "ev_p99")
+TL_PHASE_S = 60.0
+
+
+def serve_run(policy, cluster, wl, device, telemetry=None, timeline=None,
+              use_kernel=False):
+    """One ``ServingCluster`` run on ``device``: (result, wall s).
+    Top-level, so that a worker process can run it."""
+    from repro_torch.serving.engine import ServeCfg, ServingCluster
+    sc = ServingCluster(ServeCfg(cluster=cluster), policy,
+                        use_kernel=use_kernel, telemetry=telemetry,
+                        timeline=timeline, device=device)
+    t0 = time.perf_counter()
+    out = sc.run(wl)
+    return out, time.perf_counter() - t0
+
+
+def launcher_lines(flags, path):
+    """What ``python -m repro_torch.launch.serve`` prints for ``flags``
+    (with ``--timeline-out path``), made in-process with the platform on
+    the CPU, and the CSV it writes.  Top-level, so that a worker process
+    can run it."""
+    import io
+    from contextlib import redirect_stdout
+
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    with redirect_stdout(out):
+        serve.main([*flags, "--timeline-out", path], device="cpu")
+    return out.getvalue(), Path(path).read_text()
+
+
+def same_timeline(np, a, b, what: str) -> None:
+    """Two timelines equal bit for bit, every plane."""
+    for f in TL_INT + TL_F64:
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        check(x.dtype == y.dtype and x.shape == y.shape
+              and x.tobytes() == y.tobytes(),
+              f"{what}: not equal in the timeline's {f}")
+
+
+def serve_same(np, a, b, what: str) -> None:
+    """Two platform runs equal bit for bit."""
+    for f in ("response", "cold", "rejected", "worker", "redispatched",
+              "server_time", "core_time", "end_time", "prov_core_s"):
+        check(np.asarray(getattr(a, f)).tobytes()
+              == np.asarray(getattr(b, f)).tobytes(),
+              f"{what}: card != CPU in {f}")
+    same_timeline(np, a.timeline, b.timeline, f"{what}: card vs CPU")
+
+
+def timeline_shape(np, tl, wl, cold, rejected, what: str) -> dict:
+    """fig15's ``_check_shape`` (:177-206): the width, the arrivals against
+    a host recount, the reject, cold and placement totals, the sketch
+    total equal to the placements, and the diurnal peak above 1.25 × the
+    median window."""
+    from repro_torch.telemetry import auto_window_s, window_index_np
+    K = tl.n_windows
+    ws = auto_window_s(float(wl.arrival[-1]), tl.cfg)
+    check(float(tl.window_s) == ws, f"{what}: window_s {float(tl.window_s)}"
+                                    f" != {ws}")
+    expect = np.bincount(np.asarray([window_index_np(float(t), ws, K)
+                                     for t in wl.arrival]), minlength=K)
+    check(np.array_equal(tl.arrivals, expect),
+          f"{what}: arrivals != the host's recount")
+    n_rej, n_cold = int(np.sum(rejected)), int(np.sum(cold))
+    placed = wl.n - n_rej
+    check(int(tl.n_reject.sum()) == n_rej, f"{what}: the reject total")
+    check(int(tl.n_cold.sum()) == n_cold, f"{what}: the cold total")
+    check(int(tl.n_cold.sum() + tl.n_warm.sum()) == placed,
+          f"{what}: the placement total")
+    check(int(tl.slow_hist.sum()) == placed,
+          f"{what}: the sketch total != the placements")
+    arr = np.asarray(tl.arrivals, dtype=np.float64)
+    med = float(np.median(arr))
+    check(arr.max() > 1.25 * max(med, 1.0),
+          f"{what}: no diurnal shape (peak {arr.max():.0f}, median "
+          f"{med:.0f})")
+    return dict(window_s=ws, peak=int(arr.max()), median=med,
+                rejected=n_rej, cold=n_cold)
+
+
+def replay_checks(np, tl, n_workers, max_events, what: str) -> dict:
+    """fig15's decision lane (:247-285): the log within its bound replays
+    ``n_on`` on every window with an arrival; a decision was logged; every
+    sensor p99 is finite."""
+    n_seen = int(tl.ev_count)
+    check(n_seen <= max_events, f"{what}: the log was truncated "
+                                f"({n_seen} > {max_events})")
+    has = np.asarray(tl.arrivals) > 0
+    check(np.array_equal(tl.replay_n_on(n_workers)[has],
+                         np.asarray(tl.n_on)[has]),
+          f"{what}: the replayed n_on != the engine's")
+    evs = tl.events()
+    auto = [e for e in evs if e["kind"] == "autoscale"]
+    check(len(auto) >= 1, f"{what}: no decision logged")
+    check(all(np.isfinite(e["sensor_p99"]) for e in auto),
+          f"{what}: a sensor p99 is not finite")
+    return dict(events=n_seen, autoscale=len(auto),
+                n_on_min=int(np.min(tl.n_on[has])),
+                n_on_max=int(np.max(tl.n_on[has])))
+
+
+def timeline_platform(torch, np, report, pool):
+    """Phase 16: the timeline plane and the serving platform on the card.
+    (a) fig15's parity stacks, E/LL/PS, E/H/PS (its mode flips) and
+    E/LL/PS on a two-gen fleet under TARGET_P99 fused, L/LL/FCFS on the
+    batched engine on the card: every timeline plane equal to the CPU
+    engine's, and the same runs without a timeline equal to them in every
+    other plane; (b) the diurnal lane, fused E/LL/PS and
+    ``ServingCluster`` with Hermes (one ``hermes_select`` launch per
+    arrival) on the card, both through fig15's shape checks, the platform
+    equal to its CPU run; (c) the decision lane fused, every plane equal
+    to the CPU engine's, the log replayed, and again through the platform
+    on the card; (d) the plane's cost on fig4's E/H/PS inputs (none,
+    telemetry, telemetry and timeline); (e) ``python -m
+    repro_torch.launch.serve`` in a subprocess, its lines and files equal
+    to the same run in-process on the CPU; and ``sim_engine`` against
+    ``sim_engine_ref`` for the nine balancers under the timeline.  The CPU
+    runs go to ``pool``'s workers while the card runs.  Returns
+    (``sim_engine`` launches of the fused runs, ``hermes_select`` launches
+    of the platform's runs, the kernel's max abs error against its plain
+    version, the plane's timing)."""
+    import os
+    import tempfile
+
+    from repro_torch.core import (E_LL_PS, HERMES, PAPER_LARGE,
+                                  PAPER_TESTBED, WORKLOADS, ClusterCfg,
+                                  FleetCfg, ms_trace, parse_policy,
+                                  replicate_workload, stack_workloads,
+                                  summarize, synth_workload)
+    from repro_torch.kernels.hermes_select import kernel as hk
+    from repro_torch.kernels.sim_engine import kernel as ek
+    from repro_torch.policy import balancer_names
+    from repro_torch.telemetry import TelemetryCfg, TimelineCfg
+
+    t_phase = time.perf_counter()
+    tel = TelemetryCfg()
+    par_tl = TimelineCfg(n_windows=32, coarse_bins=96, max_events=128)
+    par = ClusterCfg(n_workers=4, cores=3, capacity_factor=2)
+    late = parse_policy("L/LL/FCFS")
+    stacks = {
+        "E/LL/PS": (E_LL_PS, par),
+        "E/H/PS|mode-flips": (HERMES, par),
+        "E/LL/PS|fleet|auto": (E_LL_PS, par._replace(fleet=FleetCfg(
+            preset="two-gen", autoscale="TARGET_P99", min_workers=2,
+            target_p99=4.0, cooldown_s=2.0))),
+        "L/LL/FCFS": (late, par)}
+    par_wb = {k: stack_workloads(synth_workload(cl, load, FIG15_N,
+                                                n_functions=5, seed=seed)
+                                 for load, seed in FIG15_LOADS)
+              for k, (_, cl) in stacks.items()}
+    name, load, n, seed = DIURNAL
+    di_wl = WORKLOADS[name](PAPER_TESTBED, load, n, seed=seed)
+    di_tl = TimelineCfg()
+    name, load, n, seed = DECISION
+    dec_cl = PAPER_TESTBED._replace(fleet=FleetCfg(
+        preset="two-gen", autoscale="TARGET_P99", target_p99=3.0,
+        min_workers=2, cooldown_s=2.0))
+    dec_wl = WORKLOADS[name](PAPER_TESTBED, load, n, seed=seed)
+    dec_tl = TimelineCfg(max_events=512)
+    # the plain version's check: phase 5's overloaded cluster under the
+    # timeline, with telemetry and TARGET_P99
+    tiny = ClusterCfg(n_workers=4, cores=3, capacity_factor=2,
+                      cold_start_penalty=0.25)
+    overload = stack_workloads(
+        synth_workload(tiny, ld, N_SHORT, n_functions=5, hot_fraction=0.8,
+                       seed=SEED) for ld in (0.7, 1.3, 3.0))
+    tiny_tl = TimelineCfg(n_windows=16, coarse_bins=48, max_events=16)
+    auto_tiny = tiny._replace(fleet=FleetCfg(
+        preset="long-tail", autoscale="TARGET_P99", target_p99=4.0,
+        cooldown_s=1.0))
+    ref_jobs = [(b, cl, overload, t, tiny_tl) for cl, t in
+                ((tiny, None), (auto_tiny, tel)) for b in balancer_names()]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tl_")
+
+    # the CPU runs, in the worker processes, while the card runs
+    t0 = time.perf_counter()
+    cpu_par = pool.starmap_async(plain_run, [
+        (p, cl, par_wb[k], "cpu", tel, "torch", par_tl)
+        for k, (p, cl) in stacks.items()], chunksize=1)
+    cpu_dec = pool.apply_async(plain_run, (HERMES, dec_cl,
+                                           stack_workloads([dec_wl]), "cpu",
+                                           tel, "torch", dec_tl))
+    cpu_di = pool.apply_async(plain_run, (E_LL_PS, PAPER_TESTBED,
+                                          stack_workloads([di_wl]), "cpu",
+                                          None, "torch", di_tl))
+    cpu_serve = pool.starmap_async(serve_run, [
+        (HERMES, PAPER_TESTBED, di_wl, "cpu", None, di_tl),
+        (HERMES, dec_cl, dec_wl, "cpu", tel, dec_tl)], chunksize=1)
+    cpu_launch = pool.apply_async(launcher_lines, (
+        LAUNCH_FLAGS, os.path.join(tmp, "cpu", "tl.csv")))
+    ref_done = pool.starmap_async(plain_engine_ref, ref_jobs, chunksize=1)
+
+    # (d) the plane's cost on fig4's E/H/PS inputs, in turns, twice, before
+    # anything else shares the card
+    fig4 = replicate_workload(ms_trace, PAPER_LARGE, LOADS, N_MAIN,
+                              seeds=(SEED,))
+    args = engine_inputs(torch, np, fig4)
+    variants = {"off": (None, None), "telemetry": (tel, None),
+                "telemetry+timeline": (tel, TimelineCfg())}
+    short = [a[:, :50].contiguous() for a in args[:4]] + [args[4]]
+    for t, tl in variants.values():     # first-use costs
+        ek.sim_engine("H", PAPER_LARGE, *short, t, tl)
+    torch.cuda.synchronize()
+    plane_ms, plane_res = {k: [] for k in variants}, {}
+    for _ in range(2):
+        for key, (t, tl) in variants.items():
+            res = {}
+            plane_ms[key].append(_event_ms(torch, lambda: res.update(
+                ek.sim_engine("H", PAPER_LARGE, *args, t, tl))))
+            plane_res[key] = res
+    for key in ENGINE_PLANES.values():
+        check(np.array_equal(plane_res["off"][key].cpu().numpy(),
+                             plane_res["telemetry+timeline"][key]
+                             .cpu().numpy(), equal_nan=key == "resp"),
+              f"fig4 E/H/PS: the timeline changed {key}")
+    for key in ("tel_slow_hist", "tel_busy_time", "tel_depth_time"):
+        check(torch.equal(plane_res["telemetry"][key],
+                          plane_res["telemetry+timeline"][key]),
+              f"fig4 E/H/PS: the timeline changed {key}")
+    plane = {}
+    for key, ms in plane_ms.items():
+        b_ms, b_by, nbytes, ops = engine_bound(
+            plane_res[key], N_MAIN, len(LOADS), fig4.n_functions)
+        plane[key] = dict(ms=min(ms), ms_runs=ms, bound_ms=b_ms,
+                          bound_by=b_by, bytes=nbytes, operations=ops,
+                          us_per_arrival=min(ms) / N_MAIN * 1e3)
+        log(f"fig4 E/H/PS R={len(LOADS)} N={N_MAIN}, {key}: sim_engine "
+            f"{min(ms):.3f} ms (runs {', '.join(f'{m:.3f}' for m in ms)}), "
+            f"{plane[key]['us_per_arrival']:.4f} us per arrival, "
+            f"{min(ms) / min(plane_ms['off']):.3f} x off; bound "
+            f"{b_ms:.5f} ms, {b_by} ({nbytes} B, {ops} f64 operations)")
+
+    # (e) the launcher, in a subprocess on the card, beside the rest
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    launch_csv = os.path.join(tmp, "card", "tl.csv")
+    t_launch = time.perf_counter()
+    launcher = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *LAUNCH_FLAGS,
+         "--timeline-out", launch_csv], env=env, cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    runs, launches = {}, 0
+    # (a) the parity stacks: fused (late binding: the batched engine on
+    # the card), with and without the timeline
+    par_out = {}
+    for key, (policy, cl) in stacks.items():
+        if key == "L/LL/FCFS":
+            out, wall = plain_run(policy, cl, par_wb[key], "cuda", tel,
+                                  "auto", par_tl)
+            off, _ = plain_run(policy, cl, par_wb[key], "cuda", tel, "auto")
+        else:
+            out, wall, _, kern = fused_run(torch, np, policy, cl,
+                                           par_wb[key], key, tel, par_tl)
+            off = fused_run(torch, np, policy, cl, par_wb[key],
+                            f"{key} without a timeline", tel)[0]
+            launches += 2
+        same_planes(np, off, out, f"{key}: with and without the timeline")
+        same_obs(np, off, out, f"{key}: with and without the timeline")
+        par_out[key] = out
+        runs[f"parity {key}"] = dict(wall_s=wall,
+                                     events=out.timeline.ev_count.tolist())
+
+    # (b) the diurnal lane: fused E/LL/PS, then the platform with Hermes
+    di_out, wall, _, kern = fused_run(torch, np, E_LL_PS, PAPER_TESTBED,
+                                      stack_workloads([di_wl]),
+                                      "diurnal E/LL/PS", None, di_tl)
+    launches += 1
+    runs["diurnal E/LL/PS fused"] = dict(
+        wall_s=wall, us_per_arrival=wall / di_wl.n * 1e6, ms=kern["ms"],
+        **timeline_shape(np, di_out.timeline.rep(0), di_wl,
+                         di_out.cold[0], di_out.rejected[0],
+                         "diurnal E/LL/PS fused"))
+    torch.cuda.synchronize()
+    hk.hermes_select_batch.launches = 0
+    ek.sim_engine.launches = 0
+    di_sv, wall = serve_run(HERMES, PAPER_TESTBED, di_wl, "cuda",
+                            timeline=di_tl)
+    serve_launches = hk.hermes_select_batch.launches
+    check(serve_launches == di_wl.n and ek.sim_engine.launches == 0,
+          f"diurnal platform: hermes_select launched {serve_launches} "
+          f"(expected {di_wl.n}), sim_engine {ek.sim_engine.launches}")
+    runs["diurnal Hermes platform"] = dict(
+        wall_s=wall, us_per_arrival=wall / di_wl.n * 1e6,
+        hermes_select_launches=serve_launches,
+        **timeline_shape(np, di_sv.timeline, di_wl, di_sv.cold,
+                         di_sv.rejected, "diurnal Hermes platform"))
+
+    # (c) the decision lane: fused, then the platform's --autoscale path
+    dec_out, wall, _, kern = fused_run(torch, np, HERMES, dec_cl,
+                                       stack_workloads([dec_wl]),
+                                       "decision HERMES", tel, dec_tl)
+    launches += 1
+    runs["decision HERMES fused"] = dict(
+        wall_s=wall, us_per_arrival=wall / dec_wl.n * 1e6, ms=kern["ms"],
+        **replay_checks(np, dec_out.timeline.rep(0), dec_cl.n_workers,
+                        dec_tl.max_events, "decision HERMES fused"))
+    hk.hermes_select_batch.launches = 0
+    dec_sv, wall = serve_run(HERMES, dec_cl, dec_wl, "cuda", tel, dec_tl)
+    dec_launches = hk.hermes_select_batch.launches
+    check(dec_launches == dec_wl.n, f"decision platform: hermes_select "
+                                    f"launched {dec_launches}, expected "
+                                    f"{dec_wl.n}")
+    serve_launches += dec_launches
+    runs["decision Hermes platform"] = dict(
+        wall_s=wall, us_per_arrival=wall / dec_wl.n * 1e6,
+        hermes_select_launches=dec_launches,
+        prov_core_s=dec_sv.prov_core_s,
+        **replay_checks(np, dec_sv.timeline, dec_cl.n_workers,
+                        dec_tl.max_events, "decision Hermes platform"))
+
+    # the launcher's subprocess
+    stdout, stderr = launcher.communicate(timeout=TL_PHASE_S)
+    launch_s = time.perf_counter() - t_launch
+    check(launcher.returncode == 0,
+          f"the launcher exited {launcher.returncode}: {stderr[-2000:]}")
+    check(os.path.exists(launch_csv) and os.path.exists(launch_csv + ".om"),
+          "the launcher wrote no timeline CSV or .om file")
+
+    # the CPU's runs against the card's
+    for (key, _), (cpu, _) in zip(stacks.items(), cpu_par.get()):
+        same_planes(np, par_out[key], cpu, f"parity {key}: card vs CPU")
+        same_timeline(np, par_out[key].timeline, cpu.timeline,
+                      f"parity {key}: card vs CPU")
+    cpu, _ = cpu_di.get()
+    same_planes(np, di_out, cpu, "diurnal E/LL/PS: card vs CPU")
+    same_timeline(np, di_out.timeline, cpu.timeline,
+                  "diurnal E/LL/PS: card vs CPU")
+    cpu, _ = cpu_dec.get()
+    same_planes(np, dec_out, cpu, "decision HERMES: card vs CPU")
+    same_obs(np, dec_out, cpu, "decision HERMES: card vs CPU")
+    same_timeline(np, dec_out.timeline, cpu.timeline,
+                  "decision HERMES: card vs CPU")
+    (di_cpu, di_cpu_s), (dec_cpu, dec_cpu_s) = cpu_serve.get()
+    serve_same(np, di_sv, di_cpu, "diurnal Hermes platform")
+    serve_same(np, dec_sv, dec_cpu, "decision Hermes platform")
+    runs["diurnal Hermes platform"]["cpu_wall_s"] = di_cpu_s
+    runs["decision Hermes platform"]["cpu_wall_s"] = dec_cpu_s
+    cpu_lines, cpu_csv = cpu_launch.get()
+    strip = [ln for ln in stdout.splitlines() if "timeline     :" not in ln]
+    want = [ln for ln in cpu_lines.splitlines()
+            if "timeline     :" not in ln]
+    check(strip == want, f"the launcher printed {strip}, the in-process "
+                         f"CPU run {want}")
+    check(Path(launch_csv).read_text() == cpu_csv,
+          "the launcher's timeline CSV != the in-process CPU run's")
+    max_err = 0.0
+    for job, plain in zip(ref_jobs, ref_done.get()):
+        max_err = max(max_err, kernel_vs_ref(
+            torch, np, job, plain, f"{job[0]} under the timeline "
+                                   f"({job[1].fleet})"))
+    cpu_s = time.perf_counter() - t0
+    for key, r in runs.items():
+        log(f"{key}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in r.items()))
+    log(f"the launcher (subprocess on the card, {launch_s:.1f} s): "
+        + " | ".join(strip))
+    log(f"every timeline plane of the parity stacks, the diurnal and the "
+        f"decision lanes == the CPU engine's; the platform's runs == their "
+        f"CPU runs; sim_engine == sim_engine_ref under the timeline for "
+        f"the {len(balancer_names())} balancers, plain and under "
+        f"TARGET_P99 (max abs err {max_err}); {len(ref_jobs) + 9} CPU runs "
+        f"in {PLAIN_WORKERS} worker processes, {cpu_s:.1f} s from their "
+        f"start")
+    phase_s = time.perf_counter() - t_phase
+    report["timeline_platform"] = dict(
+        runs=runs, plane=plane, launcher_s=launch_s,
+        launcher_lines=strip, sim_engine_launches=launches,
+        hermes_select_launches=serve_launches, sim_engine_max_abs_err=max_err,
+        plain_runs_s=cpu_s, phase_s=phase_s)
+    log(f"phase 16: {launches} sim_engine launches, {serve_launches} "
+        f"hermes_select launches, {phase_s:.1f} s")
+    check(phase_s <= TL_PHASE_S, f"phase 16 took {phase_s:.1f} s (limit "
+                                 f"{TL_PHASE_S:.0f} s)")
+    return launches, serve_launches, max_err, plane
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run it from the root of a checkout of the repo",
@@ -2958,6 +3390,10 @@ def main() -> int:
             with Phase("15 telemetry and fleet on the card", report):
                 obs_launches, obs_err, _ = telemetry_fleet(torch, np,
                                                            report, pool)
+            with Phase("16 timeline and serving platform on the card",
+                       report):
+                tl_launches, platform_launches, tl_err, _ = \
+                    timeline_platform(torch, np, report, pool)
         total_s = time.perf_counter() - t_start
         check(total_s <= SCRIPT_S, f"the script took {total_s:.1f} s (limit "
                                    f"{SCRIPT_S:.0f} s)")
@@ -2967,23 +3403,25 @@ def main() -> int:
     finally:
         report["total_s"] = time.perf_counter() - t_start
         log("report " + json.dumps(report, separators=(",", ":")))
-    # hermes_select's path is serving (phase 7: one launch per dispatch);
-    # the simulator's E/H/PS makes its choice inside sim_engine (phases 4,
-    # 12, 13, 14 and 15: every fused run's launch on those paths; its times
-    # from phase 4, where the plain engine runs the same inputs)
+    # hermes_select's path is serving (phase 7: one launch per dispatch;
+    # phase 16: one per dispatch of the platform's controller); the
+    # simulator's E/H/PS makes its choice inside sim_engine (phases 4 and
+    # 12-16: every fused run's launch on those paths; its times from phase
+    # 4, where the plain engine runs the same inputs)
     kernels = [{
         "name": "hermes_select", "route": "cuda",
         "source": "src/repro_torch/csrc/hermes_select.cu",
         "replaces": "src/repro/kernels/hermes_select/kernel.py:66",
-        "launches": serve_launches["hermes_select"], "max_abs_err": max_err,
+        "launches": serve_launches["hermes_select"] + platform_launches,
+        "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {
         "name": "sim_engine", "route": "cuda",
         "source": "src/repro_torch/csrc/sim_engine.cu",
         "replaces": "src/repro/kernels/hermes_select/kernel.py:66",
         "launches": engine_launches + trace_launches + zoo_launches
-        + life_launches + obs_launches,
-        "max_abs_err": max(engine_err, zoo_err, life_err, obs_err),
+        + life_launches + obs_launches + tl_launches,
+        "max_abs_err": max(engine_err, zoo_err, life_err, obs_err, tl_err),
         "ms": engine_t["ms"], "plain_ms": engine_t["plain_ms"],
         "bound_ms": engine_t["bound_ms"], "bound_by": engine_t["bound_by"],
         "library_ms": None}]

@@ -2,7 +2,7 @@
 
 Counterpart of ``repro/core/simulator.py`` (early and late binding, the
 container lifecycle, telemetry, the heterogeneous fleet and its
-autoscaler; the timeline and streaming are not ported).  The reference
+autoscaler, the timeline; streaming is not ported).  The reference
 runs a ``lax.scan`` over arrivals under ``jax.vmap``; here the replication axis ``R`` is written out as the
 leading axis of every state tensor and the scan is a Python loop:
 
@@ -74,6 +74,19 @@ then after the advance the gated decision (cooldown elapsed and a
 recorded completion since the last snapshot) and the mask that makes
 workers ``>= n_on`` read as slot-full at the choice.  Without either,
 none of these operations is made.
+
+With ``timeline`` (:class:`~repro_torch.telemetry.TimelineCfg`) the engine
+carries the reference's windowed flight recorder as ``tl_<key>`` entries
+(:mod:`repro_torch.telemetry.timeline_engine`), at the reference's sites
+and in its order: per arrival the provisioned core-seconds over the gap
+(``n_on`` or ``W`` workers, in the gap start's window), per advance
+iteration the busy and queue-length integrals, per completion both coarse
+sketches (no warmup cutoff), each budget eviction, the autoscaler's
+decision where it changed the level (with the sensor p99 of its window),
+the arrival and its ``n_on``, Hermes' pack/spread flips under early
+binding, each rejection and placement, and the drain's provisioned tail.
+The width is the last arrival over ``K`` per replication (or the
+configured one).  Without it, none of these operations is made.
 """
 from __future__ import annotations
 
@@ -82,7 +95,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch import NotPortedError
 from repro_torch.device import resolve_device
 from repro_torch.fleet import STATIC, get_autoscaler, resolve_fleet
 from repro_torch.kernels.sim_engine import ops as sim_engine_ops
@@ -90,9 +102,13 @@ from repro_torch.lifecycle import resolve_lifecycle
 from repro_torch.policy import engine, resolve
 from repro_torch.policy.registry import check_balancer, check_binding
 from repro_torch.telemetry import engine as tel_engine
+from repro_torch.telemetry import timeline_engine as tl_engine
 from repro_torch.telemetry.sketch import N_BINS
 from repro_torch.telemetry.state import (TelemetryCfg, TelemetryResult,
                                          warmup_cutoff)
+from repro_torch.telemetry.timeline import (EV_AUTOSCALE, EV_MODE_FLIP,
+                                            TimelineCfg, TimelineResult,
+                                            validate_timeline)
 
 from .cluster import ClusterCfg
 from .taxonomy import PolicySpec, parse_policy
@@ -117,8 +133,8 @@ class SimOutput:
     #: provisioned core-seconds: the autoscaler's ``n_on × cores`` time
     #: integral, or ``end_time × total_cores`` for a fixed fleet
     prov_core_s: float = 0.0
-    #: the reference's flight-recorder planes; None (not ported)
-    timeline: None = None
+    #: the windowed flight recorder (None unless ``timeline=`` was passed)
+    timeline: TimelineResult | None = None
     #: the final lifecycle state (see :class:`BatchSimOutput`); None
     #: without a lifecycle
     life: dict | None = None
@@ -141,7 +157,8 @@ class BatchSimOutput:
     #: batched streaming metrics, leading axis R (None unless enabled)
     telemetry: TelemetryResult | None = None
     prov_core_s: np.ndarray | None = None   # [R] f64
-    timeline: None = None
+    #: the windowed flight recorder, leading axis R (None unless enabled)
+    timeline: TimelineResult | None = None
     #: the final lifecycle state, ``None`` without a lifecycle:
     #: ``idle_since [R, W, F]``, ``pre``/``keep [R, F]`` f64 and the
     #: keep-alive's own state (``hist [R, F, 32]``, ``n_obs [R, F]`` for
@@ -168,6 +185,8 @@ class BatchSimOutput:
             else self.telemetry.rep(r),
             prov_core_s=0.0 if self.prov_core_s is None
             else float(self.prov_core_s[r]),
+            timeline=None if self.timeline is None
+            else self.timeline.rep(r),
             life=None if self.life is None
             else {k: v[r] for k, v in self.life.items()},
             fleet=None if self.fleet is None
@@ -184,6 +203,8 @@ class BatchSimOutput:
             else self.telemetry[sl],
             prov_core_s=None if self.prov_core_s is None
             else self.prov_core_s[sl],
+            timeline=None if self.timeline is None
+            else self.timeline[sl],
             life=None if self.life is None
             else {k: v[sl] for k, v in self.life.items()},
             fleet=None if self.fleet is None
@@ -252,6 +273,16 @@ def _with_tel(tel: dict) -> dict:
     return {f"tel_{k}": v for k, v in tel.items()}
 
 
+def _tl_of(st: dict) -> dict:
+    """The timeline state out of the engine's ``st``."""
+    return {k[3:]: v for k, v in st.items() if k.startswith("tl_")}
+
+
+def _with_tl(tl: dict) -> dict:
+    """``tl``'s entries under their ``tl_`` keys in the engine's ``st``."""
+    return {f"tl_{k}": v for k, v in tl.items()}
+
+
 def _check_autoscale(policy, cluster: ClusterCfg,
                      telemetry: TelemetryCfg | None) -> None:
     """The reference's two named errors of an autoscaler
@@ -276,7 +307,8 @@ def _check_autoscale(policy, cluster: ClusterCfg,
 
 def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                   n_functions: int, n_reps: int, device: torch.device,
-                  backend: str, telemetry: TelemetryCfg | None = None):
+                  backend: str, telemetry: TelemetryCfg | None = None,
+                  timeline: TimelineCfg | None = None):
     """The batched engine for (policy, cluster, N, F, R) on ``device``.
 
     Returns ``run(arrivals, funcs, services, u_lb, homes, stats) -> state``
@@ -317,6 +349,24 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
         auto_decide = fres.decide
         auto_cool = float(fres.cfg.cooldown_s)
         worker_ids = torch.arange(W, dtype=_I32, device=device)
+    # the windowed flight recorder: gated as the planes above
+    tl_on = timeline is not None
+    if tl_on:
+        tl_edges = tel_engine.edges_for(device)
+        tl_mids = tl_engine.midpoints_for(device)
+        # Hermes' pack/spread mode flips (early binding only)
+        flip_on = not late and check_balancer(res.spec.balance) == "H"
+        n_fixed = torch.full((R,), float(W), dtype=_F64, device=device)
+
+    def n_prov(st):
+        """The provisioned workers: the autoscaler's n_on, else W."""
+        return st["fleet_n_on"].to(_F64) if auto_on else n_fixed
+
+    def tl_prov(st, t0, t1):
+        """Provisioned core-seconds over ``[t0, t1]``, in ``t0``'s
+        window."""
+        return _with_tl(tl_engine.on_prov(
+            _tl_of(st), t0, (t1 - t0) * n_prov(st) * float(C)))
 
     def any_(go: torch.Tensor, stats: LoopStats) -> bool:
         stats.host_syncs += 1
@@ -371,6 +421,10 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
         need_evict = is_cold & (active_w + idle >= S)
         tel = {} if not tel_on else _with_tel(tel_engine.on_place(
             _tel_of(st), rows, w, is_cold, need_evict))
+        if tl_on:
+            # in the window of the dispatch time
+            tel.update(_with_tl(tl_engine.on_place(
+                _tl_of(st), st["now"], is_cold, need_evict)))
         warm = st["warm"].index_put(
             (rows, w, f), warm_cnt - (~is_cold).to(_I32))
         warm = warm.index_put(
@@ -438,6 +492,11 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                 # the same pre-advance occupancy, per worker
                 tel = tel_engine.on_advance(_tel_of(st), tau, n_w > 0, n_w,
                                             st["q_tail"] - st["q_head"])
+            if tl_on:
+                # the same, windowed: the interval start's window
+                tl = tl_engine.on_advance(_tl_of(st), st["now"], tau,
+                                          n_w > 0,
+                                          st["q_tail"] - st["q_head"])
             now = st["now"] + tau
             remaining = remaining - rates * tau[:, None, None]
             # complete the argmin slot only (idx N / col F are scratch)
@@ -453,6 +512,10 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                 tel = tel_engine.on_complete(tel, rows, resp_val, svc_nom,
                                              tid, completed, tel_cutoff,
                                              tel_edges)
+            if tl_on:
+                # every completion, in the completion time's window
+                tl = tl_engine.on_complete(tl, now, resp_val, svc_nom,
+                                           completed, tl_edges)
             resp = st["resp"].index_put(
                 (rows, torch.where(completed, tid.to(_I64), N)),
                 torch.where(completed, resp_val, 0.0))
@@ -492,6 +555,8 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                         warm[rows, w_ev, f_ev] - over.to(_I32))
                     if tel_on:
                         tel = tel_engine.on_evict(tel, over)
+                    if tl_on:
+                        tl = tl_engine.on_evict(tl, now, over)
             else:
                 warm = st["warm"].index_put(
                     (rows, w_pad, f_pad),
@@ -508,6 +573,8 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                        **life)
             if tel_on:
                 new.update(_with_tel(tel))
+            if tl_on:
+                new.update(_with_tl(tl))
             if stateful:
                 # one hook call per iteration, kept where the argmin slot
                 # really completed; under a fleet it observes the time the
@@ -539,10 +606,14 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
             # decision takes effect at an arrival only)
             st = dict(st, fleet_prov_time=st["fleet_prov_time"]
                       + (t_i - st["now"]) * st["fleet_n_on"].to(_F64))
+        if tl_on:
+            st = dict(st, **tl_prov(st, st["now"], t_i))
         st = advance(st, t_i - st["now"], funcs, services, arrivals, stats)
         st = dict(st, now=t_i)
         active = n_active(st).to(_I32)
         if late:
+            if tl_on:
+                st.update(_with_tl(tl_engine.on_arrival(_tl_of(st), t_i, W)))
             placed = place(st, tid, active.argmin(dim=1), f_i,
                            services[:, i], t_i)
             queued = dict(
@@ -568,7 +639,14 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
             hist = st["tel_slow_hist"][:, :N_BINS] if tel_on else snap
             window = hist - snap
             do = (t_i >= st["fleet_cool_until"]) & (window.sum(dim=1) >= 1)
-            n_on = torch.where(do, auto_decide(n_on, window), n_on)
+            n_new = auto_decide(n_on, window)
+            if tl_on:
+                # the decision, logged where it changed the level, with
+                # the p99 the controller read off the same window
+                st.update(_with_tl(tl_engine.on_event(
+                    _tl_of(st), do & (n_new != n_on), t_i, EV_AUTOSCALE,
+                    n_new, tl_engine.sensor_p99(window, tl_mids))))
+            n_on = torch.where(do, n_new, n_on)
             st = dict(st, fleet_n_on=n_on,
                       fleet_cool_until=torch.where(
                           do, t_i + auto_cool, st["fleet_cool_until"]),
@@ -576,6 +654,18 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
             # workers past n_on read as slot-full at the choice; their
             # running tasks drain as before
             sel_active = torch.where(worker_ids < n_on[:, None], active, S)
+        if tl_on:
+            # the arrival and the level after the decision
+            tl = tl_engine.on_arrival(_tl_of(st), t_i,
+                                      st["fleet_n_on"] if auto_on else W)
+            if flip_on:
+                # Hermes packs while a worker it sees has a free core
+                mode = (sel_active < C).any(dim=1).to(_I32)
+                tl = tl_engine.on_event(tl, mode != tl["mode"], t_i,
+                                        EV_MODE_FLIP, mode,
+                                        torch.nan)
+                tl["mode"] = mode
+            st.update(_with_tl(tl))
         if stateful:
             w, lb = select(_lb_of(st), sel_active, warm_col, f_i, homes,
                            u_lb[:, i], i)
@@ -586,11 +676,15 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                                                          w < 0))
         if tel_on:
             st.update(_with_tel(tel_engine.on_reject(_tel_of(st), w < 0)))
+        if tl_on:
+            st.update(_with_tl(tl_engine.on_reject(_tl_of(st), t_i, w < 0)))
         placed = place(st, tid, w.clamp(min=0).to(_I64), f_i,
                        services[:, i], t_i)
         return _merge(w >= 0, placed, st)
 
     def run(arrivals, funcs, services, u_lb, homes, stats):
+        """``stats`` counts the loops; the timeline's widths come from
+        ``arrivals``."""
         def full(shape, value, dtype):
             return torch.full(shape, value, dtype=dtype, device=device)
 
@@ -627,6 +721,10 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                       fleet_cool_until=full((R,), 0.0, _F64),
                       fleet_prov_time=full((R,), 0.0, _F64),
                       fleet_snap=full((R, N_BINS), 0, _I64))
+        if tl_on:
+            st.update(_with_tl(tl_engine.init_state(
+                R, W, timeline, tl_engine.widths(arrivals, timeline),
+                device)))
         for i in range(N):
             st = step(st, i, arrivals, funcs, services, u_lb, homes, stats)
             stats.arrivals += 1
@@ -637,6 +735,8 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
             # the fleet stays provisioned until the last completion
             st["fleet_prov_time"] = st["fleet_prov_time"] + \
                 (st["now"] - t_last) * st["fleet_n_on"].to(_F64)
+        if tl_on:
+            st.update(tl_prov(st, t_last, st["now"]))
         return st
 
     return run
@@ -654,7 +754,7 @@ def _prov_core_s(st: dict, cluster: ClusterCfg) -> np.ndarray:
 def simulate_many(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
                   device=None, backend: str = "auto",
                   telemetry: TelemetryCfg | None = None,
-                  timeline=None,
+                  timeline: TimelineCfg | None = None,
                   stats: LoopStats | None = None) -> BatchSimOutput:
     """Run ``R`` stacked replications in lockstep on ``device``.
 
@@ -665,15 +765,12 @@ def simulate_many(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
     the fused ``sim_engine`` kernel for every E/<B>/PS policy and the
     ``hermes_select`` kernel for the other ``H`` policies) or ``"torch"``
     (the batched engine in plain tensor code throughout).  With
-    ``telemetry`` the output carries a :class:`TelemetryResult` with the
-    leading ``R`` axis (its readers pool over it).  ``timeline`` is the
-    reference's flight recorder, not ported: passing one raises
-    :class:`~repro_torch.NotPortedError`.
+    ``telemetry`` the output carries a :class:`TelemetryResult` and with
+    ``timeline`` (a :class:`TimelineCfg`) a :class:`TimelineResult`, both
+    with the leading ``R`` axis (their readers pool over it).
     """
     if timeline is not None:
-        raise NotPortedError(
-            "the timeline plane (repro.telemetry.timeline) is not ported "
-            "yet (ROADMAP Queue 1, 'Timeline'); pass timeline=None")
+        validate_timeline(timeline)
     dev = resolve_device(device)
     cluster.validate()
     _check_autoscale(policy, cluster, telemetry)
@@ -691,12 +788,12 @@ def simulate_many(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
         st = sim_engine_ops.sim_engine(
             check_balancer(policy.balance), cluster, put(wb.arrival, _F64),
             put(wb.func, _I32), put(wb.service, _F64), put(wb.u_lb, _F64),
-            put(wb.func_home, _I32), telemetry=telemetry)
+            put(wb.func_home, _I32), telemetry=telemetry, timeline=timeline)
         stats.arrivals += wb.n
         stats.advance_iters += int(st["iters"].sum())
     else:
         run = _build_engine(policy, cluster, wb.n, wb.n_functions,
-                            wb.n_reps, dev, backend, telemetry)
+                            wb.n_reps, dev, backend, telemetry, timeline)
         st = run(put(wb.arrival, _F64), put(wb.func, _I64),
                  put(wb.service, _F64), put(wb.u_lb, _F64),
                  put(wb.func_home, _I32), stats)
@@ -709,6 +806,14 @@ def simulate_many(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
         life["idle_since"] = life["idle_since"][:, :, :wb.n_functions]
     fleet = {k[6:]: v.cpu().numpy() for k, v in st.items()
              if k.startswith("fleet_")} or None
+    tl = None
+    if timeline is not None:
+        # the batched engine's planes carry their spare rows, the fused
+        # engine's do not
+        tl = _tl_of(st)
+        tl = tl_engine.result_of(tl, timeline) \
+            if tl["n_on"].shape[1] > timeline.n_windows \
+            else TimelineResult.from_state(tl, cfg=timeline)
     return BatchSimOutput(
         response=st["resp"][:, :n].cpu().numpy(),
         cold=st["cold"][:, :n].cpu().numpy(),
@@ -719,12 +824,14 @@ def simulate_many(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
         end_time=end,
         telemetry=None if telemetry is None else tel_engine.result_of(
             _tel_of(st), telemetry),
-        prov_core_s=_prov_core_s(st, cluster), life=life, fleet=fleet)
+        prov_core_s=_prov_core_s(st, cluster), timeline=tl, life=life,
+        fleet=fleet)
 
 
 def simulate(policy: PolicySpec, cluster: ClusterCfg, wl: Workload, *,
              device=None, backend: str = "auto",
-             telemetry: TelemetryCfg | None = None, timeline=None,
+             telemetry: TelemetryCfg | None = None,
+             timeline: TimelineCfg | None = None,
              stats: LoopStats | None = None) -> SimOutput:
     """Run one workload: :func:`simulate_many` with ``R = 1``."""
     return simulate_many(policy, cluster, [wl], device=device,

@@ -141,6 +141,35 @@
 //     choice, workers >= n_on read as slot-full (the reference's mask), so
 //     the balancers are untouched; core_free and slot_free count the
 //     workers below n_on.
+//
+// The timeline (the reference engine's `tl` plane, repro/telemetry/
+// timeline.py) is the third value of that argument: observation plus
+// timeline (54 instantiations; the other two values are the kernels
+// above).  Inside it, telemetry's own work (the sketches, the busy and
+// depth integrals, the counters, the placements per worker) is made only
+// when the run asked for telemetry (TlArgs::tel_on); the speeds and
+// TARGET_P99 are as above.  Per replication it keeps, in global tensors
+// the wrapper allocates zeroed (TlArgs), K windows of width window_s[r]
+// (computed on the host); an event's window is clip(floor(t / w), 0,
+// K - 1) by one __ddiv_rn, 0 for a width that is not positive:
+//   * per arrival, the provisioned core-seconds over the gap (n_on or W
+//     workers, times C) in the gap start's window, by thread 0; after the
+//     drain, the tail from the last arrival;
+//   * per advance iteration with tau > 0, tau into the window of the
+//     interval's start for each worker that had a task, made with the
+//     telemetry integrals by the next scan (the thread that owns the
+//     worker, in iteration order, so the f64 sums are the batched
+//     engine's); the queue length is 0 under early binding;
+//   * per completion (every one: no warmup cutoff), one count in each
+//     coarse sketch of the completion time's window, the coarse bin being
+//     the fine bin of the same edge search integer-divided by kBins / B;
+//   * the window counters (arrivals, cold, warm, evicted, rejected) as
+//     reductions, and the last n_on an arrival saw;
+//   * the bounded decision log, by thread 0: TARGET_P99's decision where
+//     it changed n_on, with the p99 warp 0 read off the window
+//     (__dsqrt_rn(__dmul_rn(e[b], e[b + 1]))); under H the pack/spread
+//     mode, which is the Hermes choice's own low-load read (a worker
+//     below n_on with a free core: core_free > 0), where it flipped.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -277,6 +306,55 @@ struct ObsArgs {
 constexpr int kBins = 1536;   // repro/telemetry/sketch.py's N_BINS
 enum Counter { kCold = 0, kWarm = 1, kEvicted = 2, kRejected = 3 };
 
+// The timeline plane's arguments (base pointers of [R, ...] tensors,
+// zeroed by the wrapper, ev_p99 at NaN, mode at 1): each replication's
+// window width [R] f64; the window counters [R, 5, K] i64 (arrivals, cold,
+// warm, evicted, rejected); the coarse sketches [R, K, B] i64; the busy
+// integrals [R, K, W] f64; the provisioned core-seconds [R, K] f64; the
+// last n_on [R, K] i32; the decision log [R, E] (time f64, kind i32,
+// value i32, sensor p99 f64) and its count [R] i64; the final mode [R]
+// i32; K, B, E, kBins / B, and whether telemetry was asked for.
+struct TlArgs {
+  const double* window_s;
+  long long* counts;
+  long long* slow_hist;
+  long long* lat_hist;
+  double* busy;
+  double* prov;
+  int* n_on;
+  double* ev_t;
+  int* ev_kind;
+  int* ev_val;
+  double* ev_p99;
+  long long* ev_count;
+  int* mode;
+  int n_windows;
+  int coarse_bins;
+  int max_events;
+  int group;
+  int tel_on;
+};
+enum TlCounter { kTlArrivals = 0, kTlCold = 1, kTlWarm = 2, kTlEvicted = 3,
+                 kTlRejected = 4 };
+
+// The window of time t: clip(floor(t / w), 0, K - 1), 0 if w <= 0 (the
+// numpy side's math.floor and clip; the clip is made on the double).
+__device__ __forceinline__ int window_of(double t, double w, int K) {
+  if (!(w > 0.0)) return 0;
+  double q = floor(__ddiv_rn(t, w));
+  q = q < 0.0 ? 0.0 : q;
+  q = q > static_cast<double>(K - 1) ? static_cast<double>(K - 1) : q;
+  return static_cast<int>(q);
+}
+
+// One count more in the timeline's window counter `c` of window k.
+__device__ __forceinline__ void tl_count(long long* counts, int K, int c,
+                                         int k) {
+  atomicAdd(reinterpret_cast<unsigned long long*>(counts) +
+                static_cast<size_t>(c) * K + k,
+            1ULL);
+}
+
 // The sketch's bin of x, by one warp: the count of the kBins + 1 sorted
 // edges <= x (torch.searchsorted, right=True) less one, clamped to
 // [0, kBins - 1].  The first ballot counts the edges 48 * lane <= x (a
@@ -301,7 +379,7 @@ __device__ __forceinline__ int sketch_bin(const double* edges, double x,
 __device__ __forceinline__ int target_p99(const ObsArgs& obs,
                                           long long* slow_hist,
                                           long long* snap, int n_on, int W,
-                                          int lane) {
+                                          int lane, double* p99_out) {
   constexpr int kPer = kBins / 32;
   const int b0 = lane * kPer;
   long long part = 0;
@@ -334,6 +412,7 @@ __device__ __forceinline__ int target_p99(const ObsArgs& obs,
   b = __shfl_sync(kFull, b, src);
   for (int q = 0; q < kPer; ++q) snap[b0 + q] = __ldcg(slow_hist + b0 + q);
   const double p99 = __dsqrt_rn(__dmul_rn(obs.edges[b], obs.edges[b + 1]));
+  *p99_out = p99;
   int n = n_on;
   if (p99 > obs.hi) {
     n += n_on / 2 > 1 ? n_on / 2 : 1;
@@ -588,9 +667,10 @@ __device__ __forceinline__ void on_complete(int balancer, const LbState& lb,
   }
 }
 
-// One instantiation per balancer, lifecycle switch and observation
-// switch: the choice and the state updates of the others compile away.
-template <int balancer, bool life_on, bool obs_on>
+// One instantiation per balancer, lifecycle switch and observation mode
+// (0 off, 1 observation, 2 observation and timeline): the choice and the
+// state updates of the others compile away.
+template <int balancer, bool life_on, int obs_mode>
 __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     const double* __restrict__ arrival, const int* __restrict__ func,
     const double* __restrict__ service, const double* __restrict__ u_lb,
@@ -608,8 +688,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     double* __restrict__ life_pre, double* __restrict__ life_keep,
     const double* __restrict__ life_costs, double* __restrict__ life_hist,
     double* __restrict__ life_n_obs, int max_idle, double bin_s, double ttl,
-    ObsArgs obs, int n, int n_functions, int n_workers, int cores, int slots,
-    double penalty) {
+    ObsArgs obs, TlArgs tla, int n, int n_functions, int n_workers,
+    int cores, int slots, double penalty) {
+  constexpr bool obs_on = obs_mode >= 1;
+  constexpr bool tl_on = obs_mode == 2;
   extern __shared__ double shared[];
   __shared__ double red_t[2][32];
   __shared__ int red_j[2][32];
@@ -677,6 +759,18 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
   double* depth = obs_on ? obs.depth + static_cast<size_t>(r) * W : nullptr;
   long long* decisions =
       obs_on ? obs.decisions + static_cast<size_t>(r) * W : nullptr;
+  // telemetry's own work: always under observation alone, as asked for
+  // under the timeline
+  const bool tel_work = obs_mode == 1 || (tl_on && tla.tel_on);
+  // this replication's timeline (unused when tl_on is off)
+  const int K = tla.n_windows;
+  const double tl_w = tl_on ? tla.window_s[r] : 0.0;
+  const size_t rk = static_cast<size_t>(r) * K;
+  long long* tl_counts = tl_on ? tla.counts + rk * 5 : nullptr;
+  long long* tl_slow =
+      tl_on ? tla.slow_hist + rk * tla.coarse_bins : nullptr;
+  long long* tl_lat = tl_on ? tla.lat_hist + rk * tla.coarse_bins : nullptr;
+  double* tl_busy = tl_on ? tla.busy + rk * W : nullptr;
 
   for (size_t k = t; k < WS; k += blockDim.x) {
     rems[k] = INFINITY;
@@ -732,6 +826,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
   double tau_prev = 0.0;
   int wj_prev = -1;
   int done_prev = 0;   // meaningful in the warp that owns wj_prev
+  // the timeline's scalars: the window of the last iteration's start, the
+  // log's count and the mode (thread 0's are the ones written back)
+  int k_prev = 0;
+  long long ev_count = 0;
+  int tl_mode = 1;
   // TARGET_P99's scalars, the same in every thread
   int n_on = W;
   double cool_until = 0.0, prov_time = 0.0, t_last = 0.0;
@@ -744,15 +843,22 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
   for (int i = 0; i <= n; ++i) {
     // -- advance to arrival i (after the last one: drain) ---------------
     double dt_left = i < n ? __dsub_rn(t_i, now) : kBigTime;
-    if (obs_on && obs.auto_on) {
+    if (obs_on && (obs.auto_on || tl_on)) {
       // provisioned time over the gap at the current n_on (to the drain's
       // end after the last arrival, from t_last)
       t_last = now;
-      if (i < n) {
+      if (obs.auto_on && i < n) {
         prov_time = __dadd_rn(
             prov_time,
             __dmul_rn(__dsub_rn(t_i, now), static_cast<double>(n_on)));
       }
+    }
+    if (tl_on && t == 0 && i < n) {
+      // the timeline's provisioned core-seconds over the gap
+      double* at = tla.prov + rk + window_of(now, tl_w, K);
+      *at = __dadd_rn(*at, __dmul_rn(__dmul_rn(__dsub_rn(t_i, now),
+                                               static_cast<double>(n_on)),
+                                     static_cast<double>(cores)));
     }
     while (true) {
       Scan a{INFINITY, INT_MAX, 0, 0, 0, 0};
@@ -764,9 +870,15 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
           // for; one thread per worker, so they land in iteration order
           const int n_prev = nw + (w == wj_prev ? done_prev : 0);
           if (n_prev > 0) {
-            atomicAdd(busy + w, tau_prev);   // tau * 1.0
-            atomicAdd(depth + w,
-                      __dmul_rn(tau_prev, static_cast<double>(n_prev)));
+            if (tel_work) {
+              atomicAdd(busy + w, tau_prev);   // tau * 1.0
+              atomicAdd(depth + w,
+                        __dmul_rn(tau_prev, static_cast<double>(n_prev)));
+            }
+            if (tl_on) {
+              atomicAdd(tl_busy + static_cast<size_t>(k_prev) * W + w,
+                        tau_prev);
+            }
           }
         }
         if (nw == 0) continue;
@@ -847,10 +959,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
             response = __dsub_rn(now_next, arr_at[j]);
             resp[tid] = response;
             const int f = func[tid];
-            if (obs_on && tid >= obs.cutoff) {
+            if (obs_on && (tl_on || (tel_work && tid >= obs.cutoff))) {
               const double sv = service[tid];
               slow = __ddiv_rn(response, sv > 1e-12 ? sv : 1e-12);
-              record = 1;
+              record = tel_work && tid >= obs.cutoff;
             }
             const size_t at = static_cast<size_t>(wj) * F + f;
             if (life_on) {
@@ -878,16 +990,28 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
         }
         done_prev = __shfl_sync(kFull, done, 0);
         __syncwarp();
-        if (obs_on && __shfl_sync(kFull, record, 0)) {
+        const bool rec = obs_on && __shfl_sync(kFull, record, 0);
+        if (rec || (tl_on && done_prev)) {
           const int b_slow =
               sketch_bin(obs.edges, __shfl_sync(kFull, slow, 0), lane);
           const int b_lat =
               sketch_bin(obs.edges, __shfl_sync(kFull, response, 0), lane);
           if (lane == 0) {   // reductions: the thread does not wait
             using u64 = unsigned long long;
-            atomicAdd(reinterpret_cast<u64*>(slow_hist) + b_slow, 1ULL);
-            atomicAdd(reinterpret_cast<u64*>(lat_hist) + b_lat, 1ULL);
-            rec_since += 1;
+            if (rec) {
+              atomicAdd(reinterpret_cast<u64*>(slow_hist) + b_slow, 1ULL);
+              atomicAdd(reinterpret_cast<u64*>(lat_hist) + b_lat, 1ULL);
+              rec_since += 1;
+            }
+            if (tl_on && done_prev) {
+              // every completion, in its time's window, coarse bins
+              const size_t kb = static_cast<size_t>(window_of(
+                                    now_next, tl_w, K)) * tla.coarse_bins;
+              atomicAdd(reinterpret_cast<u64*>(tl_slow) + kb +
+                            b_slow / tla.group, 1ULL);
+              atomicAdd(reinterpret_cast<u64*>(tl_lat) + kb +
+                            b_lat / tla.group, 1ULL);
+            }
           }
         }
         if (life_on && life.max_idle > 0 && done_prev) {
@@ -899,13 +1023,18 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
                    lane, &n_idle, &victim);
           if (lane == 0 && n_idle > life.max_idle) {
             pools[static_cast<size_t>(wj) * F + victim] -= 1;
-            if (obs_on) obs_count[kEvicted] += 1;
+            if (obs_on && tel_work) obs_count[kEvicted] += 1;
+            if (tl_on) {
+              tl_count(tl_counts, K, kTlEvicted,
+                       window_of(now_next, tl_w, K));
+            }
           }
           __syncwarp();
         }
       }
       tau_prev = tau;
       wj_prev = wj;
+      if (tl_on && tau > 0) k_prev = window_of(now, tl_w, K);
       now = now_next;
       dt_left = __dsub_rn(dt_left, tau);
     }
@@ -915,6 +1044,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
         prov_time = __dadd_rn(
             prov_time,
             __dmul_rn(__dsub_rn(now, t_last), static_cast<double>(n_on)));
+      }
+      if (tl_on && t == 0) {
+        double* at = tla.prov + rk + window_of(t_last, tl_w, K);
+        *at = __dadd_rn(*at, __dmul_rn(__dmul_rn(__dsub_rn(now, t_last),
+                                                 static_cast<double>(n_on)),
+                                       static_cast<double>(cores)));
       }
       break;
     }
@@ -927,7 +1062,21 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
       // decides, copies the snapshot and recounts the free workers below
       // the new n_on
       if (warp == 0) {
-        const int n_new = target_p99(obs, slow_hist, snap, n_on, W, lane);
+        double p99;
+        const int n_new =
+            target_p99(obs, slow_hist, snap, n_on, W, lane, &p99);
+        if (tl_on && lane == 0 && n_new != n_on) {
+          // the decision changed the level: log it with its sensor
+          if (ev_count < tla.max_events) {
+            const size_t e = static_cast<size_t>(r) * tla.max_events +
+                             ev_count;
+            tla.ev_t[e] = t_i;
+            tla.ev_kind[e] = 0;   // EV_AUTOSCALE
+            tla.ev_val[e] = n_new;
+            tla.ev_p99[e] = p99;
+          }
+          ev_count += 1;
+        }
         int cf = 0, sf = 0;
         for (int w = lane; w < n_new; w += 32) {
           cf += n_act[w] < cores;
@@ -948,6 +1097,27 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     }
     const int f = f_i;
     const double svc = svc_i;
+    const int k_arr = tl_on ? window_of(t_i, tl_w, K) : 0;
+    if (tl_on && t == 0) {
+      // the arrival, the level it saw and, under H, the pack/spread mode
+      // (the choice's own low-load read on the masked loads)
+      tl_count(tl_counts, K, kTlArrivals, k_arr);
+      tla.n_on[rk + k_arr] = n_on;
+      if (balancer == kHermes) {
+        const int mode = core_free > 0;
+        if (mode != tl_mode) {
+          if (ev_count < tla.max_events) {
+            const size_t e = static_cast<size_t>(r) * tla.max_events +
+                             ev_count;
+            tla.ev_t[e] = t_i;
+            tla.ev_kind[e] = 1;   // EV_MODE_FLIP
+            tla.ev_val[e] = mode;
+          }
+          ev_count += 1;
+          tl_mode = mode;
+        }
+      }
+    }
     const int w_sel = choose<life_on, obs_on>(
         balancer, n_act, pools, W, F, f, cores, S, core_free, slot_free,
         balancer == kLocality ? home[f] : balancer == kRoundRobin ? i % W : 0,
@@ -961,7 +1131,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     __syncthreads();   // every warp has chosen before the state changes
     if (t == 0) {
       rejected[i] = w_sel < 0;
-      if (obs_on && w_sel < 0) obs_count[kRejected] += 1;
+      if (obs_on && tel_work && w_sel < 0) obs_count[kRejected] += 1;
+      if (tl_on && w_sel < 0) tl_count(tl_counts, K, kTlRejected, k_arr);
       // the choice's own writes to the balancer state
       if (w_sel >= 0 && balancer == kHiku && ring_tail > ring_head) {
         lb.in_ring[lb.ring[ring_head % W]] = 0;
@@ -1010,11 +1181,17 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
         const bool is_cold = !mat_f || warm_cnt == 0;
         if (!is_cold) warm_w[f] = warm_cnt - 1;
         if (is_cold && active_w + idle >= S) warm_w[victim_f] -= 1;
-        if (obs_on) {
+        if (obs_on && tel_work) {
           obs_count[is_cold ? kCold : kWarm] += 1;
           obs_count[kEvicted] += is_cold && active_w + idle >= S;
           atomicAdd(reinterpret_cast<unsigned long long*>(decisions) + w,
                     1ULL);
+        }
+        if (tl_on) {
+          tl_count(tl_counts, K, is_cold ? kTlCold : kTlWarm, k_arr);
+          if (is_cold && active_w + idle >= S) {
+            tl_count(tl_counts, K, kTlEvicted, k_arr);
+          }
         }
         const double cost =
             life_on && life.costs != nullptr ? life.costs[f] : penalty;
@@ -1059,6 +1236,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
         obs.prov_time[r] = prov_time;
       }
     }
+    if (tl_on) {
+      tla.ev_count[r] = ev_count;
+      tla.mode[r] = tl_mode;
+    }
   }
 }
 
@@ -1091,7 +1272,11 @@ size_t shared_bytes(int n_workers, int slots) {
 // counters, busy, depth, decisions, busy_iters, n_on, cool_until,
 // prov_time, snap,
 // the warmup cutoff, TARGET_P99's switch, floor, band (hi, lo) and
-// cooldown.  Launches one block per replication on `stream` and returns
+// cooldown.  The timeline (on when `tl` != 0, which needs `obs`; see
+// TlArgs, its tensors zeroed by the caller, ev_p99 at NaN, mode at 1):
+// window_s, counts, slow_hist, lat_hist, busy, prov, n_on, ev_t, ev_kind,
+// ev_val, ev_p99, ev_count, mode, K, B, E, and whether telemetry was asked
+// for.  Launches one block per replication on `stream` and returns
 // cudaGetLastError() (0 = launched).
 extern "C" int sim_engine_launch(
     const double* arrival, const int* func, const double* service,
@@ -1109,8 +1294,13 @@ extern "C" int sim_engine_launch(
     long long* busy_iters, int* n_on,
     double* cool_until, double* prov_time, long long* snap, int obs,
     long long cutoff, int auto_on, int min_workers, double hi, double lo,
-    double cooldown, int n_reps, int n, int n_functions, int n_workers,
-    int cores, int slots, int balancer, double penalty, void* stream) {
+    double cooldown, const double* tl_window_s, long long* tl_counts,
+    long long* tl_slow_hist, long long* tl_lat_hist, double* tl_busy,
+    double* tl_prov, int* tl_n_on, double* tl_ev_t, int* tl_ev_kind,
+    int* tl_ev_val, double* tl_ev_p99, long long* tl_ev_count, int* tl_mode,
+    int tl, int n_windows, int coarse_bins, int max_events, int tel_on,
+    int n_reps, int n, int n_functions, int n_workers, int cores, int slots,
+    int balancer, double penalty, void* stream) {
   const bool state_given =
       balancer == kHiku
           ? lb_ring && lb_in_ring && lb_head && lb_tail
@@ -1125,14 +1315,20 @@ extern "C" int sim_engine_launch(
                depth && decisions && busy_iters && cutoff >= 0 &&
                (!auto_on || (n_on && cool_until && prov_time && snap &&
                              min_workers >= 1)));
+  const bool tl_given =
+      !tl || (obs && tl_window_s && tl_counts && tl_slow_hist &&
+              tl_lat_hist && tl_busy && tl_prov && tl_n_on && tl_ev_t &&
+              tl_ev_kind && tl_ev_val && tl_ev_p99 && tl_ev_count &&
+              tl_mode && n_windows >= 1 && max_events >= 1 &&
+              coarse_bins >= 1 && kBins % coarse_bins == 0);
   if (n_reps < 1 || n < 0 || n_functions < 1 || n_workers < 1 ||
       n_workers > kMaxWorkers || cores < 1 || slots < 1 ||
       slots > kMaxSlots || balancer < 0 || balancer > kSwarm ||
-      !state_given || !life_given || !obs_given) {
+      !state_given || !life_given || !obs_given || !tl_given) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  using Kernel = decltype(&sim_engine_kernel<kHermes, false, false>);
-  const Kernel kernels[2][2][9] = {
+  using Kernel = decltype(&sim_engine_kernel<kHermes, false, 0>);
+  const Kernel kernels[2][3][9] = {
 #define SIM_ENGINE_ROW(LIFE, OBS)                                          \
   {sim_engine_kernel<kHermes, LIFE, OBS>,                                  \
    sim_engine_kernel<kLeastLoaded, LIFE, OBS>,                             \
@@ -1143,15 +1339,23 @@ extern "C" int sim_engine_launch(
    sim_engine_kernel<kHiku, LIFE, OBS>,                                    \
    sim_engine_kernel<kDataDriven, LIFE, OBS>,                              \
    sim_engine_kernel<kSwarm, LIFE, OBS>}
-      {SIM_ENGINE_ROW(false, false), SIM_ENGINE_ROW(false, true)},
-      {SIM_ENGINE_ROW(true, false), SIM_ENGINE_ROW(true, true)}};
+      {SIM_ENGINE_ROW(false, 0), SIM_ENGINE_ROW(false, 1),
+       SIM_ENGINE_ROW(false, 2)},
+      {SIM_ENGINE_ROW(true, 0), SIM_ENGINE_ROW(true, 1),
+       SIM_ENGINE_ROW(true, 2)}};
 #undef SIM_ENGINE_ROW
-  const Kernel kernel = kernels[life ? 1 : 0][obs ? 1 : 0][balancer];
+  const Kernel kernel =
+      kernels[life ? 1 : 0][tl ? 2 : obs ? 1 : 0][balancer];
   const ObsArgs obs_args{speed,      edges,      slow_hist,  lat_hist,
                          counters,   busy,       depth,      decisions,
                          busy_iters, n_on,       cool_until, prov_time,
                          snap,       cutoff,     auto_on,    min_workers,
                          hi,         lo,         cooldown};
+  const TlArgs tl_args{tl_window_s, tl_counts,  tl_slow_hist, tl_lat_hist,
+                       tl_busy,     tl_prov,    tl_n_on,      tl_ev_t,
+                       tl_ev_kind,  tl_ev_val,  tl_ev_p99,    tl_ev_count,
+                       tl_mode,     n_windows,  coarse_bins,  max_events,
+                       tl ? kBins / coarse_bins : 1,          tel_on};
   // one warp per worker, up to kMaxThreads
   const int threads =
       n_workers < kMaxThreads / 32 ? 32 * n_workers : kMaxThreads;
@@ -1165,7 +1369,7 @@ extern "C" int sim_engine_launch(
       resp, cold, rejected, worker_of, server_time, core_time, now, iters,
       active, lb_ring, lb_in_ring, lb_head, lb_tail, lb_est, lb_per_worker,
       lb_cnt, life_idle, life_pre, life_keep, life_costs, life_hist,
-      life_n_obs, max_idle, bin_s, ttl, obs_args, n, n_functions, n_workers,
-      cores, slots, penalty);
+      life_n_obs, max_idle, bin_s, ttl, obs_args, tl_args, n, n_functions,
+      n_workers, cores, slots, penalty);
   return static_cast<int>(cudaGetLastError());
 }

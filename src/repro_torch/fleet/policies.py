@@ -27,7 +27,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.telemetry.sketch import hist_edges
+from repro_torch.telemetry.sketch import bin_midpoints, hist_edges
 
 from .config import FleetCfg, STATIC
 from .registry import BUILTINS, AUTOSCALERS, register_autoscaler
@@ -79,10 +79,12 @@ def _target_p99_np(cfg: FleetCfg, n_workers: int):
 
 
 def _target_p99_torch(cfg: FleetCfg, n_workers: int, device):
-    edges = torch.tensor(hist_edges(), dtype=torch.float64, device=device)
+    # the bins' midpoints from numpy: torch's CPU sqrt is not always the
+    # correctly rounded root the numpy decide and the kernel take
+    mids = torch.tensor(bin_midpoints(), dtype=torch.float64, device=device)
     hi, lo = _p99_bounds(cfg)
     min_w = int(cfg.min_workers)
-    last = edges.shape[0] - 2          # the last bin
+    last = mids.shape[0] - 1           # the last bin
 
     def decide(n_on, window):
         window = window.to(torch.int64)
@@ -91,7 +93,7 @@ def _target_p99_torch(cfg: FleetCfg, n_workers: int, device):
         k = torch.minimum(torch.clamp(k, min=1), total.clamp(min=1))
         b = torch.searchsorted(window.cumsum(dim=-1), k[:, None])[:, 0]
         b = b.clamp(max=last)          # an empty window reads past the end
-        p99 = torch.sqrt(edges[b] * edges[b + 1])
+        p99 = mids[b]
         n_i = n_on.to(torch.int32)
         delta = torch.where(p99 > hi, torch.clamp(n_i // 2, min=1),
                             torch.where(p99 < lo, -1, 0).to(torch.int32))

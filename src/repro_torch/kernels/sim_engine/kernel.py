@@ -8,10 +8,11 @@ replication; its Hermes choice redesigns the Pallas TPU kernel
 the card.  :func:`sim_engine` checks its inputs, allocates the state and
 the outputs (a carried-state balancer's state initialised by its
 ``init_state``, under a lifecycle the life plane's state initialised by
-:func:`.ref.life_plane`, and under telemetry or a fleet the observation
-plane's by :func:`.ref.obs_plane`), launches on PyTorch's current stream
-and raises if the launch was refused.  ``sim_engine.launches`` counts its
-launches.
+:func:`.ref.life_plane`, under telemetry, a fleet or a timeline the
+observation plane's by :func:`.ref.obs_plane`, and under a timeline its
+planes, zeroed, with each replication's window width), launches on
+PyTorch's current stream and raises if the launch was refused.
+``sim_engine.launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.kernel import UnsupportedShapeError
 from repro_torch.policy import INIT_STATE
+from repro_torch.telemetry.timeline import validate_timeline
+from repro_torch.telemetry.timeline_engine import widths
 
 from .ref import BALANCER_CODES, balancer_name, life_plane, obs_plane
 
@@ -38,8 +41,8 @@ def _launcher():
     fn.argtypes = [ctypes.c_void_p] * 31 + [ctypes.c_int] * 2 \
         + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 13 \
         + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int] \
-        + [ctypes.c_double] * 3 + [ctypes.c_int] * 7 \
-        + [ctypes.c_double, ctypes.c_void_p]
+        + [ctypes.c_double] * 3 + [ctypes.c_void_p] * 13 \
+        + [ctypes.c_int] * 12 + [ctypes.c_double, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -56,8 +59,39 @@ def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
                          f"{tuple(shape)} tensor, got {tuple(x.shape)}")
 
 
+def _timeline_state(timeline, R: int, W: int, arrival, dev) -> dict:
+    """The timeline plane's tensors for the kernel, zeroed (``ev_p99`` at
+    NaN, ``mode`` at 1), with the window counters as one ``[R, 5, K]``
+    tensor and each replication's width."""
+    K, B = int(timeline.n_windows), int(timeline.coarse_bins)
+    E = int(timeline.max_events)
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return dict(
+        window_s=widths(arrival, timeline).contiguous(),
+        counts=zeros((R, 5, K), torch.int64),
+        slow_hist=zeros((R, K, B), torch.int64),
+        lat_hist=zeros((R, K, B), torch.int64),
+        busy_time=zeros((R, K, W), torch.float64),
+        prov_core=zeros((R, K), torch.float64),
+        n_on=zeros((R, K), torch.int32),
+        ev_t=zeros((R, E), torch.float64),
+        ev_kind=zeros((R, E), torch.int32),
+        ev_val=zeros((R, E), torch.int32),
+        ev_p99=torch.full((R, E), torch.nan, dtype=torch.float64,
+                          device=dev),
+        ev_count=zeros(R, torch.int64),
+        mode=torch.ones(R, dtype=torch.int32, device=dev))
+
+
+#: the timeline's window counters, in the kernel's order
+TL_COUNTERS = ("arrivals", "n_cold", "n_warm", "n_evict", "n_reject")
+
+
 def sim_engine(balance, cluster, arrival, func, service, u_lb, home,
-               telemetry=None):
+               telemetry=None, timeline=None):
     """The fused engine on the card: see :func:`.ref.sim_engine_ref` for
     the inputs and the outputs.  Raises :class:`NotPortedError` for a
     balancer, a keep-alive, an autoscaler or a speed preset it does not
@@ -115,7 +149,7 @@ def sim_engine(balance, cluster, arrival, func, service, u_lb, home,
         1, life.max_idle, life.bin_s, life.ttl)
     # the observation plane's arguments; null (and 0) without one.  The
     # counters go to the kernel as one [R, 4] tensor
-    obs = obs_plane(cluster, telemetry, R, N, W, dev)
+    obs = obs_plane(cluster, telemetry, R, N, W, dev, timeline)
     obs_state = {} if obs is None else obs.state
     counters = None if obs is None else torch.zeros(
         (R, 4), dtype=torch.int64, device=dev)
@@ -131,10 +165,23 @@ def sim_engine(balance, cluster, arrival, func, service, u_lb, home,
     obs_args = (0, 0, 0, 1, 0.0, 0.0, 0.0) if obs is None else (
         1, obs.cutoff, int(obs.auto), obs.min_workers, obs.hi, obs.lo,
         obs.cooldown)
+    # the timeline's arguments; null (and 0) without one
+    tl = None
+    if timeline is not None:
+        validate_timeline(timeline)
+        tl = _timeline_state(timeline, R, W, arrival, dev)
+    tl_ptrs = [0 if tl is None else tl[k].data_ptr() for k in (
+        "window_s", "counts", "slow_hist", "lat_hist", "busy_time",
+        "prov_core", "n_on", "ev_t", "ev_kind", "ev_val", "ev_p99",
+        "ev_count", "mode")]
+    tl_args = (0, 1, 1, 1, 0) if tl is None else (
+        1, int(timeline.n_windows), int(timeline.coarse_bins),
+        int(timeline.max_events), int(telemetry is not None))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _launcher()(*ptrs, *life_args, *obs_ptrs, *obs_args, R, N, F,
-                          W, C, S, BALANCER_CODES[balance],
+        err = _launcher()(*ptrs, *life_args, *obs_ptrs, *obs_args, *tl_ptrs,
+                          *tl_args, R, N, F, W, C, S,
+                          BALANCER_CODES[balance],
                           float(cluster.cold_start_penalty), stream)
     if err != 0:
         raise RuntimeError(f"sim_engine: kernel launch failed with CUDA "
@@ -146,6 +193,14 @@ def sim_engine(balance, cluster, arrival, func, service, u_lb, home,
         for k, name in enumerate(("n_cold", "n_warm", "n_evict", "n_reject")):
             obs_state[f"tel_{name}"] = counters[:, k].contiguous()
         out.update(obs.returned())
+    if tl is not None:
+        counts = tl.pop("counts")
+        for k, name in enumerate(TL_COUNTERS):
+            tl[name] = counts[:, k].contiguous()
+        # the queue-length integral stays 0 under early binding
+        tl["qlen_time"] = torch.zeros((R, int(timeline.n_windows)),
+                                      dtype=torch.float64, device=dev)
+        out.update({f"tl_{k}": v for k, v in tl.items()})
     return out
 
 

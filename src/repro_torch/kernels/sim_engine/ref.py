@@ -45,6 +45,21 @@ geometric midpoint against the host's band, the MIAD step, the clamp,
 the snapshot) and the workers ``>= n_on`` read as slot-full at the
 choice.  The telemetry comes back as ``tel_<key>`` (with ``telemetry``)
 and the autoscaler's state as ``fleet_<key>``.
+
+Under a timeline (a ``TimelineCfg``) the observation plane is on (its
+telemetry work made here but not returned unless asked for) and each
+replication carries the kernel's timeline plane, kept here by the numpy
+updaters of :mod:`repro_torch.telemetry.timeline` at the batched engine's
+sites and in its order: per arrival the provisioned core-seconds over the
+gap (in the gap start's window), per advance iteration the busy integral
+of each worker (the queue length is 0 under early binding), per
+completion both coarse sketches, each budget eviction, ``TARGET_P99``'s
+decision where it changed ``n_on`` (with the sensor p99 of its window),
+the arrival and its ``n_on``, under H the pack/spread flip read on the
+masked loads, each rejection and placement, and the drain's tail.  It
+comes back as ``tl_<key>`` in :class:`~repro_torch.telemetry.timeline.
+TimelineResult`'s shapes (``[R, K]``, ``[R, K, B]``, ``[R, K, W]``,
+``[R, E]``, ``[R]``).
 """
 from __future__ import annotations
 
@@ -52,6 +67,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch import NotPortedError
@@ -66,9 +82,11 @@ from repro_torch.policy import INIT_STATE
 from repro_torch.policy.balancers import (
     _SW_COLD_DN, _SW_COLD_UP, _SW_EST_DN, _SW_EST_UP, _SW_HOT_DN,
     _SW_HOT_UP, DD_ALPHA, SWARM_WARM_N)
+from repro_torch.telemetry import timeline as tln
 from repro_torch.telemetry.engine import bin_index
 from repro_torch.telemetry.sketch import N_BINS, hist_edges
 from repro_torch.telemetry.state import warmup_cutoff
+from repro_torch.telemetry.timeline_engine import widths
 
 EPS = 1e-9
 _BIG_TIME = 1e18
@@ -176,16 +194,17 @@ class ObsPlane:
                 or k == "busy_iters"}
 
 
-def obs_plane(cluster, telemetry, R: int, N: int, W: int, device) -> \
-        Optional[ObsPlane]:
-    """The observation plane for ``cluster`` and ``telemetry`` (a
-    ``TelemetryCfg`` or None), ``None`` without either, or with only a
-    fleet that changes nothing (``STATIC``, every speed 1.0);
+def obs_plane(cluster, telemetry, R: int, N: int, W: int, device,
+              timeline=None) -> Optional[ObsPlane]:
+    """The observation plane for ``cluster``, ``telemetry`` (a
+    ``TelemetryCfg`` or None) and ``timeline`` (a ``TimelineCfg`` or None),
+    ``None`` without any, or with only a fleet that changes nothing
+    (``STATIC``, every speed 1.0);
     :class:`NotPortedError` for an autoscaler or a speed preset a user
     registered (the batched engine runs those), ``ValueError`` for
     ``TARGET_P99`` without telemetry."""
     fl = cluster.fleet
-    if telemetry is None and fl is None:
+    if telemetry is None and fl is None and timeline is None:
         return None
     if fl is not None and not (fleet_mod.is_builtin(fl.autoscale)
                                and fleet_mod.preset_is_builtin(fl)):
@@ -200,7 +219,8 @@ def obs_plane(cluster, telemetry, R: int, N: int, W: int, device) -> \
             f"autoscaler {fl.autoscale!r} reads the telemetry slowdown "
             f"sketch as its sensor; pass telemetry=TelemetryCfg()")
     speeds = None if fl is None else fleet_mod.speeds_for(fl, W)
-    if telemetry is None and not auto and bool((speeds == 1.0).all()):
+    if telemetry is None and timeline is None and not auto and \
+            bool((speeds == 1.0).all()):
         # a static fleet of unit speeds, no telemetry: the outputs are the
         # plane-off ones, so the plane stays off
         return None
@@ -348,12 +368,20 @@ def _on_complete(balance, state, w, f, service, n_active_after):
         state["cnt"][w] += 1
 
 
+def tl_planes(states: list, device) -> dict:
+    """The per-replication numpy timeline states as ``tl_<key>`` tensors
+    with a leading ``R`` axis."""
+    return {f"tl_{k}": torch.as_tensor(np.stack([st[k] for st in states]),
+                                       device=device)
+            for k in states[0]}
+
+
 def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
-                   telemetry=None):
+                   telemetry=None, timeline=None):
     """Early binding with PS under the balancer ``balance`` (a name of
     :data:`BALANCER_CODES`), with ``telemetry`` (a ``TelemetryCfg``) or
-    None.  arrival, service, u_lb ``[R, N]`` f64;
-    func ``[R, N]`` i32; home ``[R, F]`` i32 → dict of ``resp [R, N]``
+    None and ``timeline`` (a ``TimelineCfg``) or None.  arrival, service,
+    u_lb ``[R, N]`` f64; func ``[R, N]`` i32; home ``[R, F]`` i32 → dict of ``resp [R, N]``
     f64 (NaN until completed), ``cold``/``rejected [R, N]`` bool,
     ``worker_of [R, N]`` i32, ``server_time``/``core_time``/``now [R]``
     f64, ``iters [R]`` i64 (advance iterations per replication),
@@ -362,7 +390,8 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
     state as ``lb_<key>`` (``[R, …]``, the keys of its ``init_state``),
     under a lifecycle the final life state as ``life_<key>`` (see
     :class:`LifePlane`), with telemetry ``tel_<key>`` and under an
-    autoscaler ``fleet_<key>`` (see :class:`ObsPlane`)."""
+    autoscaler ``fleet_<key>`` (see :class:`ObsPlane`), with a timeline
+    ``tl_<key>``."""
     balance = balancer_name(balance)
     W, C, S = int(cluster.n_workers), int(cluster.cores), int(cluster.slots)
     R, N = arrival.shape
@@ -383,7 +412,11 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
     life = life_plane(cluster, R, W, F, dev)
     if life is not None:
         out.update(life.state)
-    obs = obs_plane(cluster, telemetry, R, N, W, dev)
+    obs = obs_plane(cluster, telemetry, R, N, W, dev, timeline)
+    if timeline is not None:
+        tln.validate_timeline(timeline)
+        ws = widths(arrival, timeline)
+        tls = []
     if obs is not None:
         ob = obs.state                   # views: in place, by row
         ids = torch.arange(W, device=dev)
@@ -415,9 +448,21 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
         if obs is not None:
             n_on = W
             cool_until = prov = torch.zeros((), dtype=_F64, device=dev)
+        tl = None
+        if timeline is not None:
+            tl = tln.init_tl_np(W, timeline, float(ws[r]))
+            tls.append(tl)
         for i in range(N + 1):
             dt_left = arrival[r, i] - now if i < N else \
                 torch.tensor(_BIG_TIME, dtype=_F64, device=dev)
+            if tl is not None:
+                # provisioned core-seconds over the gap, in its start's
+                # window (the drain's tail after the loop)
+                t_gap = float(now)
+                n_prov = float(n_on) if obs.auto else float(W)
+                if i < N:
+                    tln.tl_on_prov_np(tl, t_gap, (float(arrival[r, i])
+                                                  - t_gap) * n_prov * C)
             if obs is not None and obs.auto:
                 # provisioned time over the gap (to the drain's end after
                 # the last arrival: t_last is now)
@@ -450,6 +495,9 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
                     ob["tel_depth_time"][r] += tau * n_w.to(_F64)
                     if bool(tau > 0):
                         ob["busy_iters"][r] += int((n_w > 0).sum())
+                if tl is not None:
+                    tln.tl_on_advance_np(tl, float(now), float(tau),
+                                         (n_w > 0).cpu().numpy(), 0)
                 now = now + tau
                 tid = int(task_idx[wj, sj])
                 completed = bool(tmin <= dt_left) or (
@@ -465,6 +513,9 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
                                             ("tel_lat_hist", resp[tid])):
                             b = int(bin_index(x.reshape(1), obs.edges))
                             ob[hist_key][r, b] += 1
+                    if tl is not None:
+                        tln.tl_on_complete_np(tl, float(now), float(resp[tid]),
+                                              float(service[r, tid]))
                     if life is not None:
                         # a stale pool restarts from 0; the budget evicts
                         # the worker's LRU materialized pool
@@ -481,6 +532,8 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
                                     torch.inf).argmin())] -= 1
                                 if obs is not None:
                                     ob["tel_n_evict"][r] += 1
+                                if tl is not None:
+                                    tln.tl_on_evict_np(tl, float(now))
                     else:
                         warm[wj, f] += 1
                     remaining[wj, sj] = torch.inf
@@ -493,6 +546,9 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
             if i == N:
                 if obs is not None and obs.auto:
                     prov = prov + (now - t_last) * float(n_on)
+                if tl is not None:
+                    tln.tl_on_prov_np(tl, t_gap,
+                                      (float(now) - t_gap) * n_prov * C)
                 break
             now = arrival[r, i]
             f = int(func[r, i])
@@ -505,11 +561,26 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
             if obs is not None and obs.auto:
                 window = ob["tel_slow_hist"][r] - ob["fleet_snap"][r]
                 if bool(now >= cool_until) and int(window.sum()) >= 1:
-                    n_on = decide(n_on, window.cpu().numpy())
+                    n_new = decide(n_on, window.cpu().numpy())
+                    if tl is not None and n_new != n_on:
+                        tln.tl_event_np(tl, float(now), tln.EV_AUTOSCALE,
+                                        n_new, tln.sensor_p99_np(
+                                            window.cpu().numpy()))
+                    n_on = n_new
                     cool_until = now + obs.cooldown
                     ob["fleet_snap"][r] = ob["tel_slow_hist"][r]
                 # workers past n_on read as slot-full
                 active = torch.where(ids < n_on, active, S).to(_I32)
+            if tl is not None:
+                t_i = float(now)
+                tln.tl_on_arrival_np(tl, t_i, n_on if obs.auto else W)
+                if balance == "H":
+                    # Hermes packs while a worker it sees has a free core
+                    mode = int(bool((active < C).any()))
+                    if mode != int(tl["mode"]):
+                        tln.tl_event_np(tl, t_i, tln.EV_MODE_FLIP, mode,
+                                        float("nan"))
+                    tl["mode"] = np.int32(mode)
             w = _choose(balance, state, active, warm_col, home[r, f],
                         u_lb[r, i], i, C, S)
             _commit(balance, state, w, f)
@@ -517,6 +588,8 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
             if w < 0:
                 if obs is not None:
                     ob["tel_n_reject"][r] += 1
+                if tl is not None:
+                    tln.tl_on_reject_np(tl, t_i)
                 continue
             row, warm_row = task_idx[w], warm[w]
             cost = pen
@@ -544,6 +617,8 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
                 ob["tel_n_cold" if is_cold else "tel_n_warm"][r] += 1
                 ob["tel_n_evict"][r] += int(need_evict)
                 ob["tel_decisions"][r, w] += 1
+            if tl is not None:
+                tln.tl_on_place_np(tl, t_i, is_cold, need_evict)
             if life is not None and life.hybrid and float(idle[w, f]) >= 0:
                 _observe(life, hist[f], n_obs, pre, keep, f,
                          max(float(now - idle[w, f]), 0.0))
@@ -564,4 +639,6 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
             ob["fleet_prov_time"][r] = prov
     if obs is not None:
         out.update(obs.returned())
+    if timeline is not None:
+        out.update(tl_planes(tls, dev))
     return out

@@ -45,6 +45,29 @@ class LifecycleRuntime:
         pre, keep = self.res.windows(self.ka)
         self.pre, self.keep = _host(pre), _host(keep)
 
+    def cold_cost(self, f: int, scalar_default: float) -> float:
+        """Cold-start latency of function ``f``: the preset's, or
+        ``scalar_default`` without one (the engines' placement cost)."""
+        if self.res.cold_costs is None:
+            return float(scalar_default)
+        return float(self.res.cold_costs[f])
+
+    def materialized_at(self, w: int, f: int, count: int,
+                        now: float) -> int:
+        """``count`` if pool ``(w, f)`` is materialized at ``now``, else 0:
+        the one-pool warm-hit check of a placement."""
+        age = now - self.idle_since[w, f]
+        if self.pre[f] <= age <= self.pre[f] + self.keep[f]:
+            return int(count)
+        return 0
+
+    def materialized_all(self, warm: np.ndarray, now: float) -> np.ndarray:
+        """The whole ``[W, F]`` warm matrix as placement sees it (the
+        batched dispatch's form of :meth:`materialized_col`)."""
+        ages = now - self.idle_since
+        ok = (ages >= self.pre) & (ages <= self.pre + self.keep)
+        return np.where(ok, warm, 0)
+
     def materialized_col(self, warm_col: np.ndarray, f: int,
                          now: float) -> np.ndarray:
         """Warm counts of function ``f`` visible to placement, per worker

@@ -148,8 +148,9 @@ def engine(policy, device, backend: str = "auto", cluster=None) -> str:
     kernel does not take the cluster: more workers or slots than the
     kernel holds (``MAX_WORKERS``, ``MAX_SLOTS``), a lifecycle whose
     keep-alive is not one of the built-ins the kernel runs, or a fleet
-    whose autoscaler or speed preset a user registered.  Telemetry does
-    not change the route: the kernel's observation plane carries it.
+    whose autoscaler or speed preset a user registered.  Telemetry and a
+    timeline do not change the route: the kernel's observation and
+    timeline planes carry them.
     """
     if isinstance(policy, str):
         from repro_torch.core.taxonomy import parse_policy

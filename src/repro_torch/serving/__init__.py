@@ -1,1 +1,3 @@
-"""Serving backends of the port: registered functions are torch models."""
+"""Serving of the port: the real-model frontend (:mod:`.backends`, torch
+models behind ``HermesFrontend``) and the event-driven platform
+(:mod:`.engine`, ``ServingCluster``)."""

@@ -214,7 +214,7 @@ class HermesFrontend:
             raise NotPortedError(
                 f"HermesFrontend dispatches with "
                 f"{', '.join(FRONTEND_BALANCERS)}; balancer {key!r} is not "
-                f"ported to the frontend yet (ROADMAP queue 1, item 13)")
+                f"ported to the frontend yet (ROADMAP Queue 1, item 9)")
         self.device = resolve_device(device)
         self.workers = [InProcessWorker(registry, max_len,
                                         keepalive_s=keepalive_s,

@@ -1,5 +1,5 @@
 """``repro_torch.telemetry`` — observability (counterpart of
-``repro.telemetry``, without its timeline).
+``repro.telemetry``).
 
 Plane 1, in-engine streaming metrics (:mod:`.state`, :mod:`.sketch`; the
 torch twins in :mod:`.engine`): opt-in ``TelemetryCfg`` state carried
@@ -15,9 +15,17 @@ spans exported as Perfetto-loadable Chrome trace JSON, with an optional
 
 Plane 3, run provenance (:mod:`.manifest`): ``RunManifest``.
 
-The windowed flight recorder (the reference's ``timeline``) is not
-ported yet.  :mod:`.engine` (torch) is not imported here; the simulator
-imports it.
+Plane 4, the windowed time-series flight recorder (:mod:`.timeline`; the
+torch twins in :mod:`.timeline_engine`): an opt-in fixed-``K``-window
+``TimelineCfg`` plane carried next to the telemetry state: per-window
+arrival/cold/evict/reject counts, coarse slowdown/latency sketches,
+busy/queue/provisioned integrals, the active-worker trajectory and a
+bounded autoscaler/mode-flip decision log, exported as CSV, OpenMetrics
+and Perfetto counter tracks.  The batched engine carries it as ``[R, …]``
+tensors, the fused ``sim_engine`` kernel in its timeline plane.
+
+:mod:`.engine` and :mod:`.timeline_engine` (torch) are not imported
+here; the simulator imports them.
 """
 from .manifest import RunManifest, collect as collect_manifest, \
     wall_split_from_aggregate
@@ -28,6 +36,9 @@ from .spans import (Tracer, configure_tracing, get_tracer, set_tracer,
 from .state import (TelemetryCfg, TelemetryResult, WarmupMismatchError,
                     init_np, on_advance_np, on_complete_np, on_evict_np,
                     on_place_np, on_reject_np, warmup_cutoff)
+from .timeline import (TimelineCfg, TimelineResult, auto_window_s,
+                       coarse_edges, coarse_group, validate_timeline,
+                       window_index_np)
 
 __all__ = [
     "N_BINS", "HIST_LO", "HIST_HI", "hist_edges", "bin_index_np",
@@ -36,6 +47,8 @@ __all__ = [
     "warmup_cutoff",
     "on_place_np", "on_advance_np", "on_complete_np", "on_evict_np",
     "on_reject_np",
+    "TimelineCfg", "TimelineResult", "auto_window_s", "coarse_edges",
+    "coarse_group", "validate_timeline", "window_index_np",
     "Tracer", "configure_tracing", "get_tracer", "set_tracer", "span",
     "RunManifest", "collect_manifest", "wall_split_from_aggregate",
 ]

@@ -36,8 +36,8 @@ class RunManifest:
     args: dict = dataclasses.field(default_factory=dict)
     engine_cache: dict = dataclasses.field(default_factory=dict)
     wall_split: dict = dataclasses.field(default_factory=dict)
-    #: windowed flight-recorder digest, as the reference's field; empty
-    #: (the timeline plane is not ported yet)
+    #: windowed flight-recorder digest (``TimelineResult.summary()``);
+    #: empty when the run had no timeline plane
     timeline: dict = dataclasses.field(default_factory=dict)
 
     def as_dict(self) -> dict:

@@ -53,6 +53,17 @@ def hist_edges() -> np.ndarray:
     return _EDGES
 
 
+def bin_midpoints() -> np.ndarray:
+    """The ``[N_BINS]`` geometric midpoints ``sqrt(edges[b] * edges[b +
+    1])``, a sketch's percentile read of bin ``b``, in numpy (IEEE
+    product and square root).  The torch paths index these bits: torch's
+    ``sqrt`` of a float64 CPU tensor is not always the correctly rounded
+    root (8 of these 1536 are one ulp off), the card's ``__dsqrt_rn``
+    and numpy's are."""
+    e = hist_edges()
+    return np.sqrt(e[:-1] * e[1:])
+
+
 def bin_index_np(x, edges: np.ndarray | None = None):
     """Bin of value(s) ``x``: clamped ``searchsorted(edges, x, 'right')-1``.
 

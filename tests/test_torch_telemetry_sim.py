@@ -15,7 +15,7 @@
   balancers under telemetry, a ``two-gen`` fleet with telemetry, and
   ``TARGET_P99`` on a ``long-tail`` fleet under a lifecycle budget.
 * The route (:func:`repro_torch.policy.engine`) under telemetry and
-  fleets; ``timeline=`` raises :class:`~repro_torch.NotPortedError`.
+  fleets.
 
 The last test holds the CUDA kernel against the batched engine under the
 plane and runs only where a card is present.  Where JAX is not
@@ -274,12 +274,6 @@ def test_route_under_telemetry_and_fleets():
             sim_engine_ref("H", cl, *_inputs(_workloads(cl, (0.5,))), TEL)
     finally:
         unregister_autoscaler("NOOP")
-
-
-def test_timeline_is_not_ported():
-    wb = _workloads(TINY, (0.5,))
-    with pytest.raises(NotPortedError, match="Queue 1, .Timeline."):
-        simulate_many(HERMES, TINY, wb, device="cpu", timeline=object())
 
 
 def test_cpu_under_the_plane_launches_nothing():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device times and outputs of the fused engine's runs in
-``chip_smoke.py``'s phases 4, 12, 13 and 14, for comparing two trees of
-the port on one card.
+``chip_smoke.py``'s phases 4, 12, 13, 14 and 15, for comparing two trees
+of the port on one card.
 
     python3 tools/sim_engine_ab.py --src PATH/src --out times.json
     python3 tools/sim_engine_ab.py --compare A.json B.json B2.json A2.json
@@ -13,9 +13,12 @@ launch, the fused runs of phase 4 (fig4: E/{H,LL,LOC}/PS, W = 100,
 N = 12 000, R = 4), phase 12 (fig10's full mode: the five ``azure-*``
 scenarios × the three policies, R = 20; fig14's horizon lane, W = 1000,
 N = 86 400), phase 13 (fig11's quick lanes, the nine policies; fig4's
-five zoo rows), each without a lifecycle, and phase 14 (fig12's budget
+five zoo rows), each without a lifecycle, phase 14 (fig12's budget
 and balancer lanes and fig7's keep-alive axis, N = 15 000, R = 5, under
-the lifecycle), none with telemetry or a fleet, each timed three times
+the lifecycle), none of these with telemetry or a fleet, and phase 15
+under the observation plane (bench_telemetry's sketch lane at load 0.6
+for the nine policies, 8 × 8 cores, N = 60 000, R = 5, with telemetry;
+fig13's balancer and frontier lanes, N = 6000), each timed three times
 after a warm-up launch.  It writes ``{run: [ms, digest]}`` as JSON: the
 median of the three times, and a SHA-256 of every output tensor of the
 launch (the same in all three, or it stops).  The second form reads the
@@ -41,7 +44,8 @@ AZURE = ("azure-diurnal", "azure-bursty", "azure-cold-heavy",
 
 
 def _runs():
-    """(phase, key, policy, cluster, workload batch), in phase order."""
+    """(phase, key, policy, cluster, workload batch, telemetry), in phase
+    order."""
     from repro_torch.core import (E_DD_PS, E_HIKU_PS, E_JSQ2_PS, E_LL_PS,
                                   E_LOC_PS, E_RR_PS, E_SWARM_PS, HERMES,
                                   PAPER_LARGE, PAPER_SMALL, PAPER_TESTBED,
@@ -54,19 +58,19 @@ def _runs():
     fig4 = replicate_workload(ms_trace, PAPER_LARGE, LOADS, 12_000,
                               seeds=(1,))
     for p in fused:
-        yield "4", f"fig4 {p.name}", p, PAPER_LARGE, fig4
+        yield "4", f"fig4 {p.name}", p, PAPER_LARGE, fig4, None
     testbed = PAPER_TESTBED._replace(cold_start_penalty=0.5)
     for name in AZURE:
         wb = replicate_workload(WORKLOADS[name], testbed,
                                 (0.3, 0.5, 0.7, 0.85), 12_000,
                                 seeds=(1, 2, 3, 4, 5))
         for p in fused:
-            yield "12", f"fig10 {name} {p.name}", p, testbed, wb
+            yield "12", f"fig10 {name} {p.name}", p, testbed, wb, None
     lane_cl = ClusterCfg(n_workers=1000, cores=2, capacity_factor=2)
     lane = replicate_workload(WORKLOADS["azure-diurnal"], lane_cl, LOADS,
                               86_400, seeds=(1,))
     for p in fused:
-        yield "12", f"horizon {p.name}", p, lane_cl, lane
+        yield "12", f"horizon {p.name}", p, lane_cl, lane, None
     names = {p.name for p in ZOO_POLICIES}
     fig11 = list(ZOO_POLICIES) + [p for p in map(_early_ps, balancer_names())
                                   if p.name not in names]
@@ -75,10 +79,44 @@ def _runs():
         wb = replicate_workload(make, PAPER_SMALL, (0.5, 0.7, 0.8, 0.9),
                                 6_000, seeds=(0,))
         for p in fig11:
-            yield "13", f"fig11 {lane_name} {p.name}", p, PAPER_SMALL, wb
+            yield "13", f"fig11 {lane_name} {p.name}", p, PAPER_SMALL, wb, \
+                None
     for p in zoo:
-        yield "13", f"fig4 {p.name}", p, PAPER_LARGE, fig4
+        yield "13", f"fig4 {p.name}", p, PAPER_LARGE, fig4, None
     yield from _keepalive_runs(fused)
+    yield from _observation_runs(fig11)
+
+
+def _observation_runs(policies):
+    """Phase 15's runs (bench_telemetry's sketch lane at load 0.6, fig13's
+    full mode on the testbed)."""
+    from repro_torch.core import (E_LL_PS, E_SWARM_PS, HERMES,
+                                  PAPER_TESTBED, WORKLOADS, ClusterCfg,
+                                  FleetCfg, ms_trace, stack_workloads)
+    from repro_torch.telemetry import TelemetryCfg
+    tel_cl = ClusterCfg(n_workers=8, cores=8)
+    wb = stack_workloads(ms_trace(tel_cl, 0.6, 60_000, seed=s)
+                         for s in (17, 18, 19, 20, 21))
+    for p in policies:
+        yield "15", f"sketch {p.name}", p, tel_cl, wb, \
+            TelemetryCfg(warmup_frac=0.1)
+    make = WORKLOADS["azure-diurnal"]
+    two_gen = PAPER_TESTBED._replace(fleet=FleetCfg(preset="two-gen"))
+    for load in (0.5, 0.65, 0.8):
+        wb = stack_workloads([make(PAPER_TESTBED, load, 6_000, seed=1)])
+        for p in (HERMES, E_LL_PS, E_SWARM_PS):
+            yield "15", f"fig13 balancer {load} {p.name}", p, two_gen, wb, \
+                None
+    auto = PAPER_TESTBED._replace(fleet=FleetCfg(
+        preset="uniform", autoscale="TARGET_P99", target_p99=3.0,
+        min_workers=2, cooldown_s=2.0))
+    for seed in (1, 2, 3):
+        wb = stack_workloads([make(PAPER_TESTBED, 0.85, 6_000, seed=seed)])
+        for wn in (5, 6, 7, 8):
+            yield "15", f"fig13 frontier {seed} static-{wn}", HERMES, \
+                ClusterCfg(n_workers=wn, cores=PAPER_TESTBED.cores), wb, None
+        yield "15", f"fig13 frontier {seed} auto", HERMES, auto, wb, \
+            TelemetryCfg()
 
 
 def _keepalive_runs(fused):
@@ -99,16 +137,17 @@ def _keepalive_runs(fused):
     budget = batch("azure-cold-heavy", fig12)
     for ka in keepalives:
         yield "14", f"fig12 budget {ka} {fused[0].name}", fused[0], \
-            life(ka, 4), budget
+            life(ka, 4), budget, None
     diurnal = batch("azure-diurnal", fig12)
     for p in fused:
         yield "14", f"fig12 balancer FIXED_TTL {p.name}", p, \
-            life("FIXED_TTL"), diurnal
+            life("FIXED_TTL"), diurnal, None
     for name in ("ms-trace", "azure-diurnal"):
         wb = batch(name, fig7)
         for ka in keepalives:
             for p in fused:
-                yield "14", f"fig7 {name} {ka} {p.name}", p, life(ka), wb
+                yield "14", f"fig7 {name} {ka} {p.name}", p, life(ka), wb, \
+                    None
 
 
 def _early_ps(balancer):
@@ -138,19 +177,19 @@ def measure(src: Path) -> dict:
 
     ops.kernel = types.SimpleNamespace(sim_engine=timed)
     times, warm = {}, set()
-    for phase, key, policy, cluster, wb in _runs():
+    for phase, key, policy, cluster, wb, tel in _runs():
         if engine(policy, "cuda") != "sim_engine":
             continue
-        if (policy.name, cluster) not in warm:
+        if (policy.name, cluster, tel) not in warm:
             # a short launch first: module load and first-use costs
             simulate_many(policy, cluster, dataclasses.replace(wb, **{
                 f: getattr(wb, f)[:, :50] for f in ("arrival", "func",
                                                     "service", "u_lb")}),
-                device="cuda")
-            warm.add((policy.name, cluster))
+                device="cuda", telemetry=tel)
+            warm.add((policy.name, cluster, tel))
         seen.clear()
         for _ in range(3):
-            simulate_many(policy, cluster, wb, device="cuda")
+            simulate_many(policy, cluster, wb, device="cuda", telemetry=tel)
         torch.cuda.synchronize()
         digests = set()
         for _, _, res in seen:
