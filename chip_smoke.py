@@ -209,7 +209,26 @@ non-zero):
     CSV and ``.om`` written, its lines and CSV equal to the same run
     in-process on the CPU; and ``sim_engine`` equal to ``sim_engine_ref``
     under the timeline for the nine balancers, plain and under
-    ``TARGET_P99``; the CPU runs in the worker processes; the phase ≤ 60 s.
+    ``TARGET_P99``; the CPU runs in the worker processes; the phase ≤ 60 s;
+17. streaming (``repro_torch.core.streaming.simulate_stream``) on the
+    card: (a) fig14's equivalence lane, its fifteen stacks at N = 240,
+    R = 2, chunks 96 and 80, each a fused stream in ``sim_engine``'s chunk
+    mode (one launch per chunk, resuming from the carry, and one for the
+    drain) equal to the fused monolithic run (``final_states_equal``: slot
+    matrices, warm pools, clocks, every plane) and to the CPU's batched
+    stream, the kernel's carry after every chunk equal to
+    ``sim_engine_ref``'s chunk mode (max abs err 0) and, for two stacks, to
+    the CPU's; E/H/FCFS streamed through the batched engine on the card, one
+    ``hermes_select`` launch per arrival, equal to the CPU; (b) its horizon
+    lane (1000 × 2 cores, ``azure-diurnal`` at 0.7, E/LL/PS) in chunks of
+    4096 at N = 12 000 and the full day, N = 86 400 (22 launches), each
+    beside the monolithic fused run on the same inputs: final state and
+    counters equal, walls and µs per arrival of both, the device peak at
+    86 400 no larger than at 12 000, the host peak RSS within 4096 MiB, the
+    chunks enqueued with no host sync (torch's sync check); (c) fig15's
+    streaming check: the three early-binding parity stacks' timelines and
+    final states equal the monolithic runs'; the CPU runs in the worker
+    processes; the phase ≤ 60 s.
 
 TF32 is off for matrix products and cuDNN throughout.  The line before the
 last is ``{"kernels": [...]}``; the last line is
@@ -1745,7 +1764,7 @@ def _log_rows(label, rows):
 
 def plain_pool():
     """The worker processes of the batched engine's check runs (phases 5
-    and 12-15)."""
+    and 12-17)."""
     import multiprocessing
     return multiprocessing.get_context("spawn").Pool(
         PLAIN_WORKERS, initializer=_warm_worker)
@@ -3316,6 +3335,604 @@ def timeline_platform(torch, np, report, pool):
     return launches, serve_launches, max_err, plane
 
 
+# -- streaming (phase 17) --
+
+#: fig14's equivalence lane (benchmarks/fig14_stream.py:45-94): 4 × 3
+#: cores, capacity 2, N = 240, (load, seed) (0.6, 0) and (1.0, 1), the full
+#: mode's chunks (96 does not divide 240)
+FIG14_N = 240
+FIG14_LOADS = ((0.6, 0), (1.0, 1))
+FIG14_CHUNKS = (96, 80)
+#: its horizon lane (:56-69): 1000 × 2 cores, capacity 2, azure-diurnal at
+#: 0.7, seed 1, chunk 4096, the full day and the quick one
+STREAM_CHUNK = 4096
+STREAM_N_QUICK = 12_000
+PEAK_MB_BUDGET = 4096.0
+#: fig15's streaming check (benchmarks/fig15_timeline.py:118-160)
+FIG15_CHUNK = 96
+STREAM_PHASE_S = 60.0
+
+
+def fig14_stacks():
+    """fig14's fifteen equivalence stacks (fig14_stream.py:72-94): (label,
+    policy, cluster)."""
+    from repro_torch.core import (Binding, ClusterCfg, FleetCfg,
+                                  LifecycleCfg, PolicySpec, WorkerSched)
+    from repro_torch.policy import balancer_names
+    eq = ClusterCfg(n_workers=4, cores=3, capacity_factor=2)
+
+    def early(b):
+        return PolicySpec(Binding.EARLY, b, WorkerSched.PS)
+    stacks = [(early(b).name, early(b), eq) for b in balancer_names()]
+    for ka in ("NONE", "FIXED_TTL", "HYBRID_HIST"):
+        stacks.append((f"E/LL/PS|ka={ka}", early("LL"), eq._replace(
+            lifecycle=LifecycleCfg(keepalive=ka))))
+    het = eq._replace(fleet=FleetCfg(preset="two-gen"))
+    stacks += [("E/LL/PS|fleet", early("LL"), het),
+               ("E/SWARM/PS|fleet", early("SWARM"), het)]
+    stacks.append(("E/DD/PS|ka=HYBRID_HIST|fleet|auto", early("DD"),
+                   eq._replace(
+                       lifecycle=LifecycleCfg(keepalive="HYBRID_HIST",
+                                              ttl_s=2.0, max_idle=3,
+                                              coldstart="paper-sim"),
+                       fleet=FleetCfg(preset="two-gen",
+                                      autoscale="TARGET_P99", min_workers=2,
+                                      target_p99=4.0, cooldown_s=2.0))))
+    return stacks
+
+
+def fig14_batch(cluster):
+    from repro_torch.core import stack_workloads, synth_workload
+    return stack_workloads(synth_workload(cluster, load, FIG14_N,
+                                          n_functions=5, seed=seed)
+                           for load, seed in FIG14_LOADS)
+
+
+def stream_run(policy, cluster, wb, chunk, device, timeline=None,
+               segments=False):
+    """One ``simulate_stream`` with its per-arrival planes and final state
+    (on the host), and with ``segments`` the carry after each chunk:
+    (output, carries, wall s).  Top-level, so that a worker process can
+    run it."""
+    import dataclasses
+
+    from repro_torch.core.streaming import simulate_stream
+    seen = []
+    t0 = time.perf_counter()
+    out = simulate_stream(
+        policy, cluster, wb, chunk_size=chunk, device=device,
+        timeline=timeline, collect_outputs=True, keep_final_state=True,
+        chunk_callback=(lambda c, st: seen.append(
+            {k: v.cpu().clone() for k, v in st.items()}))
+        if segments else None)
+    wall = time.perf_counter() - t0
+    final = {k: v.cpu() for k, v in out.final_state.items()}
+    return dataclasses.replace(out, final_state=final), seen, wall
+
+
+def plain_chunks(balance, cluster, wb, chunk, timeline=None):
+    """``sim_engine``'s chunk mode in its plain version on the CPU, chunk
+    by chunk: the carry after each chunk (the last one drained) and the
+    per-arrival planes.  Top-level, so that a worker process can run it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.sim_engine import ops
+    from repro_torch.telemetry import TelemetryCfg, warmup_cutoff
+    tel = TelemetryCfg()
+    R, N = wb.n_reps, wb.n
+    plan = ops.chunk_plan(balance, cluster, R, wb.n_functions, "cpu", tel,
+                          timeline)
+    home = torch.as_tensor(wb.func_home, dtype=torch.int32)
+    ws = None if timeline is None else \
+        wb.arrival[:, -1] / np.float64(timeline.n_windows)
+    carry, segs, outs = None, [], []
+    for g0 in range(0, N, chunk):
+        sl = slice(g0, min(g0 + chunk, N))
+        ins = [torch.as_tensor(np.ascontiguousarray(x[:, sl]), dtype=d)
+               for x, d in ((wb.arrival, torch.float64),
+                            (wb.func, torch.int32),
+                            (wb.service, torch.float64),
+                            (wb.u_lb, torch.float64))]
+        carry, o = ops.sim_engine_chunk(plan, carry, *ins, home, g0=g0,
+                                        drain=sl.stop == N,
+                                        cutoff=warmup_cutoff(N, tel),
+                                        window_s=ws)
+        segs.append({k: v.clone() for k, v in carry.items()})
+        outs.append(o)
+    planes = {k: torch.cat([o[k] for o in outs], dim=1).numpy()
+              for k in outs[0]}
+    return segs, planes
+
+
+def same_stream(np, a, b, what: str) -> None:
+    """Two streams' outputs equal bit for bit: the per-arrival planes, the
+    counters, means, clocks and the sketches."""
+    for f in ("cold", "rejected", "worker", "n_done", "n_observed",
+              "resp_mean", "slow_mean", "server_time", "core_time",
+              "end_time", "prov_core_s"):
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        check(x.dtype == y.dtype and x.tobytes() == y.tobytes(),
+              f"{what}: not equal in {f}")
+    for f in TEL_FIELDS:
+        check(getattr(a.telemetry, f).tobytes()
+              == getattr(b.telemetry, f).tobytes(),
+              f"{what}: not equal in the telemetry's {f}")
+
+
+def fused_layout(st: dict, n_functions: int) -> dict:
+    """The batched engine's carry in the fused engine's layout (no pad
+    column, no dropped bin, no queue counters, i32 function mirrors)."""
+    import torch
+
+    from repro_torch.telemetry import N_BINS
+    out = {}
+    for k, v in st.items():
+        if k in ("q_head", "q_tail") or k.startswith("tl_"):
+            continue
+        if k in ("warm", "life_idle_since"):
+            v = v[:, :, :n_functions]
+        elif k in ("tel_slow_hist", "tel_lat_hist"):
+            v = v[:, :N_BINS]
+        elif k == "task_fn":
+            v = v.to(torch.int32)
+        out[k] = v
+    return out
+
+
+def same_carry(np, a: dict, b: dict, what: str, keys=None) -> float:
+    """Two carries equal bit for bit in every plane both hold (NaN equals
+    NaN); ``keys`` those that must be among them.  Returns the max abs
+    error."""
+    shared = sorted(set(a) & set(b))
+    missing = set(keys or ()) - set(shared)
+    check(not missing, f"{what}: planes missing: {sorted(missing)}")
+    err = 0.0
+    for k in shared:
+        x, y = a[k].cpu().numpy(), b[k].cpu().numpy()
+        check(x.dtype == y.dtype and x.shape == y.shape
+              and np.array_equal(x, y, equal_nan=x.dtype.kind == "f"),
+              f"{what}: not equal in {k}")
+        fx = np.nan_to_num(x.astype(np.float64), nan=-1.0, posinf=0.0)
+        fy = np.nan_to_num(y.astype(np.float64), nan=-1.0, posinf=0.0)
+        err = max(err, float(np.abs(fx - fy).max(initial=0.0)))
+    return err
+
+
+def _rss_mb() -> float:
+    """This process's resident set now, MiB (``/proc/self/status``)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return float(line.split()[1]) / 1024.0
+    return float("nan")
+
+
+class RssSampler:
+    """The largest resident set of this process seen while the block runs
+    (``/proc/self/status`` every 2 ms, from a thread), MiB."""
+
+    def __enter__(self):
+        import threading
+        self.peak = _rss_mb()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, _rss_mb())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+        self.peak = max(self.peak, _rss_mb())
+        return False
+
+
+def horizon_lane(go, results) -> None:
+    """fig14's horizon lane on the card, E/LL/PS in chunks of 4096 at the
+    quick day's N = 12 000 and the full day's 86 400, each after a reset of
+    the device's peak with nothing else allocated, then the monolithic
+    fused run on the same inputs (wall and the CUDA-event span of each);
+    then the stream's own chunk loop under torch's sync check.  Run in a
+    fresh process, so that no earlier phase shares its device allocator:
+    its imports, a short warm-up of both runs and the workloads come
+    first, then it waits for ``go`` (set when the parent leaves the card
+    to it) and puts what it measured, or the error, into ``results``; the
+    caller checks it.  The stream's host memory is the largest
+    resident set sampled while it runs less the resident set before it:
+    ``import torch`` alone holds more than the reference's 4096 MiB budget
+    on the card's machine, whose kernel keeps no ``VmHWM`` and refuses
+    ``reset_peak_rss``, so ``peak_rss_mb`` there reads ``ru_maxrss``,
+    which a spawned process inherits from its parent across ``exec``
+    (both are reported).  Top-level, so that a spawned process can run
+    it."""
+    import traceback
+    try:
+        results.put(_horizon_lane(go))
+    except Exception:
+        results.put({"error": traceback.format_exc()})
+
+
+def _horizon_lane(go) -> dict:
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (E_LL_PS, WORKLOADS, ClusterCfg,
+                                  stack_workloads)
+    from repro_torch.core import streaming as stream_mod
+    from repro_torch.core.streaming import (final_states_equal,
+                                            monolithic_state,
+                                            simulate_stream)
+    from repro_torch.kernels.hermes_select import kernel as hk
+    from repro_torch.kernels.sim_engine import kernel as ek
+    from repro_torch.telemetry import TelemetryCfg, warmup_cutoff
+    from repro_torch.telemetry.manifest import peak_rss_mb, reset_peak_rss
+    rss_torch = _rss_mb()
+    torch.zeros(1, device="cuda")
+    tel = TelemetryCfg()
+    hc = ClusterCfg(**HORIZON)
+    make = WORKLOADS["azure-diurnal"]
+    # first-use costs (module loads, the pinned allocator) out of the timed
+    # runs, and the inputs made, before the card is this process's alone
+    warm = make(hc, 0.7, 300, seed=1)
+    simulate_stream(E_LL_PS, hc, warm, chunk_size=128, device="cuda")
+    monolithic_state(E_LL_PS, hc, warm, device="cuda", telemetry=tel)
+    days = {}
+    for n in (STREAM_N_QUICK, HORIZON_N):
+        t_gen = time.perf_counter()
+        days[n] = (make(hc, 0.7, n, seed=1), time.perf_counter() - t_gen)
+    torch.cuda.synchronize()
+    if not go.wait(timeout=2 * STREAM_PHASE_S):
+        raise RuntimeError("the card was not left to the horizon lane")
+    out_rows = {}
+
+    def span_ms(start):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    for n in (STREAM_N_QUICK, HORIZON_N):
+        wl, gen_s = days[n]
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset = reset_peak_rss()
+        rss0 = _rss_mb()
+        ek.sim_engine.launches = 0
+        hk.hermes_select_batch.launches = 0
+        with RssSampler() as rss:
+            start = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = simulate_stream(E_LL_PS, hc, wl, chunk_size=STREAM_CHUNK,
+                                  device="cuda", keep_final_state=True)
+            wall = time.perf_counter() - t0
+            span = span_ms(start)
+        row = dict(n=n, chunks=out.n_chunks,
+                   launches=ek.sim_engine.launches,
+                   hermes_select_launches=hk.hermes_select_batch.launches,
+                   generate_s=gen_s, wall_s=wall, span_ms=span,
+                   us_per_arrival=wall / n * 1e6,
+                   n_done=int(out.n_done[0]),
+                   n_observed=int(out.n_observed[0]),
+                   slow_p99=float(out.telemetry.slow_percentile(99.0)),
+                   slow_mean=float(out.slow_mean[0]),
+                   resp_mean=float(out.resp_mean[0]),
+                   device_peak_bytes=torch.cuda.max_memory_allocated()
+                   - base, device_base_bytes=base, rss_reset=reset,
+                   host_rss_torch_mb=rss_torch, host_rss_before_mb=rss0,
+                   host_rss_peak_mb=rss.peak,
+                   host_rss_growth_mb=rss.peak - rss0,
+                   peak_rss_mb=peak_rss_mb())
+        state = out.final_state
+        del out
+        ek.sim_engine.launches = 0
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        mono = monolithic_state(E_LL_PS, hc, wl, device="cuda",
+                                telemetry=tel)
+        torch.cuda.synchronize()
+        row["mono_wall_s"] = time.perf_counter() - t0
+        row["mono_span_ms"] = span_ms(start)
+        row["mono_us_per_arrival"] = row["mono_wall_s"] / n * 1e6
+        row["mono_launches"] = ek.sim_engine.launches
+        row["state_differs"] = final_states_equal(state, mono)[1]
+        resp = mono["resp"].cpu().numpy()
+        done = ~np.isnan(resp)
+        row["mono_n_done"] = int(done.sum())
+        row["mono_n_observed"] = int(
+            (done & (np.arange(n) >= warmup_cutoff(n, tel))).sum())
+        out_rows[n] = row
+        del state, mono, resp
+    # the chunks go to the card with no host sync between them: the
+    # stream's own loop under torch's sync check
+    wl = make(hc, 0.7, STREAM_N_QUICK, seed=1)
+    run = stream_mod._Run(E_LL_PS, hc, stack_workloads([wl]), STREAM_CHUNK,
+                          torch.device("cuda"), "auto", tel, None,
+                          warmup_cutoff(STREAM_N_QUICK, tel))
+    n_chunks = -(-STREAM_N_QUICK // STREAM_CHUNK)
+    torch.cuda.synchronize()
+    ek.sim_engine.launches = 0
+    synced = None
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for c in range(n_chunks):
+            run.chunk(slice(c * STREAM_CHUNK,
+                            min((c + 1) * STREAM_CHUNK, STREAM_N_QUICK)),
+                      c == n_chunks - 1, False)
+    except RuntimeError as e:
+        synced = str(e)
+    finally:
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out_rows["enqueue"] = dict(chunks=n_chunks, enqueue_s=enqueue_s,
+                               with_device_s=time.perf_counter() - t0,
+                               launches=ek.sim_engine.launches,
+                               synced=synced)
+    return out_rows
+
+
+def streaming(torch, np, report, pool):
+    """Phase 17: horizon-scale streaming (``simulate_stream``) on the card.
+    (a) fig14's equivalence lane: its fifteen stacks at chunks 96 and 80,
+    each a fused stream (one ``sim_engine`` launch per chunk in chunk mode,
+    and one for the drain after the chunk callback) equal to the fused
+    monolithic run (``final_states_equal``) and to the port's batched
+    stream on the CPU, the kernel's carry after each chunk equal to
+    ``sim_engine_ref``'s chunk mode (and for two stacks to the batched
+    stream's); E/H/FCFS streamed through the batched engine on the card
+    (one ``hermes_select`` launch per arrival) equal to the CPU's.  (b) its
+    horizon lane at the full day, N = 86 400 in chunks of 4096 (22
+    launches) beside the monolithic fused run on the same inputs: the
+    final state and counters equal; the device peak no larger than at the
+    quick day's N = 12 000; the host peak RSS within the reference's
+    budget; the chunks enqueued with no host sync.  (c) fig15's streaming
+    check: the three early-binding parity stacks' timelines and final
+    states equal the monolithic runs'.  The CPU runs go to ``pool``'s
+    workers while the card runs.  Returns (``sim_engine`` launches,
+    ``hermes_select`` launches, the chunk mode's max abs error against its
+    plain version)."""
+    import multiprocessing
+
+    from repro_torch.core import E_LL_PS, HERMES, FleetCfg, parse_policy
+    from repro_torch.core.simulator import simulate_many
+    from repro_torch.core.streaming import (final_states_equal,
+                                            monolithic_state)
+    from repro_torch.kernels.hermes_select import kernel as hk
+    from repro_torch.kernels.sim_engine import kernel as ek
+    from repro_torch.telemetry import TelemetryCfg, TimelineCfg
+
+    t_phase = time.perf_counter()
+    tel = TelemetryCfg()
+    stacks = fig14_stacks()
+    batches = {label: fig14_batch(cl) for label, _, cl in stacks}
+    eq = stacks[0][2]
+    fcfs = parse_policy("E/H/FCFS")
+    fcfs_wb = fig14_batch(eq)
+    par_tl = TimelineCfg(n_windows=32, coarse_bins=96, max_events=128)
+    parity = [("E/LL/PS", E_LL_PS, eq), ("E/H/PS|mode-flips", HERMES, eq),
+              ("E/LL/PS|fleet|auto", E_LL_PS, eq._replace(fleet=FleetCfg(
+                  preset="two-gen", autoscale="TARGET_P99", min_workers=2,
+                  target_p99=4.0, cooldown_s=2.0)))]
+    seg_checked = ("E/H/PS", "E/DD/PS|ka=HYBRID_HIST|fleet|auto")
+
+    # the CPU runs, in the worker processes, while the card runs
+    t0 = time.perf_counter()
+    jobs = [(p, cl, batches[label], k, "cpu", None, label in seg_checked)
+            for label, p, cl in stacks for k in FIG14_CHUNKS]
+    cpu_streams = pool.starmap_async(stream_run, jobs, chunksize=1)
+    ref_jobs = [(p.balance, cl, batches[label], k)
+                for label, p, cl in stacks for k in FIG14_CHUNKS]
+    cpu_refs = pool.starmap_async(plain_chunks, ref_jobs, chunksize=1)
+    cpu_fcfs = pool.apply_async(stream_run, (fcfs, eq, fcfs_wb, 96, "cpu"))
+
+    # (b) the horizon lane, in a fresh process of its own (its host memory
+    # and device allocator the stream's, not the earlier phases'): it
+    # starts now and times its runs once the card is left to it, below
+    ctx = multiprocessing.get_context("spawn")
+    lane_go, lane_results = ctx.Event(), ctx.Queue()
+    lane = ctx.Process(target=horizon_lane, args=(lane_go, lane_results),
+                       daemon=True)
+    lane.start()
+    launches = 0
+
+    # (a) the equivalence lane on the card
+    eq_rows, segs_card, streams_card = {}, {}, {}
+    for label, policy, cl in stacks:
+        wb = batches[label]
+        ek.sim_engine.launches = 0
+        mono = monolithic_state(policy, cl, wb, device="cuda", telemetry=tel)
+        launches += ek.sim_engine.launches
+        for k in FIG14_CHUNKS:
+            ek.sim_engine.launches = 0
+            hk.hermes_select_batch.launches = 0
+            out, seen, wall = stream_run(policy, cl, wb, k, "cuda",
+                                         segments=True)
+            n_chunks = -(-FIG14_N // k)
+            check((ek.sim_engine.launches, hk.hermes_select_batch.launches)
+                  == (n_chunks + 1, 0),
+                  f"{label} chunk {k}: launched sim_engine "
+                  f"{ek.sim_engine.launches}, hermes_select "
+                  f"{hk.hermes_select_batch.launches} (expected "
+                  f"{n_chunks + 1}, 0)")
+            launches += n_chunks + 1
+            ok, bad = final_states_equal(out.final_state, mono)
+            check(ok, f"{label} chunk {k}: stream != monolithic in {bad}")
+            for plane, key in (("cold", "cold"), ("rejected", "rejected"),
+                               ("worker", "worker_of")):
+                check(np.array_equal(getattr(out, plane),
+                                     mono[key].cpu().numpy()),
+                      f"{label} chunk {k}: stream != monolithic in {plane}")
+            segs_card[label, k], streams_card[label, k] = seen, out
+            eq_rows[f"{label} k{k}"] = dict(wall_s=wall, chunks=n_chunks)
+    # E/H/FCFS through the batched engine on the card
+    ek.sim_engine.launches = 0
+    hk.hermes_select_batch.launches = 0
+    fcfs_out, _, fcfs_wall = stream_run(fcfs, eq, fcfs_wb, 96, "cuda")
+    fcfs_launches = hk.hermes_select_batch.launches
+    check(fcfs_launches == FIG14_N and ek.sim_engine.launches == 0,
+          f"E/H/FCFS stream: hermes_select launched {fcfs_launches} "
+          f"(expected {FIG14_N}), sim_engine {ek.sim_engine.launches}")
+
+    # (c) fig15's streaming check
+    fig15 = {}
+    for label, policy, cl in parity:
+        wb = batches["E/LL/PS"] if cl == eq else fig14_batch(cl)
+        ek.sim_engine.launches = 0
+        out, _, wall = stream_run(policy, cl, wb, FIG15_CHUNK, "cuda",
+                                  par_tl)
+        mono_out = simulate_many(policy, cl, wb, device="cuda",
+                                 telemetry=tel, timeline=par_tl)
+        mono = monolithic_state(policy, cl, wb, device="cuda",
+                                telemetry=tel, timeline=par_tl)
+        n_chunks = -(-FIG14_N // FIG15_CHUNK)
+        check(ek.sim_engine.launches == n_chunks + 2,
+              f"fig15 {label}: sim_engine launched "
+              f"{ek.sim_engine.launches}, expected {n_chunks + 2}")
+        launches += n_chunks + 2
+        same_timeline(np, out.timeline, mono_out.timeline,
+                      f"fig15 {label}: stream vs monolithic")
+        ok, bad = final_states_equal(out.final_state, mono)
+        check(ok, f"fig15 {label}: stream != monolithic in {bad}")
+        fig15[label] = dict(wall_s=wall,
+                            events=out.timeline.ev_count.tolist())
+
+    # the card to the horizon lane alone; the CPU's checks meanwhile
+    torch.cuda.synchronize()
+    lane_go.set()
+
+    # the CPU's runs against the card's
+    max_err = 0.0
+    for (label, policy, cl), (k, (cpu, cpu_seen, _)) in zip(
+            [s for s in stacks for _ in FIG14_CHUNKS],
+            zip(FIG14_CHUNKS * len(stacks), cpu_streams.get())):
+        card = streams_card[label, k]
+        same_stream(np, card, cpu, f"{label} chunk {k}: card vs CPU")
+        same_carry(np, card.final_state,
+                   fused_layout(cpu.final_state, 5),
+                   f"{label} chunk {k}: card vs CPU carry",
+                   ("remaining", "task_idx", "task_fn", "task_svc", "warm"))
+        if cpu_seen:
+            for c, (a, b) in enumerate(zip(segs_card[label, k], cpu_seen)):
+                same_carry(np, a, fused_layout(b, 5),
+                           f"{label} chunk {k}: card vs CPU after chunk {c}",
+                           ("remaining", "task_idx", "warm",
+                            "stream_slow_sum"))
+    for (label, k), (segs, planes) in zip(
+            [(label, k) for label, _, _ in stacks for k in FIG14_CHUNKS],
+            cpu_refs.get()):
+        card = segs_card[label, k]
+        check(len(card) == len(segs),
+              f"{label} chunk {k}: {len(card)} chunks, plain {len(segs)}")
+        # the card's last carry is before its drain launch; the plain
+        # version drained its last chunk: the final states compare
+        for c, (a, b) in enumerate(zip(card[:-1], segs[:-1])):
+            max_err = max(max_err, same_carry(
+                np, a, b, f"{label} chunk {k}: sim_engine != sim_engine_ref"
+                          f" after chunk {c}"))
+            check(set(a) == set(b), f"{label}: carries of other planes")
+        max_err = max(max_err, same_carry(
+            np, streams_card[label, k].final_state, segs[-1],
+            f"{label} chunk {k}: sim_engine != sim_engine_ref (final)"))
+        for plane, key in (("cold", "cold"), ("rejected", "rejected"),
+                           ("worker", "worker_of")):
+            check(np.array_equal(getattr(streams_card[label, k], plane),
+                                 planes[key]),
+                  f"{label} chunk {k}: sim_engine != sim_engine_ref in "
+                  f"{plane}")
+    cpu, _, fcfs_cpu_s = cpu_fcfs.get()
+    same_stream(np, fcfs_out, cpu, "E/H/FCFS stream: card vs CPU")
+    ok, bad = final_states_equal(fcfs_out.final_state, cpu.final_state)
+    check(ok, f"E/H/FCFS stream: card vs CPU carry in {bad}")
+    cpu_s = time.perf_counter() - t0
+
+    # the horizon lane's runs
+    horizon = lane_results.get(timeout=STREAM_PHASE_S)
+    lane.join(timeout=STREAM_PHASE_S)
+    check("error" not in horizon,
+          f"the horizon lane failed: {horizon.get('error')}")
+    for n in (STREAM_N_QUICK, HORIZON_N):
+        r = horizon[n]
+        check(r["launches"] == -(-n // STREAM_CHUNK)
+              and r["hermes_select_launches"] == 0,
+              f"horizon N={n}: sim_engine launched {r['launches']} times, "
+              f"expected {-(-n // STREAM_CHUNK)}")
+        check(r["mono_launches"] == 1, f"horizon N={n}: the monolithic run "
+                                       f"launched {r['mono_launches']} times")
+        launches += r["launches"] + r["mono_launches"]
+        check(not r["state_differs"], f"horizon N={n}: stream != "
+                                      f"monolithic in {r['state_differs']}")
+        check(r["n_done"] == r["mono_n_done"]
+              and r["n_observed"] == r["mono_n_observed"],
+              f"horizon N={n}: the counters != the monolithic run's")
+        check(r["host_rss_growth_mb"] <= PEAK_MB_BUDGET,
+              f"horizon N={n}: the stream's host memory "
+              f"{r['host_rss_growth_mb']:.1f} MiB > {PEAK_MB_BUDGET}")
+    peaks = {n: horizon[n]["device_peak_bytes"]
+             for n in (STREAM_N_QUICK, HORIZON_N)}
+    check(peaks[HORIZON_N] <= peaks[STREAM_N_QUICK],
+          f"the device peak grew with the horizon: {peaks}")
+    check(horizon["enqueue"]["synced"] is None,
+          f"the stream's chunk loop synced the host: "
+          f"{horizon['enqueue']['synced']}")
+    launches += horizon["enqueue"]["launches"]
+
+    for n in (STREAM_N_QUICK, HORIZON_N):
+        r = horizon[n]
+        log(f"horizon lane N={n} ({r['chunks']} chunks of {STREAM_CHUNK}, "
+            f"{r['launches']} launches): stream {r['wall_s']:.3f} s "
+            f"({r['us_per_arrival']:.2f} us per arrival; CUDA-event span "
+            f"{r['span_ms']:.3f} ms), monolithic {r['mono_wall_s']:.3f} s "
+            f"({r['mono_us_per_arrival']:.2f}; {r['mono_span_ms']:.3f} ms);"
+            f" stream / monolithic {r['wall_s'] / r['mono_wall_s']:.4f} "
+            f"(wall), {r['span_ms'] / r['mono_span_ms']:.4f} (span); "
+            f"n_done {r['n_done']}, sketch p99 slowdown {r['slow_p99']:.4f},"
+            f" mean {r['slow_mean']:.4f}; device peak "
+            f"{r['device_peak_bytes']} B over {r['device_base_bytes']} B "
+            f"allocated before; host: RSS {r['host_rss_before_mb']:.1f} MiB"
+            f" before the stream (after importing torch: "
+            f"{r['host_rss_torch_mb']:.1f}), at most "
+            f"{r['host_rss_peak_mb']:.1f} while it ran: the stream's "
+            f"{r['host_rss_growth_mb']:.1f} MiB (peak_rss_mb "
+            f"{r['peak_rss_mb']:.1f}, reset_peak_rss {r['rss_reset']})")
+    e = horizon["enqueue"]
+    log(f"horizon lane enqueue: {e['chunks']} chunks in "
+        f"{e['enqueue_s'] * 1e3:.2f} ms with no host sync "
+        f"({e['with_device_s']:.3f} s with the card's work)")
+    log(f"fig14 equivalence: {len(stacks)} stacks x chunks {FIG14_CHUNKS}: "
+        f"stream == monolithic fused run, == the CPU's batched stream, "
+        f"sim_engine == sim_engine_ref after every chunk (max abs err "
+        f"{max_err}); E/H/FCFS on the card: {fcfs_launches} hermes_select "
+        f"launches, {fcfs_wall:.2f} s (CPU {fcfs_cpu_s:.2f} s); "
+        f"{len(jobs) + len(ref_jobs) + 1} CPU runs, {cpu_s:.1f} s")
+    for label, r in fig15.items():
+        log(f"fig15 stream {label}: timeline and state == monolithic, "
+            f"events {r['events']}")
+    phase_s = time.perf_counter() - t_phase
+    report["streaming"] = dict(
+        horizon={str(k): v for k, v in horizon.items()}, equivalence=eq_rows,
+        fig15=fig15, fcfs_hermes_select_launches=fcfs_launches,
+        sim_engine_launches=launches, sim_engine_max_abs_err=max_err,
+        plain_runs_s=cpu_s, phase_s=phase_s)
+    log(f"phase 17: {launches} sim_engine launches, {fcfs_launches} "
+        f"hermes_select launches, {phase_s:.1f} s")
+    check(phase_s <= STREAM_PHASE_S, f"phase 17 took {phase_s:.1f} s "
+                                     f"(limit {STREAM_PHASE_S:.0f} s)")
+    return launches, fcfs_launches, max_err
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run it from the root of a checkout of the repo",
@@ -3346,7 +3963,7 @@ def main() -> int:
                                                   PAPER_LARGE)
         with Phase("4b profile of the main path", report):
             profile_main_path(torch, np, report, PAPER_LARGE)
-        # the batched engine's check runs of phases 5 and 12-15 go to
+        # the batched engine's check runs of phases 5 and 12-17 go to
         # worker processes
         with contextlib.ExitStack() as workers:
             with Phase("5 kernel path vs plain path", report):
@@ -3394,6 +4011,9 @@ def main() -> int:
                        report):
                 tl_launches, platform_launches, tl_err, _ = \
                     timeline_platform(torch, np, report, pool)
+            with Phase("17 streaming on the card", report):
+                stream_launches, fcfs_launches, stream_err = streaming(
+                    torch, np, report, pool)
         total_s = time.perf_counter() - t_start
         check(total_s <= SCRIPT_S, f"the script took {total_s:.1f} s (limit "
                                    f"{SCRIPT_S:.0f} s)")
@@ -3404,15 +4024,18 @@ def main() -> int:
         report["total_s"] = time.perf_counter() - t_start
         log("report " + json.dumps(report, separators=(",", ":")))
     # hermes_select's path is serving (phase 7: one launch per dispatch;
-    # phase 16: one per dispatch of the platform's controller); the
+    # phase 16: one per dispatch of the platform's controller) and the
+    # batched engine's E/H/FCFS stream (phase 17: one per arrival); the
     # simulator's E/H/PS makes its choice inside sim_engine (phases 4 and
-    # 12-16: every fused run's launch on those paths; its times from phase
-    # 4, where the plain engine runs the same inputs)
+    # 12-17: every fused run's launch and every stream's chunk launch on
+    # those paths; its times from phase 4, where the plain engine runs the
+    # same inputs)
     kernels = [{
         "name": "hermes_select", "route": "cuda",
         "source": "src/repro_torch/csrc/hermes_select.cu",
         "replaces": "src/repro/kernels/hermes_select/kernel.py:66",
-        "launches": serve_launches["hermes_select"] + platform_launches,
+        "launches": serve_launches["hermes_select"] + platform_launches
+        + fcfs_launches,
         "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {
@@ -3420,8 +4043,9 @@ def main() -> int:
         "source": "src/repro_torch/csrc/sim_engine.cu",
         "replaces": "src/repro/kernels/hermes_select/kernel.py:66",
         "launches": engine_launches + trace_launches + zoo_launches
-        + life_launches + obs_launches + tl_launches,
-        "max_abs_err": max(engine_err, zoo_err, life_err, obs_err, tl_err),
+        + life_launches + obs_launches + tl_launches + stream_launches,
+        "max_abs_err": max(engine_err, zoo_err, life_err, obs_err, tl_err,
+                           stream_err),
         "ms": engine_t["ms"], "plain_ms": engine_t["plain_ms"],
         "bound_ms": engine_t["bound_ms"], "bound_by": engine_t["bound_by"],
         "library_ms": None}]

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/core/simulator.py`` (early and late binding, the
 container lifecycle, telemetry, the heterogeneous fleet and its
-autoscaler, the timeline; streaming is not ported).  The reference
+autoscaler, the timeline, and the chunk engine of
+:func:`repro_torch.core.streaming.simulate_stream`).  The reference
 runs a ``lax.scan`` over arrivals under ``jax.vmap``; here the replication axis ``R`` is written out as the
 leading axis of every state tensor and the scan is a Python loop:
 
@@ -87,6 +88,11 @@ the arrival and its ``n_on``, Hermes' pack/spread flips under early
 binding, each rejection and placement, and the drain's provisioned tail.
 The width is the last arrival over ``K`` per replication (or the
 configured one).  Without it, none of these operations is made.
+
+``_build_engine(..., stream=True)`` is the stream's chunk engine: the
+same per-arrival operations over any chunk of arrivals from a carry
+without a plane of the horizon's length (slot mirrors of each occupant's
+function and service, exact online counters), the drain on its own.
 """
 from __future__ import annotations
 
@@ -305,15 +311,52 @@ def _check_autoscale(policy, cluster: ClusterCfg,
             f"simulator")
 
 
+def _check_stream(policy) -> None:
+    """The reference's refusal of late binding in the stream engine
+    (``repro/core/simulator.py:277-281``)."""
+    if isinstance(policy, str):
+        policy = parse_policy(policy)
+    if check_binding(policy.binding):
+        raise ValueError(
+            f"streaming engine requires early binding — policy "
+            f"{policy!r} uses late binding, whose controller queue "
+            f"scales with the horizon; run it through simulate_many")
+
+
 def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                   n_functions: int, n_reps: int, device: torch.device,
                   backend: str, telemetry: TelemetryCfg | None = None,
-                  timeline: TimelineCfg | None = None):
+                  timeline: TimelineCfg | None = None, stream: bool = False):
     """The batched engine for (policy, cluster, N, F, R) on ``device``.
 
     Returns ``run(arrivals, funcs, services, u_lb, homes, stats) -> state``
     over ``[R, N]`` / ``[R, F]`` tensors on ``device``.
+
+    ``stream=True`` builds the chunk engine of
+    :func:`repro_torch.core.streaming.simulate_stream` (``n_arrivals`` is
+    not used: one engine serves any chunk and any horizon) and returns
+    ``(init, run_chunk, drain)``:
+
+    * ``init(cutoff, window_s)``: the fresh carry; ``cutoff`` is the
+      horizon's warmup index, ``window_s [R]`` the timeline's widths (or
+      None);
+    * ``run_chunk(st, g0, arrivals, funcs, services, u_lb, homes, stats)
+      -> (st, (rejected, cold, worker))``: the arrivals ``g0, g0 + 1, …``
+      of a chunk (``[R, n]`` inputs, any ``n``), and their per-arrival
+      outputs ``[R, n]``;
+    * ``drain(st, stats)``: the monolithic run's end-of-horizon drain.
+
+    The carry holds no plane of the horizon's length: completions read
+    the occupant's function and nominal service from the slot mirrors
+    ``task_fn``/``task_svc [R, W, S]`` written at placement, and the
+    exact online counters ``stream_n_done``/``stream_n_obs`` (i64) and
+    ``stream_resp_sum``/``stream_slow_sum`` (f64, in completion order)
+    take the place of the response plane; ``stream_cutoff [R]`` is the
+    warmup index.  Each arrival makes the operations the monolithic run
+    makes at it, so any chunking gives the same bits.
     """
+    if stream:
+        _check_stream(policy)
     _check_autoscale(policy, cluster, telemetry)
     W, C, S = cluster.n_workers, cluster.cores, cluster.slots
     F, N, R = n_functions, n_arrivals, n_reps
@@ -323,7 +366,7 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
     select = res.select
     stateful = res.stateful
     rows = torch.arange(R, device=device)
-    arrival_ids = torch.arange(N, device=device)
+    arrival_ids = None if stream else torch.arange(N, device=device)
     pen = torch.tensor(float(cluster.cold_start_penalty), dtype=_F64,
                        device=device)
     no_pen = torch.zeros((), dtype=_F64, device=device)
@@ -339,7 +382,8 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
     tel_on = telemetry is not None
     if tel_on:
         tel_edges = tel_engine.edges_for(device)
-        tel_cutoff = warmup_cutoff(N, telemetry)
+        # the stream's cutoff rides in the carry (N is not the horizon)
+        tel_cutoff = None if stream else warmup_cutoff(N, telemetry)
     fres = resolve_fleet(cluster, backend="torch", device=device)
     fleet_on = fres is not None
     auto_on = fleet_on and fres.auto_on
@@ -383,9 +427,11 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
             r = r * speed[:, None]
         return r
 
-    def place(st, tid, w, f, svc_nom, t_arr):
+    def place(st, tid, w, f, svc_nom, t_arr, at=None):
         """Place arrival ``tid [R]`` (fn ``f``, nominal service
-        ``svc_nom``, arrival ``t_arr``) on worker ``w [R]`` (valid)."""
+        ``svc_nom``, arrival ``t_arr``) on worker ``w [R]`` (valid); its
+        outputs go to index ``at [R]`` of the per-arrival planes (``tid``
+        by default; the chunk's own index in a stream)."""
         row = st["task_idx"][rows, w]                          # [R, S]
         active_w = (row >= 0).sum(dim=1)
         warm_row = st["warm"][rows, w]                         # [R, F+1]
@@ -431,15 +477,22 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
             (rows, w, victim), warm[rows, w, victim] - need_evict.to(_I32))
         slot = (row < 0).to(_I32).argmax(dim=1)
         svc = svc_nom + torch.where(is_cold, pen_f, no_pen)
+        mirror = {}
+        if stream:
+            # the slot mirrors: a completion in a later chunk reads them
+            mirror = dict(
+                task_fn=st["task_fn"].index_put((rows, w, slot), f),
+                task_svc=st["task_svc"].index_put((rows, w, slot), svc_nom))
+        at = tid if at is None else at
         return dict(
-            st, **life, **tel,
+            st, **life, **tel, **mirror,
             remaining=st["remaining"].index_put((rows, w, slot), svc),
             task_arr=st["task_arr"].index_put((rows, w, slot), t_arr),
             task_idx=st["task_idx"].index_put((rows, w, slot),
                                               tid.to(_I32)),
             warm=warm,
-            cold=st["cold"].index_put((rows, tid), is_cold),
-            worker_of=st["worker_of"].index_put((rows, tid), w.to(_I32)))
+            cold=st["cold"].index_put((rows, at), is_cold),
+            worker_of=st["worker_of"].index_put((rows, at), w.to(_I32)))
 
     def n_active(st):
         return (st["task_idx"] >= 0).sum(dim=2)                # [R, W] i64
@@ -506,19 +559,37 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
             completed = (tmin <= dt_left) | \
                 ((tid >= 0) & (st["remaining"][rows, wj, sj] <= EPS))
             resp_val = now - st["task_arr"][rows, wj, sj]
-            f_j = funcs[rows, tid.clamp(min=0).to(_I64)]
-            svc_nom = services[rows, tid.clamp(min=0).to(_I64)]
+            if stream:
+                # the slot's mirrors, not the (earlier chunk's) inputs
+                f_j = st["task_fn"][rows, wj, sj]
+                svc_nom = st["task_svc"][rows, wj, sj]
+            else:
+                f_j = funcs[rows, tid.clamp(min=0).to(_I64)]
+                svc_nom = services[rows, tid.clamp(min=0).to(_I64)]
             if tel_on:
-                tel = tel_engine.on_complete(tel, rows, resp_val, svc_nom,
-                                             tid, completed, tel_cutoff,
-                                             tel_edges)
+                tel = tel_engine.on_complete(
+                    tel, rows, resp_val, svc_nom, tid, completed,
+                    st["stream_cutoff"] if stream else tel_cutoff, tel_edges)
             if tl_on:
                 # every completion, in the completion time's window
                 tl = tl_engine.on_complete(tl, now, resp_val, svc_nom,
                                            completed, tl_edges)
-            resp = st["resp"].index_put(
-                (rows, torch.where(completed, tid.to(_I64), N)),
-                torch.where(completed, resp_val, 0.0))
+            if stream:
+                # the exact online counters over the post-warmup
+                # completions, in completion order
+                rec = completed & (tid >= st["stream_cutoff"])
+                slow_v = resp_val / torch.clamp(svc_nom, min=1e-12)
+                counters = dict(
+                    stream_n_done=st["stream_n_done"] + completed.to(_I64),
+                    stream_n_obs=st["stream_n_obs"] + rec.to(_I64),
+                    stream_resp_sum=st["stream_resp_sum"]
+                    + torch.where(rec, resp_val, 0.0),
+                    stream_slow_sum=st["stream_slow_sum"]
+                    + torch.where(rec, slow_v, 0.0))
+            else:
+                counters = dict(resp=st["resp"].index_put(
+                    (rows, torch.where(completed, tid.to(_I64), N)),
+                    torch.where(completed, resp_val, 0.0)))
             w_pad = torch.where(completed, wj, 0)
             f_pad = torch.where(completed, f_j, F)
             life = {}
@@ -568,9 +639,8 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
             task_idx = task_idx.index_put(
                 (rows, wj, sj), torch.where(completed, -1, tid))
             new = dict(st, remaining=remaining, task_idx=task_idx,
-                       warm=warm, now=now, resp=resp,
-                       server_time=server_time, core_time=core_time,
-                       **life)
+                       warm=warm, now=now, server_time=server_time,
+                       core_time=core_time, **counters, **life)
             if tel_on:
                 new.update(_with_tel(tel))
             if tl_on:
@@ -598,9 +668,13 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
             st = pop_all(st, funcs, services, arrivals, stats)
         return st
 
-    def step(st, i, arrivals, funcs, services, u_lb, homes, stats):
+    def step(st, i, arrivals, funcs, services, u_lb, homes, stats,
+             ids=None, g0=0, at=None):
+        """Arrival ``i`` of the inputs; in a stream, ``ids`` are the
+        chunk's global indices (``g0 + i``) and ``at [R]`` is ``i``, where
+        its outputs go."""
         t_i, f_i = arrivals[:, i], funcs[:, i]
-        tid = arrival_ids[i].expand(R)
+        tid = (arrival_ids if ids is None else ids)[i].expand(R)
         if auto_on:
             # provisioned time over [now, t_i] at the current n_on (a
             # decision takes effect at an arrival only)
@@ -668,42 +742,51 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
             st.update(_with_tl(tl))
         if stateful:
             w, lb = select(_lb_of(st), sel_active, warm_col, f_i, homes,
-                           u_lb[:, i], i)
+                           u_lb[:, i], g0 + i)
             st = dict(st, **_with_lb(lb))
         else:
-            w = select(sel_active, warm_col, f_i, homes, u_lb[:, i], i)
-        st = dict(st, rejected=st["rejected"].index_put((rows, tid),
-                                                         w < 0))
+            w = select(sel_active, warm_col, f_i, homes, u_lb[:, i], g0 + i)
+        st = dict(st, rejected=st["rejected"].index_put(
+            (rows, tid if at is None else at), w < 0))
         if tel_on:
             st.update(_with_tel(tel_engine.on_reject(_tel_of(st), w < 0)))
         if tl_on:
             st.update(_with_tl(tl_engine.on_reject(_tl_of(st), t_i, w < 0)))
         placed = place(st, tid, w.clamp(min=0).to(_I64), f_i,
-                       services[:, i], t_i)
+                       services[:, i], t_i, at)
         return _merge(w >= 0, placed, st)
 
-    def run(arrivals, funcs, services, u_lb, homes, stats):
-        """``stats`` counts the loops; the timeline's widths come from
-        ``arrivals``."""
-        def full(shape, value, dtype):
-            return torch.full(shape, value, dtype=dtype, device=device)
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=device)
 
+    def fresh(window_s):
+        """The initial state (the per-arrival planes and the late-binding
+        queue of the monolithic run, the mirrors and counters of a
+        stream); ``window_s [R]``: the timeline's widths."""
         st = {
             "remaining": full((R, W, S), torch.inf, _F64),
             "task_arr": full((R, W, S), 0.0, _F64),
             "task_idx": full((R, W, S), -1, _I32),
             "warm": full((R, W, F + 1), 0, _I32),
-            "q": full((R, Q), 0, _I32),
             "q_head": full((R,), 0, _I32),
             "q_tail": full((R,), 0, _I32),
             "now": full((R,), 0.0, _F64),
-            "resp": full((R, N + 1), torch.nan, _F64),
-            "cold": full((R, N + 1), False, torch.bool),
-            "rejected": full((R, N + 1), False, torch.bool),
-            "worker_of": full((R, N + 1), -1, _I32),
             "server_time": full((R,), 0.0, _F64),
             "core_time": full((R,), 0.0, _F64),
         }
+        if stream:
+            st.update(task_fn=full((R, W, S), 0, _I64),
+                      task_svc=full((R, W, S), 0.0, _F64),
+                      stream_n_done=full((R,), 0, _I64),
+                      stream_n_obs=full((R,), 0, _I64),
+                      stream_resp_sum=full((R,), 0.0, _F64),
+                      stream_slow_sum=full((R,), 0.0, _F64))
+        else:
+            st.update(q=full((R, Q), 0, _I32),
+                      resp=full((R, N + 1), torch.nan, _F64),
+                      cold=full((R, N + 1), False, torch.bool),
+                      rejected=full((R, N + 1), False, torch.bool),
+                      worker_of=full((R, N + 1), -1, _I32))
         if stateful:
             st.update(_with_lb(res.init_state(R, W, F, device)))
         if life_on:
@@ -722,12 +805,12 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
                       fleet_prov_time=full((R,), 0.0, _F64),
                       fleet_snap=full((R, N_BINS), 0, _I64))
         if tl_on:
-            st.update(_with_tl(tl_engine.init_state(
-                R, W, timeline, tl_engine.widths(arrivals, timeline),
-                device)))
-        for i in range(N):
-            st = step(st, i, arrivals, funcs, services, u_lb, homes, stats)
-            stats.arrivals += 1
+            st.update(_with_tl(tl_engine.init_state(R, W, timeline, window_s,
+                                                    device)))
+        return st
+
+    def drain(st, stats, funcs=None, services=None, arrivals=None):
+        """The end-of-horizon drain and the provisioned tails."""
         t_last = st["now"]
         st = advance(st, full((R,), _BIG_TIME, _F64), funcs, services,
                      arrivals, stats)
@@ -739,7 +822,40 @@ def _build_engine(policy: PolicySpec, cluster: ClusterCfg, n_arrivals: int,
             st.update(tl_prov(st, t_last, st["now"]))
         return st
 
-    return run
+    def run(arrivals, funcs, services, u_lb, homes, stats):
+        """``stats`` counts the loops; the timeline's widths come from
+        ``arrivals``."""
+        st = fresh(tl_engine.widths(arrivals, timeline) if tl_on else None)
+        for i in range(N):
+            st = step(st, i, arrivals, funcs, services, u_lb, homes, stats)
+            stats.arrivals += 1
+        return drain(st, stats, funcs, services, arrivals)
+
+    if not stream:
+        return run
+
+    def init(cutoff: int, window_s=None):
+        """The fresh carry: ``cutoff`` the horizon's warmup index,
+        ``window_s [R]`` f64 the timeline's widths (from the horizon)."""
+        st = fresh(window_s)
+        st["stream_cutoff"] = full((R,), int(cutoff), _I64)
+        return st
+
+    def run_chunk(st, g0, arrivals, funcs, services, u_lb, homes, stats):
+        n = arrivals.shape[1]
+        ids = torch.arange(g0, g0 + n, device=device)
+        local = torch.arange(n, device=device)
+        st = dict(st, rejected=full((R, n), False, torch.bool),
+                  cold=full((R, n), False, torch.bool),
+                  worker_of=full((R, n), -1, _I32))
+        for i in range(n):
+            st = step(st, i, arrivals, funcs, services, u_lb, homes, stats,
+                      ids=ids, g0=g0, at=local[i].expand(R))
+            stats.arrivals += 1
+        ys = (st.pop("rejected"), st.pop("cold"), st.pop("worker_of"))
+        return st, ys
+
+    return init, run_chunk, drain
 
 
 def _prov_core_s(st: dict, cluster: ClusterCfg) -> np.ndarray:

@@ -170,6 +170,28 @@
 //     (__dsqrt_rn(__dmul_rn(e[b], e[b + 1]))); under H the pack/spread
 //     mode, which is the Hermes choice's own low-load read (a worker
 //     below n_on with a free core: core_free > 0), where it flipped.
+//
+// The chunk mode (repro/core/streaming.py's chunked scan) is a runtime
+// switch (StreamArgs::chunk) inside the observation plane, which a stream
+// always runs; it branches only at the start, at a completion and at a
+// placement, so the instantiations stay 54.  A launch runs one chunk of a
+// horizon's arrivals, with global indices g0 + i, from the state the last
+// chunk left in the same tensors: nothing is initialised; each worker's
+// count and high-water mark are recounted from its slots (1 + the highest
+// occupied slot: the ones above it are empty, so the scans read the same)
+// and the free counts over the carried n_on; the per-thread scalars (now,
+// the occupancy integrals, iteration counts, TARGET_P99's n_on, cooldown
+// and provisioned time, the log's count and the mode) and the shared
+// counters (cold, warm, evicted, rejected, recorded since the snapshot)
+// are loaded from the tensors the last chunk wrote them to.  After the
+// arrivals the drain runs only when asked for.  No per-arrival plane of
+// the horizon exists: a placement writes the occupant's function and
+// nominal service into slot mirrors (task_fn, task_svc [W, S]) and a
+// completion reads them there (its task may have arrived in an earlier
+// chunk) and adds to the exact counters: completions, and over the
+// completions past the warmup cutoff their count and the sums of their
+// responses and slowdowns, one __dadd_rn each, in completion order.  The
+// cold, rejected and worker planes are the chunk's.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -336,6 +358,22 @@ struct TlArgs {
 };
 enum TlCounter { kTlArrivals = 0, kTlCold = 1, kTlWarm = 2, kTlEvicted = 3,
                  kTlRejected = 4 };
+
+// A stream's chunk mode (chunk = 0: the whole horizon in one launch):
+// the chunk's global offset g0, whether the drain follows its arrivals,
+// the slot mirrors task_fn [R, W, S] i32 and task_svc [R, W, S] f64, the
+// exact counters [R, 3] i64 (completions, recorded completions, and
+// TARGET_P99's count recorded since the snapshot) and sums [R, 2] f64
+// (responses and slowdowns of the recorded completions).
+struct StreamArgs {
+  int chunk;
+  int drain;
+  long long g0;
+  int* task_fn;
+  double* task_svc;
+  long long* counts;
+  double* sums;
+};
 
 // The window of time t: clip(floor(t / w), 0, K - 1), 0 if w <= 0 (the
 // numpy side's math.floor and clip; the clip is made on the double).
@@ -689,9 +727,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     const double* __restrict__ life_costs, double* __restrict__ life_hist,
     double* __restrict__ life_n_obs, int max_idle, double bin_s, double ttl,
     ObsArgs obs, TlArgs tla, int n, int n_functions, int n_workers,
-    int cores, int slots, double penalty) {
+    int cores, int slots, double penalty, StreamArgs sa) {
   constexpr bool obs_on = obs_mode >= 1;
   constexpr bool tl_on = obs_mode == 2;
+  // the chunk mode of a stream (a runtime switch; only under the
+  // observation plane, which a stream always runs)
+  const bool chunked = obs_on && sa.chunk;
   extern __shared__ double shared[];
   __shared__ double red_t[2][32];
   __shared__ int red_j[2][32];
@@ -706,6 +747,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
   __shared__ int on_count;              // TARGET_P99's n_on (else W)
   __shared__ long long rec_since;       // recorded since the snapshot
   __shared__ long long obs_count[4];    // Counter
+  __shared__ long long s_done, s_rec;   // the stream's exact counters
+  __shared__ double s_resp, s_slow;
 
   const int W = n_workers, S = slots, F = n_functions;
   const int r = blockIdx.x;
@@ -722,7 +765,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
   service += static_cast<size_t>(r) * n;
   u_lb += static_cast<size_t>(r) * n;
   home += static_cast<size_t>(r) * F;
-  resp += static_cast<size_t>(r) * n;
+  if (!chunked) resp += static_cast<size_t>(r) * n;   // none in a chunk
   cold += static_cast<size_t>(r) * n;
   rejected += static_cast<size_t>(r) * n;
   worker_of += static_cast<size_t>(r) * n;
@@ -730,6 +773,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
   double* arr_at = task_arr + r * WS;                          // [W, S]
   int* tix = task_idx + r * WS;                                // [W, S]
   int* pools = warm + r * WF;                                  // [W, F]
+  // a chunk's slot mirrors: the occupant's function and nominal service
+  int* tfn = chunked ? sa.task_fn + r * WS : nullptr;          // [W, S]
+  double* tsv = chunked ? sa.task_svc + r * WS : nullptr;      // [W, S]
   double* rate_of = shared;                                    // [S + 1]
   int* n_act = reinterpret_cast<int*>(shared + S + 1);         // [W]
   int* hw = n_act + W;   // [W] 1 + the highest slot ever used
@@ -772,25 +818,48 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
   long long* tl_lat = tl_on ? tla.lat_hist + rk * tla.coarse_bins : nullptr;
   double* tl_busy = tl_on ? tla.busy + rk * W : nullptr;
 
-  for (size_t k = t; k < WS; k += blockDim.x) {
-    rems[k] = INFINITY;
-    arr_at[k] = 0.0;
-    tix[k] = -1;
-  }
-  for (size_t k = t; k < WF; k += blockDim.x) pools[k] = 0;
-  if (life_on) {
-    for (size_t k = t; k < WF; k += blockDim.x) life.idle[k] = -1.0;
+  if (!chunked) {
+    for (size_t k = t; k < WS; k += blockDim.x) {
+      rems[k] = INFINITY;
+      arr_at[k] = 0.0;
+      tix[k] = -1;
+    }
+    for (size_t k = t; k < WF; k += blockDim.x) pools[k] = 0;
+    if (life_on) {
+      for (size_t k = t; k < WF; k += blockDim.x) life.idle[k] = -1.0;
+    }
   }
   const double no_response = __longlong_as_double(0x7ff8000000000000LL);
   for (int k = t; k < n; k += blockDim.x) {
-    resp[k] = no_response;   // NaN, as torch.nan
+    if (!chunked) resp[k] = no_response;   // NaN, as torch.nan
     cold[k] = 0;
     rejected[k] = 0;
     worker_of[k] = -1;
   }
-  for (int w = t; w < W; w += blockDim.x) {
-    n_act[w] = 0;
-    hw[w] = 0;
+  if (chunked) {
+    // resuming: each worker's count and high-water mark from its slots
+    // (1 + the highest occupied one: the slots above are empty, so a scan
+    // that skips them reads the same)
+    for (int w = warp; w < W; w += n_warps) {
+      int count = 0, high = 0;
+      for (int s = lane; s < S; s += 32) {
+        if (tix[static_cast<size_t>(w) * S + s] >= 0) {
+          count += 1;
+          high = s + 1;
+        }
+      }
+      count = __reduce_add_sync(kFull, count);
+      high = __reduce_max_sync(kFull, high);
+      if (lane == 0) {
+        n_act[w] = count;
+        hw[w] = high;
+      }
+    }
+  } else {
+    for (int w = t; w < W; w += blockDim.x) {
+      n_act[w] = 0;
+      hw[w] = 0;
+    }
   }
   // PS: each of n active tasks runs at min(1, C / max(n, 1))
   for (int k = t; k <= S; k += blockDim.x) {
@@ -798,13 +867,40 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
                         static_cast<double>(k > 1 ? k : 1);
     rate_of[k] = rate < 1.0 ? rate : 1.0;
   }
+  if (chunked) {
+    // the free counts of the workers below the carried n_on
+    __syncthreads();
+    if (warp == 0) {
+      const int n_on0 = obs.auto_on ? obs.n_on[r] : W;
+      int cf = 0, sf = 0;
+      for (int w = lane; w < n_on0; w += 32) {
+        cf += n_act[w] < cores;
+        sf += n_act[w] < S;
+      }
+      cf = warp_sum(cf);
+      sf = warp_sum(sf);
+      if (lane == 0) {
+        core_free = cf;
+        slot_free = sf;
+        on_count = n_on0;
+        rec_since = sa.counts[r * 3 + 2];
+        for (int k = 0; k < 4; ++k) obs_count[k] = obs.counters[r * 4 + k];
+        s_done = sa.counts[r * 3];
+        s_rec = sa.counts[r * 3 + 1];
+        s_resp = sa.sums[r * 2];
+        s_slow = sa.sums[r * 2 + 1];
+      }
+    }
+  }
   if (t == 0) {
-    core_free = W;
-    slot_free = W;
-    if (obs_on) {
-      on_count = W;
-      rec_since = 0;
-      for (int k = 0; k < 4; ++k) obs_count[k] = 0;
+    if (!chunked) {
+      core_free = W;
+      slot_free = W;
+      if (obs_on) {
+        on_count = W;
+        rec_since = 0;
+        for (int k = 0; k < 4; ++k) obs_count[k] = 0;
+      }
     }
     if (balancer == kHiku) {
       ring_head = lb_head[r];
@@ -834,13 +930,35 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
   // TARGET_P99's scalars, the same in every thread
   int n_on = W;
   double cool_until = 0.0, prov_time = 0.0, t_last = 0.0;
+  if (chunked) {
+    // the scalars the last chunk left
+    now = now_out[r];
+    server_time = server_time_out[r];
+    core_time = core_time_out[r];
+    iters = iters_out[r];
+    active_sum = active_out[r];
+    busy_iters = obs.busy_iters[r];
+    if (obs.auto_on) {
+      n_on = obs.n_on[r];
+      cool_until = obs.cool_until[r];
+      prov_time = obs.prov_time[r];
+    }
+    if (tl_on) {
+      ev_count = tla.ev_count[r];
+      tl_mode = tla.mode[r];
+    }
+  }
+  // a chunk's arrivals have global indices g0 + i; the drain only where
+  // asked for
+  const long long g0 = chunked ? sa.g0 : 0;
+  const int i_end = chunked && !sa.drain ? n - 1 : n;
   // arrival i's inputs, loaded one arrival ahead
   double t_i = n > 0 ? arrival[0] : 0.0;
   int f_i = n > 0 ? func[0] : 0;
   double svc_i = n > 0 ? service[0] : 0.0;
   double u_i = n > 0 ? u_lb[0] : 0.0;
 
-  for (int i = 0; i <= n; ++i) {
+  for (int i = 0; i <= i_end; ++i) {
     // -- advance to arrival i (after the last one: drain) ---------------
     double dt_left = i < n ? __dsub_rn(t_i, now) : kBigTime;
     if (obs_on && (obs.auto_on || tl_on)) {
@@ -957,12 +1075,24 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
           done = tid >= 0 && (tmin <= dt_left || rems[j] <= kEps);
           if (done) {
             response = __dsub_rn(now_next, arr_at[j]);
-            resp[tid] = response;
-            const int f = func[tid];
+            if (!chunked) resp[tid] = response;
+            // a chunk reads the slot's mirrors: the task may have arrived
+            // in an earlier chunk
+            const int f = chunked ? tfn[j] : func[tid];
             if (obs_on && (tl_on || (tel_work && tid >= obs.cutoff))) {
-              const double sv = service[tid];
+              const double sv = chunked ? tsv[j] : service[tid];
               slow = __ddiv_rn(response, sv > 1e-12 ? sv : 1e-12);
               record = tel_work && tid >= obs.cutoff;
+            }
+            if (chunked) {
+              // the exact counters, one addition per completion in
+              // completion order (a chunk's telemetry is always on)
+              s_done += 1;
+              if (record) {
+                s_rec += 1;
+                s_resp = __dadd_rn(s_resp, response);
+                s_slow = __dadd_rn(s_slow, slow);
+              }
             }
             const size_t at = static_cast<size_t>(wj) * F + f;
             if (life_on) {
@@ -982,9 +1112,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
               core_free += nw == cores;
               slot_free += nw == S;
             }
-            on_complete(balancer, lb, &ring_tail, W, wj, func[tid],
-                        obs_on ? __ddiv_rn(service[tid], obs.speed[wj])
-                               : service[tid],
+            const double svc_done = chunked ? tsv[j] : service[tid];
+            on_complete(balancer, lb, &ring_tail, W, wj, f,
+                        obs_on ? __ddiv_rn(svc_done, obs.speed[wj])
+                               : svc_done,
                         nw - 1);
           }
         }
@@ -1120,7 +1251,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     }
     const int w_sel = choose<life_on, obs_on>(
         balancer, n_act, pools, W, F, f, cores, S, core_free, slot_free,
-        balancer == kLocality ? home[f] : balancer == kRoundRobin ? i % W : 0,
+        balancer == kLocality     ? home[f]
+        : balancer == kRoundRobin ? static_cast<int>((g0 + i) % W)
+                                  : 0,
         u_i, lb, ring_head, ring_tail, life, now, n_on, lane);
     if (i + 1 < n) {
       t_i = arrival[i + 1];
@@ -1198,7 +1331,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
         const size_t at = static_cast<size_t>(w) * S + slot;
         rems[at] = __dadd_rn(svc, is_cold ? cost : 0.0);
         arr_at[at] = now;
-        tix[at] = i;
+        tix[at] = static_cast<int>(g0 + i);
+        if (chunked) {
+          tfn[at] = f;
+          tsv[at] = svc;
+        }
         cold[i] = is_cold;
         worker_of[i] = w;
         n_act[w] = active_w + 1;
@@ -1216,6 +1353,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     }
     // the next scan's barrier publishes the placement to the other warps
   }
+  // a chunk that ends on a placement: its counts reach thread 0
+  if (chunked) __syncthreads();
 
   if (t == 0) {
     server_time_out[r] = server_time;
@@ -1239,6 +1378,13 @@ __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     if (tl_on) {
       tla.ev_count[r] = ev_count;
       tla.mode[r] = tl_mode;
+    }
+    if (chunked) {
+      sa.counts[r * 3] = s_done;
+      sa.counts[r * 3 + 1] = s_rec;
+      sa.counts[r * 3 + 2] = obs.auto_on ? rec_since : 0;
+      sa.sums[r * 2] = s_resp;
+      sa.sums[r * 2 + 1] = s_slow;
     }
   }
 }
@@ -1276,8 +1422,13 @@ size_t shared_bytes(int n_workers, int slots) {
 // TlArgs, its tensors zeroed by the caller, ev_p99 at NaN, mode at 1):
 // window_s, counts, slow_hist, lat_hist, busy, prov, n_on, ev_t, ev_kind,
 // ev_val, ev_p99, ev_count, mode, K, B, E, and whether telemetry was asked
-// for.  Launches one block per replication on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// for.  The chunk mode (on when `chunk` != 0, which needs `obs`, and under
+// a timeline telemetry; see StreamArgs): `resp` is unused and the state,
+// the scalar outputs, the balancer, life, observation and timeline state
+// are the carry, read and written in place; `drain` (must be 1 without
+// `chunk`), g0, task_fn, task_svc, stream_counts, stream_sums.  Launches
+// one block per replication on `stream` and returns cudaGetLastError()
+// (0 = launched).
 extern "C" int sim_engine_launch(
     const double* arrival, const int* func, const double* service,
     const double* u_lb, const int* home, double* remaining, double* task_arr,
@@ -1300,7 +1451,9 @@ extern "C" int sim_engine_launch(
     int* tl_ev_val, double* tl_ev_p99, long long* tl_ev_count, int* tl_mode,
     int tl, int n_windows, int coarse_bins, int max_events, int tel_on,
     int n_reps, int n, int n_functions, int n_workers, int cores, int slots,
-    int balancer, double penalty, void* stream) {
+    int balancer, double penalty, void* stream, int chunk, int drain,
+    long long g0, int* task_fn, double* task_svc, long long* stream_counts,
+    double* stream_sums) {
   const bool state_given =
       balancer == kHiku
           ? lb_ring && lb_in_ring && lb_head && lb_tail
@@ -1321,10 +1474,14 @@ extern "C" int sim_engine_launch(
               tl_ev_kind && tl_ev_val && tl_ev_p99 && tl_ev_count &&
               tl_mode && n_windows >= 1 && max_events >= 1 &&
               coarse_bins >= 1 && kBins % coarse_bins == 0);
+  const bool chunk_given =
+      !chunk || (obs && (!tl || tel_on) && task_fn && task_svc &&
+                 stream_counts && stream_sums && g0 >= 0);
   if (n_reps < 1 || n < 0 || n_functions < 1 || n_workers < 1 ||
       n_workers > kMaxWorkers || cores < 1 || slots < 1 ||
       slots > kMaxSlots || balancer < 0 || balancer > kSwarm ||
-      !state_given || !life_given || !obs_given || !tl_given) {
+      !state_given || !life_given || !obs_given || !tl_given ||
+      !chunk_given || (!chunk && !drain)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   using Kernel = decltype(&sim_engine_kernel<kHermes, false, 0>);
@@ -1356,6 +1513,9 @@ extern "C" int sim_engine_launch(
                        tl_ev_kind,  tl_ev_val,  tl_ev_p99,    tl_ev_count,
                        tl_mode,     n_windows,  coarse_bins,  max_events,
                        tl ? kBins / coarse_bins : 1,          tel_on};
+  const StreamArgs stream_args{chunk,    drain,         g0,
+                               task_fn,  task_svc,      stream_counts,
+                               stream_sums};
   // one warp per worker, up to kMaxThreads
   const int threads =
       n_workers < kMaxThreads / 32 ? 32 * n_workers : kMaxThreads;
@@ -1370,6 +1530,6 @@ extern "C" int sim_engine_launch(
       active, lb_ring, lb_in_ring, lb_head, lb_tail, lb_est, lb_per_worker,
       lb_cnt, life_idle, life_pre, life_keep, life_costs, life_hist,
       life_n_obs, max_idle, bin_s, ttl, obs_args, tl_args, n, n_functions,
-      n_workers, cores, slots, penalty);
+      n_workers, cores, slots, penalty, stream_args);
   return static_cast<int>(cudaGetLastError());
 }

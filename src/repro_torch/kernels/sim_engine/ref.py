@@ -376,49 +376,63 @@ def tl_planes(states: list, device) -> dict:
             for k in states[0]}
 
 
-def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
-                   telemetry=None, timeline=None):
-    """Early binding with PS under the balancer ``balance`` (a name of
-    :data:`BALANCER_CODES`), with ``telemetry`` (a ``TelemetryCfg``) or
-    None and ``timeline`` (a ``TimelineCfg``) or None.  arrival, service,
-    u_lb ``[R, N]`` f64; func ``[R, N]`` i32; home ``[R, F]`` i32 → dict of ``resp [R, N]``
-    f64 (NaN until completed), ``cold``/``rejected [R, N]`` bool,
-    ``worker_of [R, N]`` i32, ``server_time``/``core_time``/``now [R]``
-    f64, ``iters [R]`` i64 (advance iterations per replication),
-    ``active [R]`` i64 (the active tasks summed over those iterations:
-    the slots a scan reads), for a carried-state balancer its final
-    state as ``lb_<key>`` (``[R, …]``, the keys of its ``init_state``),
-    under a lifecycle the final life state as ``life_<key>`` (see
-    :class:`LifePlane`), with telemetry ``tel_<key>`` and under an
-    autoscaler ``fleet_<key>`` (see :class:`ObsPlane`), with a timeline
-    ``tl_<key>``."""
-    balance = balancer_name(balance)
-    W, C, S = int(cluster.n_workers), int(cluster.cores), int(cluster.slots)
-    R, N = arrival.shape
-    F = home.shape[1]
-    dev = arrival.device
-    out = dict(
-        resp=torch.full((R, N), torch.nan, dtype=_F64, device=dev),
-        cold=torch.zeros((R, N), dtype=torch.bool, device=dev),
-        rejected=torch.zeros((R, N), dtype=torch.bool, device=dev),
-        worker_of=torch.full((R, N), -1, dtype=_I32, device=dev),
-        server_time=torch.zeros(R, dtype=_F64, device=dev),
-        core_time=torch.zeros(R, dtype=_F64, device=dev),
-        now=torch.zeros(R, dtype=_F64, device=dev),
-        iters=torch.zeros(R, dtype=_I64, device=dev),
-        active=torch.zeros(R, dtype=_I64, device=dev))
+def _fresh(balance, R, W, S, F, dev, life, obs, timeline, window_s,
+           chunk: bool) -> dict:
+    """The initial state of both modes, ``[R, …]`` tensors: the slot
+    matrices, the warm pools ``[R, W, F]``, the clocks, the iteration
+    counts, a carried-state balancer's ``lb_*``, the life plane's
+    ``life_*``, the observation plane's whole state (``tel_*``,
+    ``busy_iters``, ``fleet_*``) and the timeline's ``tl_*`` (widths
+    ``window_s``); in chunk mode the slot mirrors ``task_fn``/``task_svc``
+    and the counters ``stream_*``."""
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    st = dict(remaining=full((R, W, S), torch.inf, _F64),
+              task_arr=full((R, W, S), 0.0, _F64),
+              task_idx=full((R, W, S), -1, _I32),
+              warm=full((R, W, F), 0, _I32),
+              server_time=full((R,), 0.0, _F64),
+              core_time=full((R,), 0.0, _F64),
+              now=full((R,), 0.0, _F64),
+              iters=full((R,), 0, _I64),
+              active=full((R,), 0, _I64))
+    if chunk:
+        st.update(task_fn=full((R, W, S), 0, _I32),
+                  task_svc=full((R, W, S), 0.0, _F64),
+                  stream_n_done=full((R,), 0, _I64),
+                  stream_n_obs=full((R,), 0, _I64),
+                  stream_rec_since=full((R,), 0, _I64),
+                  stream_resp_sum=full((R,), 0.0, _F64),
+                  stream_slow_sum=full((R,), 0.0, _F64))
     lb = INIT_STATE[balance](R, W, F, dev) if balance in INIT_STATE else {}
-    out.update({f"lb_{k}": v for k, v in lb.items()})
-    life = life_plane(cluster, R, W, F, dev)
+    st.update({f"lb_{k}": v for k, v in lb.items()})
     if life is not None:
-        out.update(life.state)
-    obs = obs_plane(cluster, telemetry, R, N, W, dev, timeline)
-    if timeline is not None:
-        tln.validate_timeline(timeline)
-        ws = widths(arrival, timeline)
-        tls = []
+        st.update({k: v.clone() for k, v in life.state.items()})
     if obs is not None:
-        ob = obs.state                   # views: in place, by row
+        st.update({k: v.clone() for k, v in obs.state.items()})
+    if timeline is not None:
+        st.update(tl_planes([tln.init_tl_np(W, timeline, float(w))
+                             for w in window_s], dev))
+    return st
+
+
+def _run(balance, cluster, st, life, obs, timeline, arrival, func, service,
+         u_lb, home, g0: int, drain: bool, out: dict, cutoff: int) -> None:
+    """Arrivals ``g0, g0 + 1, …`` (the ``[R, n]`` inputs) from the state
+    ``st`` (updated in place), then the drain if ``drain``.  Their outputs
+    go to ``out``'s ``[R, n]`` planes ``cold``, ``rejected`` and
+    ``worker_of``, and each response to ``out["resp"]`` when ``out`` has
+    it (the monolithic run).  In chunk mode (``st`` has the slot mirrors)
+    a completion reads its function and service from the mirrors and adds
+    to the counters.  ``cutoff``: the warmup index of the sketches and the
+    counters."""
+    chunk = "task_fn" in st
+    W, C, S = int(cluster.n_workers), int(cluster.cores), int(cluster.slots)
+    R, n = arrival.shape
+    dev = st["now"].device
+    if obs is not None:
+        ob = st                          # the observation state, in place
         ids = torch.arange(W, device=dev)
         if obs.auto:
             # TARGET_P99's numpy decide: the kernel's warp takes the same
@@ -430,44 +444,52 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
                        device=dev)
     no_pen = torch.zeros((), dtype=_F64, device=dev)
     for r in range(R):
-        remaining = torch.full((W, S), torch.inf, dtype=_F64, device=dev)
-        task_arr = torch.zeros((W, S), dtype=_F64, device=dev)
-        task_idx = torch.full((W, S), -1, dtype=_I32, device=dev)
-        warm = torch.zeros((W, F), dtype=_I32, device=dev)
-        resp = out["resp"][r]
-        now = torch.zeros((), dtype=_F64, device=dev)
-        server_time = torch.zeros((), dtype=_F64, device=dev)
-        core_time = torch.zeros((), dtype=_F64, device=dev)
-        iters = active_sum = 0
-        state = {k: v[r] for k, v in lb.items()}     # views: in place
+        remaining = st["remaining"][r].clone()
+        task_arr, task_idx = st["task_arr"][r], st["task_idx"][r]
+        warm = st["warm"][r]                          # views: in place
+        if chunk:
+            task_fn, task_svc = st["task_fn"][r], st["task_svc"][r]
+            n_done = int(st["stream_n_done"][r])
+            n_rec = int(st["stream_n_obs"][r])
+            resp_sum = st["stream_resp_sum"][r].clone()
+            slow_sum = st["stream_slow_sum"][r].clone()
+        else:
+            resp = out["resp"][r]
+        now = st["now"][r].clone()
+        server_time = st["server_time"][r].clone()
+        core_time = st["core_time"][r].clone()
+        iters, active_sum = int(st["iters"][r]), int(st["active"][r])
+        state = {k[3:]: v[r] for k, v in st.items()
+                 if k.startswith("lb_")}              # views: in place
         if life is not None:                          # views: in place
-            idle = out["life_idle_since"][r]
-            pre, keep = out["life_pre"][r], out["life_keep"][r]
+            idle = st["life_idle_since"][r]
+            pre, keep = st["life_pre"][r], st["life_keep"][r]
             if life.hybrid:
-                hist, n_obs = out["life_hist"][r], out["life_n_obs"][r]
+                hist, n_obs = st["life_hist"][r], st["life_n_obs"][r]
         if obs is not None:
-            n_on = W
-            cool_until = prov = torch.zeros((), dtype=_F64, device=dev)
+            n_on = int(ob["fleet_n_on"][r]) if obs.auto else W
+            cool_until = ob["fleet_cool_until"][r].clone()
+            prov = ob["fleet_prov_time"][r].clone()
         tl = None
         if timeline is not None:
-            tl = tln.init_tl_np(W, timeline, float(ws[r]))
-            tls.append(tl)
-        for i in range(N + 1):
-            dt_left = arrival[r, i] - now if i < N else \
+            tl = {k[3:]: v[r].cpu().numpy().copy() for k, v in st.items()
+                  if k.startswith("tl_")}
+        for i in range(n + 1 if drain else n):
+            dt_left = arrival[r, i] - now if i < n else \
                 torch.tensor(_BIG_TIME, dtype=_F64, device=dev)
             if tl is not None:
                 # provisioned core-seconds over the gap, in its start's
                 # window (the drain's tail after the loop)
                 t_gap = float(now)
                 n_prov = float(n_on) if obs.auto else float(W)
-                if i < N:
+                if i < n:
                     tln.tl_on_prov_np(tl, t_gap, (float(arrival[r, i])
                                                   - t_gap) * n_prov * C)
             if obs is not None and obs.auto:
                 # provisioned time over the gap (to the drain's end after
                 # the last arrival: t_last is now)
                 t_last = now
-                if i < N:
+                if i < n:
                     prov = prov + (arrival[r, i] - now) * float(n_on)
             while True:
                 active = task_idx >= 0
@@ -504,18 +526,28 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
                     tid >= 0 and bool(remaining[wj, sj] <= EPS))
                 remaining = remaining - rates * tau
                 if completed and tid >= 0:
-                    resp[tid] = now - task_arr[wj, sj]
-                    f = int(func[r, tid])
-                    if obs is not None and tid >= obs.cutoff:
-                        slow = resp[tid] / torch.clamp(service[r, tid],
-                                                       min=1e-12)
+                    response = now - task_arr[wj, sj]
+                    if chunk:
+                        f, svc_nom = int(task_fn[wj, sj]), task_svc[wj, sj].clone()
+                    else:
+                        resp[tid] = response
+                        f, svc_nom = int(func[r, tid]), service[r, tid]
+                    slow = response / torch.clamp(svc_nom, min=1e-12)
+                    if obs is not None and tid >= cutoff:
                         for hist_key, x in (("tel_slow_hist", slow),
-                                            ("tel_lat_hist", resp[tid])):
+                                            ("tel_lat_hist", response)):
                             b = int(bin_index(x.reshape(1), obs.edges))
                             ob[hist_key][r, b] += 1
+                    if chunk:
+                        # the exact counters, in completion order
+                        n_done += 1
+                        if tid >= cutoff:
+                            n_rec += 1
+                            resp_sum = resp_sum + response
+                            slow_sum = slow_sum + slow
                     if tl is not None:
-                        tln.tl_on_complete_np(tl, float(now), float(resp[tid]),
-                                              float(service[r, tid]))
+                        tln.tl_on_complete_np(tl, float(now), float(response),
+                                              float(svc_nom))
                     if life is not None:
                         # a stale pool restarts from 0; the budget evicts
                         # the worker's LRU materialized pool
@@ -538,12 +570,11 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
                         warm[wj, f] += 1
                     remaining[wj, sj] = torch.inf
                     task_idx[wj, sj] = -1
-                    svc = service[r, tid] if obs is None else \
-                        service[r, tid] / obs.speed[wj]
-                    _on_complete(balance, state, wj, int(func[r, tid]),
-                                 float(svc), int((task_idx[wj] >= 0).sum()))
+                    svc = svc_nom if obs is None else svc_nom / obs.speed[wj]
+                    _on_complete(balance, state, wj, f, float(svc),
+                                 int((task_idx[wj] >= 0).sum()))
                 dt_left = dt_left - tau
-            if i == N:
+            if i == n:
                 if obs is not None and obs.auto:
                     prov = prov + (now - t_last) * float(n_on)
                 if tl is not None:
@@ -582,7 +613,7 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
                                         float("nan"))
                     tl["mode"] = np.int32(mode)
             w = _choose(balance, state, active, warm_col, home[r, f],
-                        u_lb[r, i], i, C, S)
+                        u_lb[r, i], g0 + i, C, S)
             _commit(balance, state, w, f)
             out["rejected"][r, i] = w < 0
             if w < 0:
@@ -625,20 +656,167 @@ def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
             slot = int((row < 0).to(_I32).argmax())
             remaining[w, slot] = service[r, i] + (cost if is_cold else no_pen)
             task_arr[w, slot] = now
-            task_idx[w, slot] = i
+            task_idx[w, slot] = g0 + i
+            if chunk:
+                task_fn[w, slot] = f
+                task_svc[w, slot] = service[r, i]
             out["cold"][r, i] = is_cold
             out["worker_of"][r, i] = w
-        out["server_time"][r] = server_time
-        out["core_time"][r] = core_time
-        out["now"][r] = now
-        out["iters"][r] = iters
-        out["active"][r] = active_sum
+        st["remaining"][r] = remaining
+        st["server_time"][r] = server_time
+        st["core_time"][r] = core_time
+        st["now"][r] = now
+        st["iters"][r] = iters
+        st["active"][r] = active_sum
+        if chunk:
+            st["stream_n_done"][r] = n_done
+            st["stream_n_obs"][r] = n_rec
+            st["stream_resp_sum"][r] = resp_sum
+            st["stream_slow_sum"][r] = slow_sum
+            if obs is not None and obs.auto:
+                # the kernel's O(1) gate: recorded since the snapshot
+                st["stream_rec_since"][r] = \
+                    ob["tel_slow_hist"][r].sum() - ob["fleet_snap"][r].sum()
         if obs is not None:
             ob["fleet_n_on"][r] = n_on
             ob["fleet_cool_until"][r] = cool_until
             ob["fleet_prov_time"][r] = prov
-    if obs is not None:
-        out.update(obs.returned())
+        if tl is not None:
+            for k, v in tl.items():
+                st[f"tl_{k}"][r] = torch.as_tensor(np.asarray(v))
+
+
+def sim_engine_ref(balance, cluster, arrival, func, service, u_lb, home,
+                   telemetry=None, timeline=None, keep_state=False):
+    """Early binding with PS under the balancer ``balance`` (a name of
+    :data:`BALANCER_CODES`), with ``telemetry`` (a ``TelemetryCfg``) or
+    None and ``timeline`` (a ``TimelineCfg``) or None.  arrival, service,
+    u_lb ``[R, N]`` f64; func ``[R, N]`` i32; home ``[R, F]`` i32 → dict of ``resp [R, N]``
+    f64 (NaN until completed), ``cold``/``rejected [R, N]`` bool,
+    ``worker_of [R, N]`` i32, ``server_time``/``core_time``/``now [R]``
+    f64, ``iters [R]`` i64 (advance iterations per replication),
+    ``active [R]`` i64 (the active tasks summed over those iterations:
+    the slots a scan reads), for a carried-state balancer its final
+    state as ``lb_<key>`` (``[R, …]``, the keys of its ``init_state``),
+    under a lifecycle the final life state as ``life_<key>`` (see
+    :class:`LifePlane`), with telemetry ``tel_<key>`` and under an
+    autoscaler ``fleet_<key>`` (see :class:`ObsPlane`), with a timeline
+    ``tl_<key>``; with ``keep_state`` also the final slot matrices
+    ``remaining``/``task_arr [R, W, S]`` f64, ``task_idx [R, W, S]`` i32
+    and the warm pools ``warm [R, W, F]`` i32."""
+    balance = balancer_name(balance)
+    W, S = int(cluster.n_workers), int(cluster.slots)
+    R, N = arrival.shape
+    F = home.shape[1]
+    dev = arrival.device
+    life = life_plane(cluster, R, W, F, dev)
+    obs = obs_plane(cluster, telemetry, R, N, W, dev, timeline)
+    ws = None
     if timeline is not None:
-        out.update(tl_planes(tls, dev))
+        tln.validate_timeline(timeline)
+        ws = widths(arrival, timeline)
+    st = _fresh(balance, R, W, S, F, dev, life, obs, timeline, ws,
+                chunk=False)
+    out = dict(
+        resp=torch.full((R, N), torch.nan, dtype=_F64, device=dev),
+        cold=torch.zeros((R, N), dtype=torch.bool, device=dev),
+        rejected=torch.zeros((R, N), dtype=torch.bool, device=dev),
+        worker_of=torch.full((R, N), -1, dtype=_I32, device=dev))
+    _run(balance, cluster, st, life, obs, timeline, arrival, func, service,
+         u_lb, home, 0, True, out, N if obs is None else obs.cutoff)
+    keys = ["server_time", "core_time", "now", "iters", "active"]
+    keys += [k for k in st if k.startswith(("lb_", "life_"))]
+    if obs is not None:
+        keys += [k for k in obs.returned()]
+    if timeline is not None:
+        keys += [k for k in st if k.startswith("tl_")]
+    if keep_state:
+        keys += ["remaining", "task_arr", "task_idx", "warm"]
+    out.update({k: st[k] for k in keys})
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkPlan:
+    """What every chunk of a stream shares, made once: the balancer, the
+    cluster, ``R``, ``F``, the device, the telemetry and timeline configs
+    and the life and observation planes' constants (their ``state`` is the
+    fresh carry's)."""
+
+    balance: str
+    cluster: object
+    n_reps: int
+    n_functions: int
+    device: torch.device
+    telemetry: object
+    timeline: object
+    life: Optional[LifePlane]
+    obs: ObsPlane
+
+
+def chunk_plan(balance, cluster, R: int, F: int, device, telemetry,
+               timeline=None) -> ChunkPlan:
+    """The plan of a stream of ``R`` replications of ``F`` functions on
+    ``device``.  A stream reads its percentiles from the sketches, so the
+    observation plane is always on: ``telemetry`` is required."""
+    if telemetry is None:
+        raise ValueError("sim_engine's chunk mode reads its percentiles "
+                         "from the sketches: pass telemetry=TelemetryCfg()")
+    if timeline is not None:
+        tln.validate_timeline(timeline)
+    W = int(cluster.n_workers)
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return ChunkPlan(
+        balance=balancer_name(balance), cluster=cluster, n_reps=int(R),
+        n_functions=int(F), device=dev, telemetry=telemetry,
+        timeline=timeline, life=life_plane(cluster, R, W, F, dev),
+        obs=obs_plane(cluster, telemetry, R, 0, W, dev, timeline))
+
+
+def chunk_init(plan: ChunkPlan, window_s=None) -> dict:
+    """The fresh carry of a stream: the state of :func:`_fresh` in chunk
+    mode, without ``fleet_*`` unless ``TARGET_P99`` runs; ``window_s
+    [R]`` (host numbers) are the timeline's widths from the horizon."""
+    cl = plan.cluster
+    if plan.timeline is not None and window_s is None:
+        raise ValueError("a stream with a timeline needs its widths")
+    ws = None if window_s is None else np.asarray(
+        window_s.cpu() if torch.is_tensor(window_s) else window_s,
+        dtype=np.float64)
+    st = _fresh(plan.balance, plan.n_reps, int(cl.n_workers),
+                int(cl.slots), plan.n_functions, plan.device, plan.life,
+                plan.obs, plan.timeline, ws, chunk=True)
+    if not plan.obs.auto:
+        st = {k: v for k, v in st.items() if not k.startswith("fleet_")}
+    return st
+
+
+def sim_engine_chunk_ref(plan: ChunkPlan, carry, arrival, func, service,
+                         u_lb, home, g0: int, drain: bool, cutoff: int,
+                         window_s=None):
+    """One chunk of a stream: the arrivals ``g0, g0 + 1, …`` (``[R, n]``
+    inputs as :func:`sim_engine_ref`'s, any ``n >= 0``) from ``carry``
+    (None: a fresh start, the timeline's widths from ``window_s``), then
+    the drain if ``drain``.  ``cutoff`` is the horizon's warmup index.
+    Returns the new carry (``carry`` is not changed) and the chunk's
+    ``rejected``/``cold [R, n]`` bool and ``worker_of [R, n]`` i32."""
+    st = chunk_init(plan, window_s) if carry is None else \
+        {k: v.clone() for k, v in carry.items()}
+    R, n = plan.n_reps, arrival.shape[1]
+    dev = plan.device
+    out = dict(rejected=torch.zeros((R, n), dtype=torch.bool, device=dev),
+               cold=torch.zeros((R, n), dtype=torch.bool, device=dev),
+               worker_of=torch.full((R, n), -1, dtype=_I32, device=dev))
+    obs = plan.obs
+    if not obs.auto:
+        # the plane's fleet entries, unused without TARGET_P99
+        st.update({k: v.clone() for k, v in obs.state.items()
+                   if k.startswith("fleet_")})
+    _run(plan.balance, plan.cluster, st, plan.life, obs, plan.timeline,
+         arrival, func, service, u_lb, home, int(g0), bool(drain), out,
+         int(cutoff))
+    if not obs.auto:
+        st = {k: v for k, v in st.items() if not k.startswith("fleet_")}
+    return st, out

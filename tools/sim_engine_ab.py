@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device times and outputs of the fused engine's runs in
-``chip_smoke.py``'s phases 4, 12, 13, 14 and 15, for comparing two trees
-of the port on one card.
+``chip_smoke.py``'s phases 4, 12, 13, 14, 15 and 16, for comparing two
+trees of the port on one card.
 
     python3 tools/sim_engine_ab.py --src PATH/src --out times.json
     python3 tools/sim_engine_ab.py --compare A.json B.json B2.json A2.json
@@ -18,8 +18,11 @@ and balancer lanes and fig7's keep-alive axis, N = 15 000, R = 5, under
 the lifecycle), none of these with telemetry or a fleet, and phase 15
 under the observation plane (bench_telemetry's sketch lane at load 0.6
 for the nine policies, 8 × 8 cores, N = 60 000, R = 5, with telemetry;
-fig13's balancer and frontier lanes, N = 6000), each timed three times
-after a warm-up launch.  It writes ``{run: [ms, digest]}`` as JSON: the
+fig13's balancer and frontier lanes, N = 6000) and phase 16 under the
+timeline (fig15's three early-binding parity stacks, its diurnal and
+decision lanes, and fig4's E/H/PS inputs with telemetry, and with
+telemetry and a timeline), each timed three times after a warm-up
+launch.  It writes ``{run: [ms, digest]}`` as JSON: the
 median of the three times, and a SHA-256 of every output tensor of the
 launch (the same in all three, or it stops).  The second form reads the
 JSON of runs made in turns in one call (old, new, new, old) and prints,
@@ -44,8 +47,8 @@ AZURE = ("azure-diurnal", "azure-bursty", "azure-cold-heavy",
 
 
 def _runs():
-    """(phase, key, policy, cluster, workload batch, telemetry), in phase
-    order."""
+    """(phase, key, policy, cluster, workload batch, telemetry[, timeline]),
+    in phase order."""
     from repro_torch.core import (E_DD_PS, E_HIKU_PS, E_JSQ2_PS, E_LL_PS,
                                   E_LOC_PS, E_RR_PS, E_SWARM_PS, HERMES,
                                   PAPER_LARGE, PAPER_SMALL, PAPER_TESTBED,
@@ -85,6 +88,42 @@ def _runs():
         yield "13", f"fig4 {p.name}", p, PAPER_LARGE, fig4, None
     yield from _keepalive_runs(fused)
     yield from _observation_runs(fig11)
+    yield from _timeline_runs(fig4)
+
+
+def _timeline_runs(fig4):
+    """Phase 16's fused runs (fig15_timeline.py's parity, diurnal and
+    decision lanes; the plane's cost on fig4's E/H/PS inputs)."""
+    from repro_torch.core import (E_LL_PS, HERMES, PAPER_LARGE,
+                                  PAPER_TESTBED, WORKLOADS, ClusterCfg,
+                                  FleetCfg, stack_workloads, synth_workload)
+    from repro_torch.telemetry import TelemetryCfg, TimelineCfg
+    tel = TelemetryCfg()
+    par = ClusterCfg(n_workers=4, cores=3, capacity_factor=2)
+    par_tl = TimelineCfg(n_windows=32, coarse_bins=96, max_events=128)
+    auto = par._replace(fleet=FleetCfg(
+        preset="two-gen", autoscale="TARGET_P99", min_workers=2,
+        target_p99=4.0, cooldown_s=2.0))
+    for key, p, cl in (("E/LL/PS", E_LL_PS, par),
+                       ("E/H/PS|mode-flips", HERMES, par),
+                       ("E/LL/PS|fleet|auto", E_LL_PS, auto)):
+        wb = stack_workloads(synth_workload(cl, load, 240, n_functions=5,
+                                            seed=seed)
+                             for load, seed in ((0.6, 0), (1.0, 1)))
+        yield "16", f"fig15 parity {key}", p, cl, wb, tel, par_tl
+    make = WORKLOADS["azure-diurnal"]
+    yield "16", "fig15 diurnal E/LL/PS", E_LL_PS, PAPER_TESTBED, \
+        stack_workloads([make(PAPER_TESTBED, 0.5, 4_000, seed=3)]), None, \
+        TimelineCfg()
+    dec = PAPER_TESTBED._replace(fleet=FleetCfg(
+        preset="two-gen", autoscale="TARGET_P99", target_p99=3.0,
+        min_workers=2, cooldown_s=2.0))
+    yield "16", "fig15 decision HERMES", HERMES, dec, \
+        stack_workloads([make(PAPER_TESTBED, 0.85, 6_000, seed=1)]), tel, \
+        TimelineCfg(max_events=512)
+    yield "16", "fig4 E/H/PS telemetry", HERMES, PAPER_LARGE, fig4, tel, None
+    yield "16", "fig4 E/H/PS telemetry+timeline", HERMES, PAPER_LARGE, \
+        fig4, tel, TimelineCfg()
 
 
 def _observation_runs(policies):
@@ -177,19 +216,21 @@ def measure(src: Path) -> dict:
 
     ops.kernel = types.SimpleNamespace(sim_engine=timed)
     times, warm = {}, set()
-    for phase, key, policy, cluster, wb, tel in _runs():
+    for phase, key, policy, cluster, wb, tel, *tl in _runs():
+        tl = tl[0] if tl else None
         if engine(policy, "cuda") != "sim_engine":
             continue
-        if (policy.name, cluster, tel) not in warm:
+        if (policy.name, cluster, tel, tl) not in warm:
             # a short launch first: module load and first-use costs
             simulate_many(policy, cluster, dataclasses.replace(wb, **{
                 f: getattr(wb, f)[:, :50] for f in ("arrival", "func",
                                                     "service", "u_lb")}),
-                device="cuda", telemetry=tel)
-            warm.add((policy.name, cluster, tel))
+                device="cuda", telemetry=tel, timeline=tl)
+            warm.add((policy.name, cluster, tel, tl))
         seen.clear()
         for _ in range(3):
-            simulate_many(policy, cluster, wb, device="cuda", telemetry=tel)
+            simulate_many(policy, cluster, wb, device="cuda", telemetry=tel,
+                          timeline=tl)
         torch.cuda.synchronize()
         digests = set()
         for _, _, res in seen:
