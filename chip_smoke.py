@@ -13,7 +13,8 @@ non-zero):
 2. build: every ``src/repro_torch/csrc/*.cu`` with ``nvcc`` (in parallel),
    each kernel's registers and spills as ``ptxas`` reports them (54
    instantiations of ``sim_engine``: balancer × lifecycle × observation
-   mode: off, observation, observation and timeline);
+   mode: off, observation, observation and timeline; built as six
+   libraries side by side, one for each lifecycle switch and mode);
 3. kernel against its plain version on the card: ``hermes_select`` at
    W ∈ {100, 1000}, R ∈ {1, 8}, N ∈ {1, 256}, random and edge states,
    exactly equal; CUDA-event times of both at the serving and per-arrival
@@ -25,13 +26,15 @@ non-zero):
    Hermes, E/LL/PS and E/LOC/PS at the quick depth N=12000, each one
    ``sim_engine`` launch (the fused early-binding loop) and no
    ``hermes_select`` launch, with no host sync in the loop (the counts are
-   zeroed just before each run and read just after); then the batched
-   engine: the plain Hermes run on the same inputs (``backend="torch"``,
-   the fused engine's "before"), which the fused Hermes run must equal
-   in every plane, and late binding at N=4000; each fused policy must take
-   ≤ 100 µs per arrival and ≥ 50× less than the plain Hermes run; then
-   ``sim_engine``'s device time on the same inputs (its output again
-   equal to the plain run's) beside that run's and the bound; 4b. the
+   zeroed just before each run and read just after), and Hermes on the
+   first N=3000 arrivals of the same inputs; then the batched engine on
+   those 3000: the plain Hermes run (``backend="torch"``, the fused
+   engine's "before"), which the fused Hermes run of the 3000 must equal
+   in every plane and the one of 12000 in its first 3000 choices (worker,
+   cold, rejected), and late binding; each fused policy must take ≤ 100
+   µs per arrival and ≥ 50× less than the plain Hermes run; then
+   ``sim_engine``'s device time on the 3000 (its output again equal to
+   the plain run's) beside that run's and the bound; 4b. the
    fused Hermes run at N=12000: its wall time beside the kernel's device
    time on the same inputs (CUDA events), the idle share they give, its
    launches and host syncs;
@@ -228,7 +231,34 @@ non-zero):
     chunks enqueued with no host sync (torch's sync check); (c) fig15's
     streaming check: the three early-binding parity stacks' timelines and
     final states equal the monolithic runs'; the CPU runs in the worker
-    processes; the phase ≤ 60 s.
+    processes; the phase ≤ 60 s;
+18. the MoE and MLA families at full width, after the worker processes
+    have closed: (a) a fresh ``HermesFrontend`` on ``cuda`` (2 workers × 2
+    cores, ``max_len`` 2048, ``H``) serving ``dbrx-132b`` (seed 5) and
+    ``deepseek-v2-236b`` (seed 6) at their published widths and bf16
+    parameters, cut to 2 layers, ``attn_impl="pallas"`` (dbrx runs the
+    flash and decode kernels, deepseek's MLA the reference's einsums), 12
+    alternating requests of 200-1500 prompt tokens (``default_rng(3)``),
+    32 new tokens each, with phase 7's exact launch counts of all six
+    kernels; GB of weights and the device peak; a profiled stretch of
+    their decode steps; (b) prefill plus 16 teacher-forced decode steps
+    against the full forward over the same 793 tokens and parameters
+    (dbrx: ``pallas`` against ``naive``; deepseek: the absorbed latent
+    decode against the decompressed forward), bf16 at 2 layers within
+    6e-2 × max |logit| and f32 at 1 layer within 1e-4 × max |logit| with
+    every routing choice equal; the share of (token, expert) choices on
+    which the two paths agree; a compared position whose bf16 routing
+    flipped is reported and left out of the logit bound, its router
+    logits (like every position's up to its first flip) held to the same
+    bound; (c) both attention kernels against their plain versions at
+    dbrx's shapes (48 query heads on 8 KV heads, Dh = 128); (d) the
+    frontend's nine balancers, each serving 8 requests of the launcher's
+    workload (``olmo-tiny``, ``rwkv-tiny``): ``hermes_select`` launched
+    once a dispatch under ``H`` and never otherwise, the carried state of
+    HIKU, DD and SWARM on the card; (e) ``python -m
+    repro_torch.launch.serve --backend models --requests 12`` in a
+    subprocess on the card beside (d): exit 0 and 12 lines in the
+    reference's format; the phase ≤ 60 s.
 
 TF32 is off for matrix products and cuDNN throughout.  The line before the
 last is ``{"kernels": [...]}``; the last line is
@@ -260,9 +290,10 @@ SFU_PER_S = 16 * 132 * 1.98e9
 LOADS = (0.5, 0.7, 0.9, 0.97)
 #: the fig4 quick depth, run by the fused engine (E/{H,LL,LOC,R}/PS)
 N_MAIN = 12_000
-#: late binding stays on the batched engine: ~7 ms an arrival, so cut in
-#: depth to keep the whole check inside its time
-N_BATCHED = 4_000
+#: the batched engine's runs (the plain Hermes "before" and late binding)
+#: take ~7 ms an arrival on the host, so they run the first N_BATCHED
+#: arrivals of the main workload, to keep the whole check inside its time
+N_BATCHED = 3_000
 N_CHECK = 2_000
 N_SHORT = 300
 SEED = 1
@@ -344,7 +375,7 @@ def build(report):
     from repro_torch.kernels import _build
     secs = _build.build_all()
     for name, s in secs.items():
-        log(f"built {name}.cu in {s:.2f} s")
+        log(f"built {name} in {s:.2f} s")
         ptxas = _build.library_path(name).with_suffix(".log").read_text()
         for kernel, regs, spill in ptxas_resources(ptxas):
             log(f"  {kernel.split('(')[0]}: {regs}; {spill}")
@@ -649,18 +680,18 @@ def main_path(torch, np, report, cluster):
 
     wb_main = replicate_workload(ms_trace, cluster, LOADS, N_MAIN,
                                  seeds=(SEED,))
-    wb_batched = replicate_workload(ms_trace, cluster, LOADS, N_BATCHED,
-                                    seeds=(SEED,))
+    wb_batched = prefix(wb_main, N_BATCHED)
     warm_up(cluster)
     runs, outs = {}, {}
     launches = 0
-    # the fused engine at the quick depth, then the batched engine: the
-    # plain Hermes run on the same inputs (the "before", and what the
-    # fused run must equal) and late binding
+    # the fused engine at the quick depth and on the first N_BATCHED
+    # arrivals, then the batched engine on those: the plain Hermes run (the
+    # "before", and what the fused runs must equal) and late binding
     for policy, backend, wb in ((HERMES, "auto", wb_main),
                                 (E_LL_PS, "auto", wb_main),
                                 (E_LOC_PS, "auto", wb_main),
-                                (HERMES, "torch", wb_main),
+                                (HERMES, "auto", wb_batched),
+                                (HERMES, "torch", wb_batched),
                                 (LATE_BINDING, "auto", wb_batched)):
         n = wb.n
         fused = backend == "auto" and policy != LATE_BINDING
@@ -686,7 +717,8 @@ def main_path(torch, np, report, cluster):
         per_load = [dict(load=load, slow_p99=s.slow_p99,
                          cold_frac=s.cold_frac, n_rejected=s.n_rejected)
                     for load, s in zip(LOADS, summ.per_rep)]
-        key = f"{policy.name} {'fused' if fused else 'batched'}"
+        key = f"{policy.name} {'fused' if fused else 'batched'}" + (
+            f" (first {n})" if fused and n != N_MAIN else "")
         outs[key] = out
         runs[key] = dict(
             n=n, wall_s=wall, us_per_arrival=wall / n * 1e6,
@@ -701,16 +733,20 @@ def main_path(torch, np, report, cluster):
             log(f"  load {row['load']}: p99 slowdown {row['slow_p99']:.3f}, "
                 f"cold {row['cold_frac']:.4f}, rejected {row['n_rejected']}")
     plain = outs[f"{HERMES.name} batched"]
-    same_planes(np, outs[f"{HERMES.name} fused"], plain,
+    same_planes(np, outs[f"{HERMES.name} fused (first {N_BATCHED})"], plain,
+                f"{HERMES.name} N={N_BATCHED}: sim_engine vs the plain "
+                f"engine")
+    same_prefix(np, outs[f"{HERMES.name} fused"], plain,
                 f"{HERMES.name} N={N_MAIN}: sim_engine vs the plain engine")
-    log(f"{HERMES.name} N={N_MAIN}: sim_engine == plain engine on the card, "
-        f"all planes")
+    log(f"{HERMES.name} N={N_BATCHED}: sim_engine == plain engine on the "
+        f"card, all planes; at N={N_MAIN} its first {N_BATCHED} arrivals "
+        f"== the plain run in worker, cold, rejected")
     before = runs[f"{HERMES.name} batched"]["us_per_arrival"]
     for policy in (HERMES, E_LL_PS, E_LOC_PS):
         us = runs[f"{policy.name} fused"]["us_per_arrival"]
         log(f"{policy.name}: fused {us:.2f} us per arrival at N={N_MAIN}, "
             f"{before / us:.0f}x below the plain engine's Hermes "
-            f"({before:.1f} us, same N)")
+            f"({before:.1f} us at N={N_BATCHED})")
         check(us <= 100 and before / us >= 50,
               f"{policy.name}: fused {us:.2f} us per arrival (needs <= 100 "
               f"and >= 50x below the plain engine's {before:.1f})")
@@ -718,25 +754,25 @@ def main_path(torch, np, report, cluster):
     # the fused kernel's own device time (CUDA events around one launch)
     # on the plain Hermes run's inputs, beside that run's synchronised wall
     # time and the bound; its output must be that run's, plane for plane
-    args = engine_inputs(torch, np, wb_main)
+    args = engine_inputs(torch, np, wb_batched)
     ek.sim_engine("H", cluster, *args)
     torch.cuda.synchronize()
     out = {}
     ms = _event_ms(torch, lambda: out.update(
         ek.sim_engine("H", cluster, *args)))
-    same_planes(np, out, plain, f"{HERMES.name} N={N_MAIN}: the timed "
+    same_planes(np, out, plain, f"{HERMES.name} N={N_BATCHED}: the timed "
                                 f"sim_engine launch vs the plain engine")
     plain_ms = runs[f"{HERMES.name} batched"]["wall_s"] * 1e3
     bound_ms, bound_by, nbytes, ops = engine_bound(
-        out, N_MAIN, len(LOADS), wb_main.n_functions)
-    log(f"sim_engine E/H/PS R={len(LOADS)} N={N_MAIN}: kernel {ms:.3f} ms "
-        f"on the card (one launch; {ms / N_MAIN * 1e3:.3f} us per "
+        out, N_BATCHED, len(LOADS), wb_main.n_functions)
+    log(f"sim_engine E/H/PS R={len(LOADS)} N={N_BATCHED}: kernel {ms:.3f} ms "
+        f"on the card (one launch; {ms / N_BATCHED * 1e3:.3f} us per "
         f"arrival), equal to the plain engine in every plane; plain batched "
         f"engine {plain_ms:.1f} ms; bound {bound_ms:.5f} ms, {bound_by} "
         f"({nbytes} B at 3.35 TB/s; {ops} f64 operations at 34 TFLOP/s over "
         f"{int(out['iters'].sum())} advance iterations; the chain of "
         f"dependent barriers is the real floor)")
-    timing = dict(R=len(LOADS), N=N_MAIN, ms=ms, plain_ms=plain_ms,
+    timing = dict(R=len(LOADS), N=N_BATCHED, ms=ms, plain_ms=plain_ms,
                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                   operations=ops, iters=int(out["iters"].sum()),
                   active=int(out["active"].sum()))
@@ -935,6 +971,8 @@ N_NEW = 32
 MAX_LEN = 2048
 PROMPT_MIN, PROMPT_MAX = 200, 1500
 CHECK_PROMPT, CHECK_STEPS = 777, 16
+#: decode steps in each profiled stretch (phases 7b, 10b and 18a)
+PROFILE_STEPS = 4
 #: phase 8's bound on max |Δ logit| / max |logit| for each dtype
 MODEL_TOL = {"float32": 1e-4, "bfloat16": 6e-2}
 #: phase 11's ratios before each recurrent model's scan kernel was
@@ -1128,8 +1166,11 @@ def _counters():
 def launches_per_call(cfg):
     """({kernel: launches per prefill}, {kernel: launches per decode step})
     of one model: every T > 1 scan and attention is a kernel under
-    ``attn_impl="pallas"``; one-token scans are the plain step."""
+    ``attn_impl="pallas"``; one-token scans are the plain step; MLA's
+    attention is the reference's einsums (no kernel)."""
     L = cfg.n_layers
+    if cfg.mla is not None:
+        return {}, {}
     if cfg.family == "rwkv6":
         return {"rwkv6_wkv": L}, {}
     if cfg.family == "hybrid":
@@ -1139,9 +1180,17 @@ def launches_per_call(cfg):
     return {"flash_attention": L}, {"decode_attention": L}
 
 
-def serving_path(torch, np, report, served, prompt_seed, key):
-    """Phases 7 and 10: 12 requests through ``HermesFrontend`` at full
-    width, with every kernel's launches counted over the run."""
+def weights_gb(torch, cfg) -> float:
+    """GB of ``cfg``'s parameters in its param dtype."""
+    size = torch.empty((), dtype=cfg.p_dtype).element_size()
+    return cfg.n_params() * size / 1e9
+
+
+def serving_path(torch, np, report, served, prompt_seed, key,
+                 n_layers=None):
+    """Phases 7, 10 and 18a: 12 requests through ``HermesFrontend`` at
+    full width (``n_layers`` cuts the depth), with every kernel's launches
+    counted over the run."""
     import dataclasses
 
     from repro_torch import configs
@@ -1150,10 +1199,13 @@ def serving_path(torch, np, report, served, prompt_seed, key):
     reg = ModelRegistry()
     cfgs = {}
     for name, seed in served:
-        cfgs[name] = dataclasses.replace(configs.get(name), attn_impl="pallas")
+        cfgs[name] = dataclasses.replace(
+            configs.get(name), attn_impl="pallas",
+            n_layers=n_layers or configs.get(name).n_layers)
         reg.register(name, cfgs[name], seed=seed)
-        log(f"{name}: {cfgs[name].n_params() * 4 / 1e9:.2f} GB of f32 "
-            f"weights (seed {seed})")
+        log(f"{name}: {weights_gb(torch, cfgs[name]):.2f} GB of "
+            f"{cfgs[name].param_dtype} weights at {cfgs[name].n_layers} "
+            f"layers (seed {seed})")
     fe = HermesFrontend(reg, n_workers=2, cores=2, max_len=MAX_LEN,
                         device="cuda")
     rng = np.random.default_rng(prompt_seed)
@@ -1211,14 +1263,19 @@ def serving_path(torch, np, report, served, prompt_seed, key):
         check(launches[n] == want[n], f"{n} launched {launches[n]} times in "
                                       f"the serving path, expected {want[n]}")
     report[key] = dict(wall_s=wall, requests=rows, launches=launches,
-                       expected_launches=want)
+                       expected_launches=want,
+                       weights_gb={n: weights_gb(torch, c)
+                                   for n, c in cfgs.items()})
     return fe, launches
 
 
 def profile_decode(torch, report, fe, served, key):
-    """Phases 7b and 10b: where a decode step's time goes, per model."""
+    """Phases 7b, 10b and 18a: where a decode step's time goes, per
+    model, over PROFILE_STEPS steps (the profiler's own processing of the
+    events takes most of the phase, so the steps are few)."""
     from torch.profiler import ProfilerActivity, profile
     out = {}
+    n = PROFILE_STEPS
     for name, _ in served:
         ex = next(w.warm[name] for w in fe.workers if name in w.warm)
         model, params = ex.model, ex.params
@@ -1226,18 +1283,18 @@ def profile_decode(torch, report, fe, served, key):
         cache = model.init_cache(1, MAX_LEN)
         _, cache = model.prefill(params, toks, cache)
         tok = toks[:, :1]
-        pos = torch.arange(CHECK_PROMPT, CHECK_PROMPT + 8, dtype=torch.int32,
+        pos = torch.arange(CHECK_PROMPT, CHECK_PROMPT + n, dtype=torch.int32,
                            device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(8):      # profiler off: the same steps, rewritten
+        for i in range(n):      # profiler off: the same steps, rewritten
             _, cache = model.decode_step(params, tok, cache, pos[i:i + 1])
         torch.cuda.synchronize()
         plain_us = (time.perf_counter() - t0) * 1e6
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for i in range(8):
+            for i in range(n):
                 _, cache = model.decode_step(params, tok, cache, pos[i:i + 1])
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
@@ -1247,31 +1304,32 @@ def profile_decode(torch, report, fe, served, key):
         busy = sum(e.self_device_time_total for e in kernels)
         top = sorted(kernels, key=lambda e: e.self_device_time_total,
                      reverse=True)[:6]
-        log(f"{name}: 8 decode steps at pos {CHECK_PROMPT}: wall "
-            f"{plain_us / 8e3:.2f} ms per step with the profiler off, "
-            f"{wall_us / 8e3:.2f} ms with it on; device busy "
-            f"{busy / 8e3:.2f} ms per step = {busy / wall_us:.3f}, idle share "
-            f"{1 - busy / wall_us:.3f}; "
-            f"{sum(e.count for e in kernels) / 8:.0f} kernel launches per step")
+        log(f"{name}: {n} decode steps at pos {CHECK_PROMPT}: wall "
+            f"{plain_us / n / 1e3:.2f} ms per step with the profiler off, "
+            f"{wall_us / n / 1e3:.2f} ms with it on; device busy "
+            f"{busy / n / 1e3:.2f} ms per step = {busy / wall_us:.3f}, idle "
+            f"share {1 - busy / wall_us:.3f}; "
+            f"{sum(e.count for e in kernels) / n:.0f} kernel launches per "
+            f"step")
         for e in top:
             log(f"  {e.key[:70]}: {e.count} calls, "
-                f"{e.self_device_time_total / 8e3:.3f} ms per step")
+                f"{e.self_device_time_total / n / 1e3:.3f} ms per step")
         # decode attention inside the step: split + combine kernels per call
         attn = [e for e in kernels if "decode_attention" in e.key]
         calls = sum(e.count for e in attn if "split" in e.key)
         attn_ms = (sum(e.self_device_time_total for e in attn) / calls / 1e3
                    if calls else None)
         if calls:
-            log(f"  decode_attention in the step: {calls // 8} calls per "
+            log(f"  decode_attention in the step: {calls // n} calls per "
                 f"step, {attn_ms:.4f} ms per call (split and combine kernels,"
                 f" profiler device time)")
-        out[name] = dict(decode_attention_ms_per_call=attn_ms,
-                         wall_us_per_step=wall_us / 8,
-                         wall_us_per_step_profiler_off=plain_us / 8,
-                         busy_us_per_step=busy / 8,
-                         launches_per_step=sum(e.count for e in kernels) / 8,
+        out[name] = dict(decode_attention_ms_per_call=attn_ms, steps=n,
+                         wall_us_per_step=wall_us / n,
+                         wall_us_per_step_profiler_off=plain_us / n,
+                         busy_us_per_step=busy / n,
+                         launches_per_step=sum(e.count for e in kernels) / n,
                          top=[dict(kernel=e.key, count=e.count,
-                                   us_per_step=e.self_device_time_total / 8)
+                                   us_per_step=e.self_device_time_total / n)
                               for e in top])
     report[key] = out
 
@@ -3933,6 +3991,327 @@ def streaming(torch, np, report, pool):
     return launches, fcfs_launches, max_err
 
 
+# -- MoE and MLA serving at full width (phase 18) -----------------------------
+
+#: phase 18's models and weight seeds, at their published widths and bf16
+#: parameters, cut to MOE_LAYERS layers: a full stack is ~264 GB (dbrx)
+#: or ~472 GB (deepseek) of bf16 weights, one card holds 80 GB, and the
+#: phase keeps up to four warm copies (2 workers × 2 functions)
+MOE_SERVED = (("dbrx-132b", 5), ("deepseek-v2-236b", 6))
+MOE_LAYERS = 2
+#: 18b's depth per dtype: an f32 copy of one layer is ~13 GB (dbrx) or
+#: ~16 GB (deepseek) beside its embeddings
+MOE_CHECK_LAYERS = {"bfloat16": 2, "float32": 1}
+MOE_PROMPT_SEED = 3
+MOE_PHASE_S = 60.0
+#: 18c and 18d: the launcher's registrations and workload
+#: (``python -m repro_torch.launch.serve --backend models``)
+ZOO_REQUESTS = 8
+LAUNCHER_REQUESTS = 12
+#: dbrx-132b's attention at the served prompt lengths and cache: 48 query
+#: heads on 8 KV heads, Dh = 128 (bf16, as served)
+DBRX_FLASH_CASES = ((1, 777, 48, 8, 128), (1, 1500, 48, 8, 128))
+DBRX_DECODE_CASES = tuple((1, MAX_LEN, 48, 8, 128, p) for p in (0, 776, 2047))
+
+
+class RouteRecorder:
+    """Every call of the port's MoE router while it is installed: the
+    chosen experts ``[T, k]`` and the f32 router logits ``[T, E]``, in
+    call order (one call a layer)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.real, self.calls = moe, moe._router, []
+
+    def __enter__(self):
+        def spy(cfg, p, xf):
+            out = self.real(cfg, p, xf)
+            self.calls.append((out[1], xf.float() @ p["router"].float()))
+            return out
+        self.moe._router = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._router = self.real
+        return False
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def route_compare(fwd_calls, path_calls, n_layers, prompt, steps):
+    """The full forward's routing (one call a layer over ``prompt + steps``
+    tokens) against the prefill's (one a layer over the prompt) and the
+    decode steps' (one a layer, a token each).  Returns the share of
+    (token, expert) choices the two paths agree on, the compared
+    positions (the prompt's last and each step's) whose choices differ in
+    some layer, and the largest |Δ router logit| / max |router logit| at
+    the compared positions over the layers before their first flip."""
+    fwd_idx = [c[0] for c in fwd_calls]
+    fwd_log = [c[1] for c in fwd_calls]
+    pre = path_calls[:n_layers]
+    dec = path_calls[n_layers:]
+    check(len(fwd_calls) == n_layers and len(dec) == n_layers * steps,
+          f"router calls: forward {len(fwd_calls)}, path {len(path_calls)}")
+    agree = total = 0
+    flipped, gap = set(), 0.0
+    for layer in range(n_layers):
+        a = fwd_idx[layer][:prompt].sort(dim=-1).values
+        b = pre[layer][0].sort(dim=-1).values
+        agree += int((a[..., :, None] == b[..., None, :]).any(-1).sum())
+        total += a.numel()
+    for layer in range(n_layers):
+        for i in range(steps + 1):
+            t = prompt - 1 + i
+            got = (pre[layer] if i == 0 else dec[(i - 1) * n_layers + layer])
+            row = 0 if i else prompt - 1
+            idx_b, log_b = got[0][row], got[1][row]
+            idx_a, log_a = fwd_idx[layer][t], fwd_log[layer][t]
+            if i:
+                agree += int((idx_a.sort().values[:, None]
+                              == idx_b.sort().values[None, :]).any(-1).sum())
+                total += idx_a.numel()
+            if t not in flipped:
+                gap = max(gap, float((log_a - log_b).abs().max()
+                                     / fwd_log[layer][t].abs().max()))
+            if set(idx_a.tolist()) != set(idx_b.tolist()):
+                flipped.add(t)
+    return agree / total, sorted(flipped), gap
+
+
+def moe_prefill_decode_vs_forward(torch, np, report):
+    """18b: for both models at full width, prefill plus CHECK_STEPS
+    teacher-forced decode steps through the cache against the full
+    forward over the same tokens and parameters (dbrx: ``pallas`` against
+    ``naive``; deepseek: MLA's absorbed latent decode against its
+    decompressed forward), bf16 at 2 layers and f32 at 1.  Every compared
+    position whose routing agrees in every layer is held to the phase 8
+    bound (``MODEL_TOL`` × max |logit|); a position where one path picked
+    another expert is reported, its router logits (like every compared
+    position's, up to its first flip) held to the same bound.  f32 allows
+    no flip."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.transformer import build_model
+    out = {}
+    n = CHECK_PROMPT + CHECK_STEPS
+    for name, seed in MOE_SERVED:
+        toks = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, configs.get(name).vocab, (1, n)), device="cuda")
+        for dtype, tol in MODEL_TOL.items():
+            L = MOE_CHECK_LAYERS[dtype]
+            cfg = dataclasses.replace(configs.get(name), attn_impl="pallas",
+                                      dtype=dtype, param_dtype=dtype,
+                                      n_layers=L)
+            model = build_model(cfg, "cuda")
+            plain = build_model(dataclasses.replace(cfg, attn_impl="naive"),
+                                "cuda")
+            params = model.init(
+                torch.Generator(device="cuda").manual_seed(seed))
+            with RouteRecorder() as rec:
+                want = plain.forward(params, toks)[0][:, CHECK_PROMPT - 1:]
+                fwd_calls = rec.take()
+                cache = model.init_cache(1, MAX_LEN)
+                logits, cache = model.prefill(params, toks[:, :CHECK_PROMPT],
+                                              cache)
+                got = [logits]
+                for i in range(CHECK_PROMPT, n):
+                    logits, cache = model.decode_step(
+                        params, toks[:, i:i + 1], cache,
+                        torch.full((1,), i, dtype=torch.int32,
+                                   device="cuda"))
+                    got.append(logits)
+                path_calls = rec.take()
+            got = torch.cat(got, dim=1).float()
+            want = want.float()
+            check(got.shape == want.shape and bool(got.isfinite().all()),
+                  f"{name} {dtype}: logits {tuple(got.shape)} vs "
+                  f"{tuple(want.shape)} or not finite")
+            share, flipped, gap = route_compare(
+                fwd_calls, path_calls, L, CHECK_PROMPT, CHECK_STEPS)
+            keep = [i for i in range(CHECK_STEPS + 1)
+                    if CHECK_PROMPT - 1 + i not in flipped]
+            scale = float(want.abs().max())
+            err_all = float((got - want).abs().max())
+            err = float((got[:, keep] - want[:, keep]).abs().max()) \
+                if keep else 0.0
+            log(f"{name} {dtype} at {L} layers: prefill of {CHECK_PROMPT} + "
+                f"{CHECK_STEPS} decode steps vs the plain forward over {n} "
+                f"tokens: routing agrees on {share:.6f} of (token, expert) "
+                f"choices; flipped compared positions {flipped}; max |Δ| "
+                f"{err:.4e} over the {len(keep)} unflipped, max |logit| "
+                f"{scale:.4f}, ratio {err / scale:.3e} (bound {tol:g}; "
+                f"every position: {err_all / scale:.3e}); router logits "
+                f"ratio {gap:.3e}")
+            if dtype == "float32":
+                check(not flipped, f"{name} f32: routing flipped at "
+                                   f"{flipped}")
+            check(err <= tol * scale, f"{name} {dtype}: kernel path != "
+                                      f"plain forward ({err} > {tol} × "
+                                      f"{scale})")
+            check(gap <= tol, f"{name} {dtype}: router logits differ by "
+                              f"{gap:.3e} of their max (bound {tol:g})")
+            out[f"{name} {dtype}"] = dict(
+                n_layers=L, max_abs_err=err, max_abs_logit=scale,
+                ratio=err / scale, ratio_every_position=err_all / scale,
+                bound=tol, routing_agree=share, flipped_positions=flipped,
+                router_logit_ratio=gap)
+            del params, cache, model, plain
+            torch.cuda.empty_cache()
+    report["moe_prefill_decode_vs_forward"] = out
+    return out
+
+
+def dbrx_attention_kernels(torch, np):
+    """Both attention kernels against their plain versions at dbrx-132b's
+    shapes (bf16, ``ATTN_TOL``): the largest errors."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dt, tol = torch.bfloat16, ATTN_TOL["bfloat16"]
+    errs = {}
+    for case in DBRX_FLASH_CASES:
+        q, k, v = _flash_inputs(torch, gen, case, dt)
+        errs[f"flash_attention {case}"] = (fk.flash_attention(q, k, v),
+                                           flash_attention_ref(q, k, v))
+    for case in DBRX_DECODE_CASES:
+        q, k, v, pos = _decode_inputs(torch, gen, np, case, dt)
+        errs[f"decode_attention {case}"] = (
+            dk.decode_attention(q, k, v, pos),
+            decode_attention_ref(q, k, v, pos))
+    out = {}
+    for what, (got, want) in errs.items():
+        err = float((got.float() - want.float()).abs().max())
+        ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol))
+        log(f"dbrx-132b {what} bf16: max abs err {err:.3e} "
+            f"({'ok' if ok else 'FAILED'} at atol = rtol = {tol})")
+        check(ok, f"dbrx-132b {what}: kernel != plain (err {err})")
+        out[what] = err
+    return out
+
+
+def frontend_zoo(torch, np, report):
+    """18c: every balancer of ``balancer_names()`` behind a frontend on
+    the card serving the launcher's workload; ``hermes_select`` launched
+    once a dispatch under ``H`` and never otherwise; the carried state of
+    HIKU, DD and SWARM on the card after every dispatch.  Returns the
+    ``hermes_select`` and ``rwkv6_wkv`` launches."""
+    from repro_torch import configs
+    from repro_torch.policy import balancer_names
+    from repro_torch.serving.backends import (HermesFrontend, Invocation,
+                                              ModelRegistry)
+    counters = _counters()
+    reg = ModelRegistry()
+    reg.register("olmo-tiny", configs.get_smoke("olmo-1b"))
+    reg.register("rwkv-tiny", configs.get_smoke("rwkv6-3b"))
+    rows, totals = {}, {"hermes_select": 0, "rwkv6_wkv": 0}
+    for bal in balancer_names():
+        fe = HermesFrontend(reg, n_workers=2, cores=2, max_len=64,
+                            balancer=bal, device="cuda")
+        rng = np.random.default_rng(0)
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        placed = []
+        for i in range(ZOO_REQUESTS):
+            fn = ("olmo-tiny", "rwkv-tiny")[i % 2]
+            inv = fe.dispatch(Invocation(func=fn, n_new=4,
+                                         prompt=rng.integers(0, 100, 8)))
+            check(inv.tokens.shape == (4,), f"{bal}: bad tokens")
+            placed.append((inv.worker, inv.cold))
+            if fe._lb_state is not None:
+                devs = {t.device.type for t in fe._lb_state.values()}
+                check(devs == {"cuda"}, f"{bal}: the balancer's state left "
+                                        f"the card ({devs})")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        want_h = ZOO_REQUESTS if bal == "H" else 0
+        check(launches["hermes_select"] == want_h,
+              f"{bal}: hermes_select launched {launches['hermes_select']} "
+              f"times, expected {want_h}")
+        check(launches["sim_engine"] == 0 and
+              launches["flash_attention"] == 0, f"{bal}: {launches}")
+        for k in totals:
+            totals[k] += launches[k]
+        rows[bal] = dict(placed=placed, wall_s=wall, launches=launches,
+                         stateful=fe._lb_state is not None)
+        log(f"frontend {bal}: {ZOO_REQUESTS} requests in {wall:.2f} s, "
+            f"(worker, cold) {placed}, launches {launches}"
+            + ("; its state on the card" if fe._lb_state is not None
+               else ""))
+        del fe
+    report["frontend_zoo"] = rows
+    return totals
+
+
+def moe_serving(torch, np, report):
+    """Phase 18: the MoE and MLA families served at full width (18a) and a
+    profiled stretch of their decode steps, their prefill and decode
+    against the full forward (18b), both attention
+    kernels at dbrx's shapes, the frontend's nine balancers (18c) and the
+    launcher's ``--backend models`` in a subprocess (18d).  Returns the
+    launches to add to the kernels line and the largest kernel error."""
+    import os
+    import re
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fe, launches = serving_path(torch, np, report, MOE_SERVED,
+                                MOE_PROMPT_SEED, "moe_serving",
+                                n_layers=MOE_LAYERS)
+    peak = torch.cuda.max_memory_allocated()
+    n_warm = sum(len(w.warm) for w in fe.workers)
+    log(f"18a: {n_warm} warm copies; device peak "
+        f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated)")
+    report["moe_serving"]["max_memory_allocated_gb"] = peak / 1e9
+    report["moe_serving"]["warm_copies"] = n_warm
+    profile_decode(torch, report, fe, MOE_SERVED, "moe_decode_profile")
+    del fe
+    torch.cuda.empty_cache()
+    moe_prefill_decode_vs_forward(torch, np, report)
+    kernel_err = dbrx_attention_kernels(torch, np)
+    report["moe_attention_kernels"] = kernel_err
+    # 18d beside 18c: the launcher in a subprocess on the card
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t_launch = time.perf_counter()
+    launcher = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--backend",
+         "models", "--requests", str(LAUNCHER_REQUESTS)], env=env,
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    zoo = frontend_zoo(torch, np, report)
+    stdout, stderr = launcher.communicate(timeout=MOE_PHASE_S)
+    launch_s = time.perf_counter() - t_launch
+    check(launcher.returncode == 0,
+          f"the launcher exited {launcher.returncode}: {stderr[-2000:]}")
+    line = re.compile(r"^req +\d+ (olmo|rwkv)-tiny +worker=\d "
+                      r"(COLD|warm) +\d+\.\dms$")
+    lines = stdout.splitlines()
+    check(len(lines) == LAUNCHER_REQUESTS and all(line.match(ln)
+                                                  for ln in lines),
+          f"the launcher printed {lines}")
+    log(f"18d: the launcher (subprocess on the card, {launch_s:.1f} s) "
+        f"printed {len(lines)} lines, the first {lines[0]!r}")
+    report["moe_launcher"] = dict(lines=lines, wall_s=launch_s)
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 18: {phase_s:.1f} s")
+    check(phase_s <= MOE_PHASE_S, f"phase 18 took {phase_s:.1f} s (limit "
+                                  f"{MOE_PHASE_S:.0f} s)")
+    totals = {k: launches[k] for k in ("flash_attention",
+                                       "decode_attention", "hermes_select",
+                                       "rwkv6_wkv")}
+    for k, v in zoo.items():
+        totals[k] += v
+    return totals, kernel_err
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run it from the root of a checkout of the repo",
@@ -4014,6 +4393,8 @@ def main() -> int:
             with Phase("17 streaming on the card", report):
                 stream_launches, fcfs_launches, stream_err = streaming(
                     torch, np, report, pool)
+        with Phase("18 MoE and MLA serving at full width", report):
+            moe_launches, moe_kernel_err = moe_serving(torch, np, report)
         total_s = time.perf_counter() - t_start
         check(total_s <= SCRIPT_S, f"the script took {total_s:.1f} s (limit "
                                    f"{SCRIPT_S:.0f} s)")
@@ -4023,9 +4404,9 @@ def main() -> int:
     finally:
         report["total_s"] = time.perf_counter() - t_start
         log("report " + json.dumps(report, separators=(",", ":")))
-    # hermes_select's path is serving (phase 7: one launch per dispatch;
-    # phase 16: one per dispatch of the platform's controller) and the
-    # batched engine's E/H/FCFS stream (phase 17: one per arrival); the
+    # hermes_select's path is serving (phases 7 and 18: one launch per
+    # dispatch; phase 16: one per dispatch of the platform's controller) and
+    # the batched engine's E/H/FCFS stream (phase 17: one per arrival); the
     # simulator's E/H/PS makes its choice inside sim_engine (phases 4 and
     # 12-17: every fused run's launch and every stream's chunk launch on
     # those paths; its times from phase 4, where the plain engine runs the
@@ -4035,7 +4416,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/hermes_select.cu",
         "replaces": "src/repro/kernels/hermes_select/kernel.py:66",
         "launches": serve_launches["hermes_select"] + platform_launches
-        + fcfs_launches,
+        + fcfs_launches + moe_launches["hermes_select"],
         "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {
@@ -4050,8 +4431,10 @@ def main() -> int:
         "bound_ms": engine_t["bound_ms"], "bound_by": engine_t["bound_by"],
         "library_ms": None}]
     # the headline shape of each: olmo-1b's attention, rwkv6-3b's and
-    # zamba2-2.7b's scans at T = 777, bf16; launches from the path that
-    # serves them (phase 7 for attention, phase 10 for the scans)
+    # zamba2-2.7b's scans at T = 777, bf16; launches from the paths that
+    # serve them (phases 7 and 18 for attention, phase 10 for the scans,
+    # phase 18 for the launcher's rwkv-tiny); the error the largest of the
+    # headline shape's and, for attention, dbrx-132b's shapes (phase 18)
     for name, path, rows, n in (
             ("flash_attention", "flash_attention/kernel.py:63",
              attn_t["flash_attention"], serve_launches),
@@ -4062,11 +4445,14 @@ def main() -> int:
             ("mamba2_ssd", "mamba2_ssd/kernel.py:60", scan_t["mamba2_ssd"],
              rec_launches)):
         row = rows[0]
+        err = max([row["max_abs_err"]] + [
+            e for what, e in moe_kernel_err.items() if what.startswith(name)])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{path}",
-            "launches": n[name], "max_abs_err": row["max_abs_err"],
+            "launches": n[name] + moe_launches.get(name, 0),
+            "max_abs_err": err,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms")})

@@ -68,7 +68,8 @@ def params_from_reference(cfg, tree, device=None) -> dict:
     for the hybrid family, ``"shared"``.  Every leaf of ``"layers"`` is
     stacked on a leading ``L`` axis and is split into one dict per layer;
     every other top-level subtree is carried whole.  Every tensor keeps its
-    dtype and values bit for bit.  ``device=None`` is CUDA.
+    dtype and values bit for bit (``bfloat16`` leaves, which numpy holds
+    as ``ml_dtypes.bfloat16``, by their bits).  ``device=None`` is CUDA.
     """
     dev = resolve_device(device)
     n_layers = int(cfg.n_layers)
@@ -84,6 +85,9 @@ def params_from_reference(cfg, tree, device=None) -> dict:
                                  f"{a.shape}, expected a leading "
                                  f"L={n_layers}")
             a = a[layer]
+        if a.dtype.name == "bfloat16":     # ml_dtypes: carry the bits
+            return torch.from_numpy(a.view(np.uint16).copy()).view(
+                torch.bfloat16).to(dev)
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
     return {k: ([walk(v, i, "layers") for i in range(n_layers)]

@@ -707,7 +707,9 @@ __device__ __forceinline__ void on_complete(int balancer, const LbState& lb,
 
 // One instantiation per balancer, lifecycle switch and observation mode
 // (0 off, 1 observation, 2 observation and timeline): the choice and the
-// state updates of the others compile away.
+// state updates of the others compile away.  The source is compiled once
+// for each lifecycle switch and mode (SIM_ENGINE_LIFE, SIM_ENGINE_OBS),
+// six libraries of nine instantiations each, side by side.
 template <int balancer, bool life_on, int obs_mode>
 __global__ void __launch_bounds__(kMaxThreads, 1) sim_engine_kernel(
     const double* __restrict__ arrival, const int* __restrict__ func,
@@ -1485,7 +1487,6 @@ extern "C" int sim_engine_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   using Kernel = decltype(&sim_engine_kernel<kHermes, false, 0>);
-  const Kernel kernels[2][3][9] = {
 #define SIM_ENGINE_ROW(LIFE, OBS)                                          \
   {sim_engine_kernel<kHermes, LIFE, OBS>,                                  \
    sim_engine_kernel<kLeastLoaded, LIFE, OBS>,                             \
@@ -1496,13 +1497,19 @@ extern "C" int sim_engine_launch(
    sim_engine_kernel<kHiku, LIFE, OBS>,                                    \
    sim_engine_kernel<kDataDriven, LIFE, OBS>,                              \
    sim_engine_kernel<kSwarm, LIFE, OBS>}
-      {SIM_ENGINE_ROW(false, 0), SIM_ENGINE_ROW(false, 1),
-       SIM_ENGINE_ROW(false, 2)},
-      {SIM_ENGINE_ROW(true, 0), SIM_ENGINE_ROW(true, 1),
-       SIM_ENGINE_ROW(true, 2)}};
+  // built in parts (kernels/_build.py): this library holds the nine
+  // balancers of one lifecycle switch and observation mode
+#if !defined(SIM_ENGINE_LIFE) || !defined(SIM_ENGINE_OBS)
+#error "compile with -DSIM_ENGINE_LIFE=0|1 -DSIM_ENGINE_OBS=0|1|2"
+#endif
+  if ((life ? 1 : 0) != SIM_ENGINE_LIFE ||
+      (tl ? 2 : obs ? 1 : 0) != SIM_ENGINE_OBS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Kernel row[9] =
+      SIM_ENGINE_ROW((SIM_ENGINE_LIFE != 0), SIM_ENGINE_OBS);
 #undef SIM_ENGINE_ROW
-  const Kernel kernel =
-      kernels[life ? 1 : 0][tl ? 2 : obs ? 1 : 0][balancer];
+  const Kernel kernel = row[balancer];
   const ObsArgs obs_args{speed,      edges,      slow_hist,  lat_hist,
                          counters,   busy,       depth,      decisions,
                          busy_iters, n_on,       cool_until, prov_time,

@@ -43,8 +43,11 @@ MAX_SLOTS = 2047
 
 
 @functools.cache
-def _launcher():
-    fn = _build.load("sim_engine").sim_engine_launch
+def _launcher(life: bool, mode: int):
+    """The launch function of the library part that holds the kernels of
+    this lifecycle switch and observation mode (0 off, 1 observation, 2
+    observation and timeline); see ``_build.PARTS``."""
+    fn = _build.load(f"sim_engine@{3 * int(life) + mode}").sim_engine_launch
     fn.argtypes = [ctypes.c_void_p] * 31 + [ctypes.c_int] * 2 \
         + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 13 \
         + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int] \
@@ -157,11 +160,12 @@ def _launch(balance, cluster, n, F, inputs, state, outs, scalars, lb, life,
     dev = state[0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _launcher()(*ptrs, *life_args, *obs_ptrs, *obs_args, *tl_ptrs,
-                          *tl_args, R, n, F, W, C, S,
-                          BALANCER_CODES[balance],
-                          float(cluster.cold_start_penalty), stream,
-                          chunk, drain, g0, *(_ptr(x) for x in chunk_ptrs))
+        mode = 0 if obs is None else 1 if tl is None else 2
+        err = _launcher(life is not None, mode)(
+            *ptrs, *life_args, *obs_ptrs, *obs_args, *tl_ptrs, *tl_args, R,
+            n, F, W, C, S, BALANCER_CODES[balance],
+            float(cluster.cold_start_penalty), stream, chunk, drain, g0,
+            *(_ptr(x) for x in chunk_ptrs))
     if err != 0:
         raise RuntimeError(f"sim_engine: kernel launch failed with CUDA "
                            f"error {err}")

@@ -6,8 +6,13 @@ request trace (counterpart of ``repro/launch/serve.py``, the same flags).
   straggler re-dispatch, the lifecycle, the fleet and its autoscaler,
   telemetry and the timeline), any ``T/LB/S`` policy, its dispatch
   decisions on the card.
-* ``--backend models`` (real models behind the Hermes frontend) is not
-  ported: it raises :class:`~repro_torch.NotPortedError`.
+* ``--backend models``: real models behind the Hermes frontend
+  (:class:`repro_torch.serving.backends.HermesFrontend`, 2 workers × 2
+  cores), the reference's two registrations (``olmo-tiny`` and
+  ``rwkv-tiny``, the smoke configs of olmo-1b and rwkv6-3b with their
+  own ``attn_impl``), measured cold starts; ``--keepalive`` (checked
+  against the lifecycle registry) expires idle executors after
+  ``--ttl`` seconds.
 
 Workloads are any ``repro_torch.core.WORKLOADS`` entry (the synthetic
 §6.1 generators and the ``azure-*`` trace-replay scenarios) or an
@@ -26,17 +31,51 @@ Examples::
     python -m repro_torch.launch.serve --workload azure-diurnal \
         --autoscale TARGET_P99 --target-p99 3 --min-workers 2 --cooldown 2
     python -m repro_torch.launch.serve --timeline-out runs/tl.csv
+    python -m repro_torch.launch.serve --backend models --requests 12
 """
 from __future__ import annotations
 
 import argparse
 
-from repro_torch import NotPortedError
+
+def serve_models(args, device) -> None:
+    """``--backend models``: ``args.requests`` invocations alternating the
+    two registered functions, prompts of 8 tokens from
+    ``default_rng(0)``, 4 new tokens each, one line a request in the
+    reference's format.  The models run on ``device`` (``None``: the
+    card)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.lifecycle import parse_keepalive
+    from repro_torch.serving.backends import (HermesFrontend, Invocation,
+                                              ModelRegistry)
+    reg = ModelRegistry()
+    reg.register("olmo-tiny", configs.get_smoke("olmo-1b"))
+    reg.register("rwkv-tiny", configs.get_smoke("rwkv6-3b"))
+    # keep-alive maps to executor idle expiry with the --ttl window (cold
+    # starts here are measured, so --cold-start-preset does not apply);
+    # the name is still checked against the lifecycle registry
+    keepalive_s = None
+    if args.keepalive is not None:
+        parse_keepalive(args.keepalive)          # named ValueError
+        keepalive_s = args.ttl
+    fe = HermesFrontend(reg, n_workers=2, cores=2, max_len=64,
+                        keepalive_s=keepalive_s, device=device)
+    rng = np.random.default_rng(0)
+    for i in range(args.requests):
+        fn = ("olmo-tiny", "rwkv-tiny")[i % 2]
+        out = fe.dispatch(Invocation(
+            func=fn, prompt=rng.integers(0, 100, 8), n_new=4))
+        print(f"req {i:2d} {fn:10s} worker={out.worker} "
+              f"{'COLD' if out.cold else 'warm'} "
+              f"{out.response_s*1e3:8.1f}ms")
 
 
 def main(argv=None, device=None) -> None:
-    """Parse ``argv`` (``None``: the command line) and run; the platform's
-    dispatch decisions run on ``device`` (``None``: the card)."""
+    """Parse ``argv`` (``None``: the command line) and run; the models or
+    the platform's dispatch decisions run on ``device`` (``None``: the
+    card)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--backend", choices=["platform", "models"],
                     default="platform")
@@ -118,9 +157,8 @@ def main(argv=None, device=None) -> None:
     args = ap.parse_args(argv)
 
     if args.backend == "models":
-        raise NotPortedError(
-            "--backend models (real models behind the Hermes frontend) is "
-            "not ported to the launcher yet (ROADMAP Queue 1, item 9)")
+        serve_models(args, device)
+        return
 
     from repro_torch.core import (ClusterCfg, WORKLOADS, parse_policy,
                                   summarize)

@@ -30,7 +30,8 @@ def dense_init(gen: torch.Generator, shape, dtype, *, in_axis: int = -2
     """LeCun-normal in the contraction dim: normal / sqrt(fan_in)."""
     fan_in = shape[in_axis]
     x = torch.randn(shape, generator=gen, device=gen.device)
-    return (x / math.sqrt(fan_in)).to(dtype)
+    # in place: an f32 draw of a full-width expert tensor is ~5 GB
+    return x.div_(math.sqrt(fan_in)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
@@ -175,3 +176,12 @@ def lm_logits(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
     return logits
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy with an f32 reduction; labels < 0 are masked."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]
+    mask = (labels >= 0).float()
+    return ((lse - ll) * mask).sum() / mask.sum().clamp_min(1.0)

@@ -1,26 +1,30 @@
 """Model assembly: blocks → layer stack (a Python loop) → LM API.
 
-Counterpart of ``repro/models/transformer.py`` for the ``dense`` (without
-MoE or MLA), ``rwkv6`` and ``hybrid`` (zamba2) families.
-``build_model(cfg, device)`` returns a :class:`Model` of plain functions:
+Counterpart of ``repro/models/transformer.py`` for every family: dense
+and MoE blocks (with GQA or MLA attention), ``rwkv6`` and ``hybrid``
+(zamba2).  ``build_model(cfg, device)`` returns a :class:`Model` of
+plain functions:
 
 * ``init(generator) → params`` — ``{"embed", "layers": [one dict per
   layer], "final_norm"}`` (and the hybrid's ``"shared"`` attention block)
   on the generator's device;
-* ``forward(params, tokens) → (logits, aux)`` — full sequence;
+* ``forward(params, tokens) → (logits, aux)`` — full sequence; ``aux`` is
+  the MoE router losses summed over layers (0 without MoE);
+* ``loss(params, tokens, labels)`` — mean cross-entropy plus ``aux``
+  (forward only: the port has no training path yet);
 * ``init_cache / prefill / decode_step`` — the serving path.  The cache
   is the reference's: ``{"k", "v"}`` of ``[L, B, max_len, KV, Dh]``
-  (dense), the recurrent state ``{"tm_shift", "cm_shift", "wkv"}``
-  stacked on ``L`` (rwkv6), or ``{"conv", "ssm"}`` plus the shared
-  block's ``{"attn_k", "attn_v"}`` of ``[L // every, B, max_len, KV, Dh]``
-  (hybrid).  ``prefill`` and ``decode_step`` write it in place and return
-  it.
+  (dense), MLA's latent ``{"c_kv", "k_rope"}`` of ``[L, B, max_len,
+  kv_lora | qk_rope]``, the recurrent state ``{"tm_shift", "cm_shift",
+  "wkv"}`` stacked on ``L`` (rwkv6), or ``{"conv", "ssm"}`` plus the
+  shared block's ``{"attn_k", "attn_v"}`` of ``[L // every, B, max_len,
+  KV, Dh]`` (hybrid).  ``prefill`` and ``decode_step`` write it in place
+  and return it.
 
 The reference's ``lax.scan`` over stacked layers is a Python loop here,
-with a static layer index (the reference's unrolled mode).  ``loss``,
-remat, ``param_specs`` and ``layer_mode`` belong to training, sharding
-and the roofline and are not ported yet; ``moe`` and ``mla`` blocks raise
-:class:`NotPortedError`.
+with a static layer index (the reference's unrolled mode).  Remat,
+``param_specs`` and ``layer_mode`` belong to training, sharding and the
+roofline and are not ported yet.
 """
 from __future__ import annotations
 
@@ -28,15 +32,16 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch import NotPortedError
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rk
 from repro_torch.models.common import ModelCfg
 from repro_torch.models.layers import (apply_norm, embed, init_embed,
                                        init_mlp, lm_logits, mlp, rmsnorm,
-                                       sinusoidal_at, sinusoidal_pe, zeros)
+                                       sinusoidal_at, sinusoidal_pe,
+                                       softmax_xent, zeros)
 
 
 class Model(NamedTuple):
@@ -44,23 +49,21 @@ class Model(NamedTuple):
     device: torch.device
     init: Callable          # (generator) -> params
     forward: Callable       # (params, tokens) -> (logits, aux)
+    loss: Callable          # (params, tokens, labels) -> xent + aux
     init_cache: Callable    # (batch, max_len) -> cache
     prefill: Callable       # (params, tokens, cache) -> (logits, cache)
     decode_step: Callable   # (params, tok[B,1], cache, pos[B]) -> (logits, cache)
 
 
 def check_ported(cfg: ModelCfg) -> None:
-    """Raise :class:`NotPortedError` for what the port does not run yet."""
-    for part in ("moe", "mla"):
-        if getattr(cfg, part) is not None:
-            raise NotPortedError(f"{part} blocks ({cfg.name}) are not "
-                                 f"ported to repro_torch yet")
-    if cfg.family != "rwkv6":          # rwkv6 has no attention
+    """Raise :class:`~repro_torch.NotPortedError` for an ``attn_impl``
+    the port does not have; rwkv6 has no attention."""
+    if cfg.family != "rwkv6":
         attn.check_attn_impl(cfg)
 
 
 # ---------------------------------------------------------------------------
-# Dense transformer block
+# Dense / MoE transformer block
 # ---------------------------------------------------------------------------
 
 def init_dense_block(gen: torch.Generator, cfg) -> dict:
@@ -68,29 +71,58 @@ def init_dense_block(gen: torch.Generator, cfg) -> dict:
     if cfg.norm != "layernorm_np":
         p["ln1s"] = zeros(gen, (cfg.d_model,), cfg.p_dtype)
         p["ln2s"] = zeros(gen, (cfg.d_model,), cfg.p_dtype)
-    p["attn"] = attn.init_attention(gen, cfg)
-    p["mlp"] = init_mlp(gen, cfg)
+    p["attn"] = attn.init_mla(gen, cfg) if cfg.mla else \
+        attn.init_attention(gen, cfg)
+    p["mlp"] = moe_mod.init_moe(gen, cfg) if cfg.moe else init_mlp(gen, cfg)
     return p
 
 
+def _block_mlp(cfg, p, x, *, decode: bool):
+    """The block's MLP or MoE: ``(y, aux)``."""
+    if cfg.moe is not None:
+        return moe_mod.moe(cfg, p["mlp"], x, decode=decode)
+    return mlp(cfg, p["mlp"], x), _zero(x)
+
+
 def dense_block(cfg, p, x, pos):
-    """Full-seq block.  Returns ``(x, (k, v))``."""
+    """Full-seq block.  Returns ``(x, kv, aux)``: ``kv`` is the layer's
+    cache entries over the sequence by cache name (``k``/``v``, or MLA's
+    ``c_kv``/``k_rope``)."""
     h = apply_norm(cfg, x, p.get("ln1s"))
-    q, k, v = attn._qkv(cfg, p["attn"], h, pos)
-    o = attn.sdpa(cfg, q, k, v)
     B, S = x.shape[:2]
-    x = x + o.reshape(B, S, cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
+    if cfg.mla is not None:
+        q, k, v, (c_kv, k_rope) = attn._mla_qkv(cfg, p["attn"], h, pos)
+        o = attn._mla_sdpa(cfg, q, k, v)
+        a = o.reshape(B, S, cfg.n_heads * cfg.mla.v_dim) @ \
+            p["attn"]["wo"].to(x.dtype)
+        kv = {"c_kv": c_kv, "k_rope": k_rope}
+    else:
+        q, k, v = attn._qkv(cfg, p["attn"], h, pos)
+        o = attn.sdpa(cfg, q, k, v)
+        a = o.reshape(B, S, cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
+        kv = {"k": k, "v": v}
+    x = x + a
     h = apply_norm(cfg, x, p.get("ln2s"))
-    return x + mlp(cfg, p["mlp"], h), (k, v)
+    y, aux = _block_mlp(cfg, p, h, decode=False)
+    return x + y, kv, aux
 
 
-def dense_block_decode(cfg, p, x, k_cache, v_cache, pos):
-    """One-token block; writes this token's k, v into the layer's cache."""
+def dense_block_decode(cfg, p, x, cache_l: dict, pos):
+    """One-token block; writes this token's cache entries into the
+    layer's cache ``cache_l`` (``{name: [B, max_len, ...]}``) in place."""
     h = apply_norm(cfg, x, p.get("ln1s"))
-    attn.append_kv(cfg, p["attn"], h, k_cache, v_cache, pos)
-    x = x + attn.decode_attention(cfg, p["attn"], h, k_cache, v_cache, pos)
+    if cfg.mla is not None:
+        attn.mla_append_kv(cfg, p["attn"], h, cache_l["c_kv"],
+                           cache_l["k_rope"], pos)
+        a = attn.mla_decode(cfg, p["attn"], h, cache_l["c_kv"],
+                            cache_l["k_rope"], pos)
+    else:
+        attn.append_kv(cfg, p["attn"], h, cache_l["k"], cache_l["v"], pos)
+        a = attn.decode_attention(cfg, p["attn"], h, cache_l["k"],
+                                  cache_l["v"], pos)
+    x = x + a
     h = apply_norm(cfg, x, p.get("ln2s"))
-    return x + mlp(cfg, p["mlp"], h)
+    return x + _block_mlp(cfg, p, h, decode=True)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -153,8 +185,17 @@ def _embed_in(cfg, params, tokens):
     return x
 
 
-def _no_aux(x):
+def _zero(x):
     return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _loss(forward):
+    """``loss(params, tokens, labels)``: mean cross-entropy plus the
+    forward's ``aux``."""
+    def loss(params, tokens, labels):
+        logits, aux = forward(params, tokens)
+        return softmax_xent(logits, labels) + aux
+    return loss
 
 
 def _layer_state(state: dict, i: int) -> dict:
@@ -185,42 +226,48 @@ def _build_dense(cfg: ModelCfg, dev: torch.device) -> Model:
                           if cfg.norm == "rmsnorm" else None)
 
     def _stack(params, tokens, cache=None):
+        """The layer stack over ``tokens``: ``(x, aux)``; with a cache,
+        every layer's cache entries written into ``[:, :, :S]``."""
         x = _embed_in(cfg, params, tokens)
-        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        S = tokens.shape[1]
+        pos = torch.arange(S, device=tokens.device)
+        aux = _zero(x)
         for i, p_l in enumerate(params["layers"]):
-            x, (k, v) = dense_block(cfg, p_l, x, pos)
+            x, kv, a = dense_block(cfg, p_l, x, pos)
+            aux = aux + a
             if cache is not None:
-                S = tokens.shape[1]
-                cache["k"][i, :, :S] = k.to(cache["k"].dtype)
-                cache["v"][i, :, :S] = v.to(cache["v"].dtype)
-        return _final(params, x)
+                for name, t in kv.items():
+                    cache[name][i, :, :S] = t.to(cache[name].dtype)
+        return _final(params, x), aux
 
     def forward(params, tokens):
-        x = _stack(params, tokens)
-        return lm_logits(cfg, params["embed"], x), _no_aux(x)
+        x, aux = _stack(params, tokens)
+        return lm_logits(cfg, params["embed"], x), aux
 
     def init_cache(batch: int, max_len: int) -> dict:
+        if cfg.mla is not None:
+            return attn.init_mla_cache(cfg, batch, max_len, device=dev)
         return attn.init_kv_cache(cfg, batch, max_len, device=dev)
 
     def prefill(params, tokens, cache):
-        """Logits of the last prompt token; the prompt's k, v written into
-        ``cache[:, :, :S]`` in place."""
-        x = _stack(params, tokens, cache)
+        """Logits of the last prompt token; the prompt's cache entries
+        written into ``cache[:, :, :S]`` in place."""
+        x, _ = _stack(params, tokens, cache)
         return lm_logits(cfg, params["embed"], x[:, -1:]), cache
 
     def decode_step(params, tok, cache, pos):
         """tok ``[B, 1]`` at positions ``pos`` ``[B]`` int32 → logits
-        ``[B, 1, V]``; writes the token's k, v into the cache in place."""
+        ``[B, 1, V]``; writes the token's cache entries in place."""
         x = embed(cfg, params["embed"], tok)
         if cfg.pos == "sinusoidal":
             x = x + sinusoidal_at(pos, cfg.d_model).to(x.dtype)[:, None]
         for i, p_l in enumerate(params["layers"]):
-            x = dense_block_decode(cfg, p_l, x, cache["k"][i],
-                                   cache["v"][i], pos)
+            x = dense_block_decode(cfg, p_l, x, _layer_state(cache, i), pos)
         x = _final(params, x)
         return lm_logits(cfg, params["embed"], x), cache
 
-    return Model(cfg, dev, init, forward, init_cache, prefill, decode_step)
+    return Model(cfg, dev, init, forward, _loss(forward), init_cache,
+                 prefill, decode_step)
 
 
 # -- rwkv6 ------------------------------------------------------------------
@@ -246,7 +293,7 @@ def _build_rwkv(cfg: ModelCfg, dev: torch.device) -> Model:
         x = _run(params, x, rk.init_rwkv_state(cfg, tokens.shape[0],
                                                device=x.device))
         x = rmsnorm(x, params["final_norm"])
-        return lm_logits(cfg, params["embed"], x), _no_aux(x)
+        return lm_logits(cfg, params["embed"], x), _zero(x)
 
     def init_cache(batch: int, max_len: int) -> dict:
         return rk.init_rwkv_state(cfg, batch, device=dev)   # O(1) in max_len
@@ -265,7 +312,8 @@ def _build_rwkv(cfg: ModelCfg, dev: torch.device) -> Model:
         x = rmsnorm(x, params["final_norm"])
         return lm_logits(cfg, params["embed"], x), cache
 
-    return Model(cfg, dev, init, forward, init_cache, prefill, decode_step)
+    return Model(cfg, dev, init, forward, _loss(forward), init_cache,
+                 prefill, decode_step)
 
 
 # -- zamba2 hybrid ----------------------------------------------------------
@@ -304,7 +352,7 @@ def _build_hybrid(cfg: ModelCfg, dev: torch.device) -> Model:
                  lambda x, ai: shared_attn_block(cfg, params["shared"], x,
                                                  pos)[0])
         x = rmsnorm(x, params["final_norm"])
-        return lm_logits(cfg, params["embed"], x), _no_aux(x)
+        return lm_logits(cfg, params["embed"], x), _zero(x)
 
     def init_cache(batch: int, max_len: int) -> dict:
         c = m2.init_mamba_state(cfg, batch, device=dev)
@@ -344,4 +392,5 @@ def _build_hybrid(cfg: ModelCfg, dev: torch.device) -> Model:
         x = rmsnorm(x, params["final_norm"])
         return lm_logits(cfg, params["embed"], x), cache
 
-    return Model(cfg, dev, init, forward, init_cache, prefill, decode_step)
+    return Model(cfg, dev, init, forward, _loss(forward), init_cache,
+                 prefill, decode_step)

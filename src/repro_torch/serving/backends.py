@@ -5,13 +5,13 @@ Counterpart of ``repro/serving/backends.py``.  A function invocation is
 model with its parameters on the device; a *cold start* is the real
 parameter initialisation on the device plus a warm-up prefill and decode
 step, measured, not modelled.  :class:`HermesFrontend` places each
-invocation with a balancer of :mod:`repro_torch.policy` at one
-replication: on the card, ``H`` launches the ``hermes_select`` kernel
-once per dispatch.
+invocation with any of the nine balancers of :mod:`repro_torch.policy`
+at one replication: on the card, ``H`` launches the ``hermes_select``
+kernel once per dispatch; the carried-state balancers (``HIKU``, ``DD``,
+``SWARM``) keep their state on the device and learn from each
+completion's measured wall time.
 
-Everything runs on ``device`` (``None`` = CUDA).  Carried-state
-balancers (``HIKU``, ``DD``, ``SWARM``) and ``JSQ2``/``RR`` raise
-:class:`~repro_torch.NotPortedError`.
+Everything runs on ``device`` (``None`` = CUDA).
 """
 from __future__ import annotations
 
@@ -21,17 +21,10 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import NotPortedError
 from repro_torch.core.cluster import ClusterCfg
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import build_model
 from repro_torch.policy import resolve
-from repro_torch.policy.registry import check_balancer
-
-#: the balancers the frontend dispatches with: the paper's four.  The
-#: zoo's carried state needs measured wall times fed back to
-#: ``on_complete``, which the frontend does not do yet.
-FRONTEND_BALANCERS = ("LOC", "R", "LL", "H")
 
 #: the warm-up prompt of a cold start, as in the reference
 WARMUP_TOKENS = 8
@@ -201,20 +194,19 @@ class HermesFrontend:
     :func:`repro_torch.policy.resolve` on a cluster of ``n_workers`` ×
     ``cores`` with ``8 × cores`` slots, called at one replication with
     the reference's inputs (worker loads, warm column, function homes 0,
-    uniform 0).  ``H`` on the card launches ``hermes_select``.  The
-    zoo's balancers (JSQ2, RR, HIKU, DD, SWARM) raise
-    :class:`~repro_torch.NotPortedError`.
+    uniform 0, the dispatch count as ``idx``).  ``H`` on the card
+    launches ``hermes_select``.  A carried-state balancer (``HIKU``,
+    ``DD``, ``SWARM``) has its state made by ``init_state`` on the
+    device, threaded through every selection, and updated by
+    ``on_complete`` after each invocation with its measured wall time
+    (``perf_counter`` around ``execute``, a cold start included) and the
+    worker's active count after the decrement, as in the reference.  An
+    unknown balancer is a named ``ValueError``.
     """
 
     def __init__(self, registry: ModelRegistry, n_workers: int = 2,
                  cores: int = 2, max_len: int = 128, balancer: str = "H",
                  keepalive_s: float | None = None, device=None):
-        key = check_balancer(balancer)
-        if key not in FRONTEND_BALANCERS:
-            raise NotPortedError(
-                f"HermesFrontend dispatches with "
-                f"{', '.join(FRONTEND_BALANCERS)}; balancer {key!r} is not "
-                f"ported to the frontend yet (ROADMAP Queue 1, item 9)")
         self.device = resolve_device(device)
         self.workers = [InProcessWorker(registry, max_len,
                                         keepalive_s=keepalive_s,
@@ -225,8 +217,11 @@ class HermesFrontend:
         self.fn_ids = {n: i for i, n in enumerate(registry.names())}
         cluster = ClusterCfg(n_workers=n_workers, cores=cores,
                              capacity_factor=8)
-        self._select = resolve(f"E/{balancer}/PS", cluster,
-                               device=self.device).select
+        res = resolve(f"E/{balancer}/PS", cluster, device=self.device)
+        self._select, self._on_complete = res.select, res.on_complete
+        self._lb_state = res.init_state(1, n_workers, len(self.fn_ids),
+                                        self.device) \
+            if res.stateful else None
         self._n_dispatched = 0
 
     def dispatch(self, inv: Invocation) -> Invocation:
@@ -237,18 +232,33 @@ class HermesFrontend:
         warm_col = torch.tensor([[int(w.has_warm(inv.func))
                                   for w in self.workers]],
                                 dtype=torch.int32, device=dev)
-        w = int(self._select(
-            active, warm_col, torch.tensor([fid], device=dev),
-            torch.zeros((1, len(self.fn_ids)), dtype=torch.int32, device=dev),
-            torch.zeros(1, dtype=torch.float64, device=dev),
-            self._n_dispatched)[0])
+        func = torch.tensor([fid], dtype=torch.int64, device=dev)
+        args = (active, warm_col, func,
+                torch.zeros((1, len(self.fn_ids)), dtype=torch.int32,
+                            device=dev),
+                torch.zeros(1, dtype=torch.float64, device=dev),
+                self._n_dispatched)
+        if self._lb_state is not None:
+            w, self._lb_state = self._select(self._lb_state, *args)
+        else:
+            w = self._select(*args)
+        w = int(w[0])
         self._n_dispatched += 1
         if w < 0:
             raise RuntimeError("cluster full")
         inv.worker = w
         worker = self.workers[w]
         worker.active += 1
+        t0 = time.perf_counter()
         try:
             return worker.execute(inv)
         finally:
             worker.active -= 1
+            if self._lb_state is not None:
+                self._lb_state = self._on_complete(
+                    self._lb_state,
+                    torch.tensor([w], dtype=torch.int64, device=dev), func,
+                    torch.tensor([time.perf_counter() - t0],
+                                 dtype=torch.float64, device=dev),
+                    torch.tensor([worker.active], dtype=torch.int64,
+                                 device=dev))

@@ -139,8 +139,10 @@ def test_head_dims_built_in_both_kernels():
     accept, in every ``switch (head_dim)`` (the flash source has one for
     its f32 kernel and one for its bf16 kernel), and those cover the
     attention of every config of ``repro.configs`` that the port builds
-    (zamba2-2.7b's shared block has Dh = 80, gemma-2b Dh = 256), with
-    query heads per KV head within the decode kernel's ``kMaxGroup``."""
+    (zamba2-2.7b's shared block has Dh = 80, gemma-2b Dh = 256, dbrx-132b
+    48 query heads on 8 KV heads at Dh = 128; deepseek-v2-236b's MLA runs
+    no attention kernel), with query heads per KV head within the decode
+    kernel's ``kMaxGroup``."""
     csrc = Path(fk.__file__).resolve().parents[2] / "csrc"
     for name, n_switches in (("flash_attention", 2), ("decode_attention", 1)):
         src = (csrc / f"{name}.cu").read_text()
@@ -161,13 +163,15 @@ def test_head_dims_built_in_both_kernels():
         except NotPortedError:
             continue
         built.append(name)
-        if cfg.family == "rwkv6":          # no attention
+        # rwkv6 has no attention; MLA's attention is the reference's
+        # einsums, no kernel (its head_dim is only informational)
+        if cfg.family == "rwkv6" or cfg.mla is not None:
             continue
         assert cfg.head_dim in fk.HEAD_DIMS, (name, cfg.head_dim)
         assert cfg.n_heads % cfg.n_kv_heads == 0, name
         assert cfg.n_heads // cfg.n_kv_heads <= dk.MAX_GROUP, name
     assert {"olmo-1b", "musicgen-large", "zamba2-2.7b", "gemma-2b",
-            "rwkv6-3b"} <= set(built), built
+            "rwkv6-3b", "dbrx-132b", "deepseek-v2-236b"} <= set(built), built
 
 
 def test_cuda_kernels_match_plain_versions():

@@ -389,18 +389,23 @@ def test_bf16_as_accurate_as_the_reference(name, capsys):
 
 @pytest.mark.parametrize("name", RECURRENT)
 def test_default_attn_impl(name):
-    """rwkv6 has no attention, so it builds and runs under its config's
-    default ``attn_impl``; the hybrid's shared block needs a ported
-    one."""
+    """Both recurrent families build and run under their config's default
+    ``attn_impl`` (``xla_chunked``): rwkv6 has no attention, and the
+    hybrid's shared block runs the chunked loop past ``attn_chunk`` (here
+    4), equal to its naive attention."""
     cfg = dataclasses.replace(configs.get_smoke(name), dtype="float32")
     assert cfg.attn_impl == "xla_chunked"
-    if name == "rwkv6-3b":
-        model = tr.build_model(cfg, device="cpu")
-        params = model.init(torch.Generator().manual_seed(0))
-        logits, _ = model.forward(params, torch.zeros((1, 5), dtype=torch.long))
-        assert logits.shape == (1, 5, cfg.vocab)
-        assert bool(logits.isfinite().all())
-    else:
-        from repro_torch import NotPortedError
-        with pytest.raises(NotPortedError, match="xla_chunked"):
-            tr.build_model(cfg, device="cpu")
+    model = tr.build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, 8)))
+    logits, _ = model.forward(params, toks)
+    assert logits.shape == (1, 8, cfg.vocab)
+    assert bool(logits.isfinite().all())
+    if name == "zamba2-2.7b":
+        chunked = tr.build_model(dataclasses.replace(cfg, attn_chunk=4),
+                                 device="cpu")
+        naive = tr.build_model(dataclasses.replace(cfg, attn_impl="naive"),
+                               device="cpu")
+        torch.testing.assert_close(chunked.forward(params, toks)[0],
+                                   naive.forward(params, toks)[0], **F32)

@@ -9,9 +9,14 @@ recurrent: rwkv6-3b, zamba2-2.7b), on the CPU.
   frontend over 6 requests alternating two models (the dense pair, or the
   recurrent pair), for ``H``, ``LL`` and ``LOC``, with the same
   background loads (one worker slot-full in turn) set on the workers
-  before each dispatch.
+  before each dispatch; and for all nine balancers over 8 requests, with
+  one deterministic clock in both modules so that the carried-state
+  balancers learn the same measured durations, their final state equal
+  to the reference's bit for bit.
 """
 import dataclasses
+import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -21,10 +26,11 @@ import torch
 
 from repro import configs as jconfigs
 from repro.serving import backends as jb
-from repro_torch import NotPortedError, configs
+from repro_torch import configs
 from repro_torch.convert import params_from_reference
 from repro_torch.device import NoCudaDeviceError
 from repro_torch.kernels.hermes_select import kernel as hk
+from repro_torch.policy import balancer_names
 from repro_torch.serving import backends as tb
 
 SERVED = ("olmo-1b", "musicgen-large")
@@ -145,12 +151,91 @@ def test_frontend_decisions_match_reference(balancer, models, registries,
     assert hk.hermes_select_batch.launches == 0      # CPU: plain version
 
 
+class DispatchClock:
+    """``time.perf_counter`` for both frontends: inside a ``dispatch`` it
+    steps through ``times`` (one sequence per module, so that the two
+    frontends read the same values); anywhere else it returns the last
+    value read there (the port's executor reads the clock more often
+    than the reference's stub does)."""
+
+    def __init__(self, times):
+        self.times = list(times)
+        self.at = {}
+
+    def __call__(self):
+        frame = sys._getframe(1)
+        mod = frame.f_globals.get("__name__")
+        i = self.at.get(mod, 0)
+        if frame.f_code.co_name == "dispatch":
+            self.at[mod] = i + 1
+            return self.times[i]
+        return self.times[max(i - 1, 0)]
+
+
+@pytest.mark.parametrize("balancer", balancer_names())
+def test_frontend_zoo_decisions_match_reference(balancer, registries,
+                                                monkeypatch):
+    """(worker, cold) of 8 requests alternating olmo-1b and rwkv6-3b, with
+    background loads set on both frontends' workers before each dispatch
+    (one worker slot-full in turn, the rest drawn), and the durations the
+    carried-state balancers learn from set by one clock: invocation i
+    takes ``0.05 + 0.1 · (i mod 3)`` s.  Every balancer's choices equal
+    the reference's, and HIKU's, DD's and SWARM's final state equals the
+    reference's bit for bit."""
+    jreg, treg = registries
+
+    class _StubExecutor:
+        def __init__(self, registry, name, max_len):
+            self.cold_start_s = 0.0
+
+        def run(self, inv):
+            return np.zeros(inv.n_new, np.int32)
+
+    monkeypatch.setattr(jb, "Executor", _StubExecutor)
+    times = []
+    for i in range(8):
+        start = 10.0 * i
+        times += [start, start + 0.05 + 0.1 * (i % 3)]
+    monkeypatch.setattr(time, "perf_counter", DispatchClock(times))
+    jfe = jb.HermesFrontend(jreg, n_workers=3, cores=2, max_len=32,
+                            balancer=balancer)
+    tfe = tb.HermesFrontend(treg, n_workers=3, cores=2, max_len=32,
+                            balancer=balancer, device="cpu")
+    rng = np.random.default_rng(5)
+    seq = []
+    for i in range(8):
+        name = ("olmo-1b", "rwkv6-3b")[i % 2]
+        loads = rng.integers(0, 5, 3)
+        loads[i % 3] = 16                       # one slot-full worker
+        for fe in (jfe, tfe):
+            for w, a in zip(fe.workers, loads):
+                w.active = int(a)
+        prompt = _prompt(name, 100, n=6, seed=i)
+        j = jfe.dispatch(jb.Invocation(func=name, prompt=prompt, n_new=2))
+        t = tfe.dispatch(tb.Invocation(func=name, prompt=prompt, n_new=2))
+        assert (t.worker, t.cold) == (j.worker, j.cold), (i, loads)
+        seq.append(t.worker)
+    assert (tfe._lb_state is None) == (jfe._lb_state is None)
+    if jfe._lb_state is not None:
+        assert set(tfe._lb_state) == set(jfe._lb_state)
+        for key, want in jfe._lb_state.items():
+            got = tfe._lb_state[key][0].numpy()
+            want = np.asarray(want)
+            assert got.dtype == want.dtype, key
+            np.testing.assert_array_equal(got, want, err_msg=key)
+    assert hk.hermes_select_batch.launches == 0      # CPU: plain version
+
+
 def test_unported_balancers_and_default_device_raise():
+    """The zoo's balancers, which the frontend once refused, build (their
+    decisions: ``test_frontend_zoo_decisions_match_reference``); an unknown
+    balancer and the default device without a card still raise."""
     treg = tb.ModelRegistry()
     treg.register("olmo-1b", _cfgs("olmo-1b")[1])
     for name in ("HIKU", "DD", "SWARM", "JSQ2", "RR"):
-        with pytest.raises(NotPortedError):
-            tb.HermesFrontend(treg, balancer=name, device="cpu")
+        fe = tb.HermesFrontend(treg, balancer=name, device="cpu")
+        assert (fe._lb_state is not None) == (name in ("HIKU", "DD",
+                                                       "SWARM"))
     with pytest.raises(ValueError, match="unknown load balancer"):
         tb.HermesFrontend(treg, balancer="NOPE", device="cpu")
     if torch.cuda.is_available():

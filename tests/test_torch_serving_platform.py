@@ -15,7 +15,9 @@ on the CPU.
   the card.
 * ``python -m repro_torch.launch.serve``'s printed lines and written
   timeline files equal to ``python -m repro.launch.serve``'s for two flag
-  sets; ``--backend models`` is refused by name.
+  sets; ``--backend models``'s lines equal to the reference's apart from
+  the measured milliseconds, and its named refusal of an unknown
+  ``--keepalive``.
 
 Workloads come from the workload generators' seeds.  Where JAX is not
 installed, the reference-side tests skip.  The last test runs only where
@@ -29,7 +31,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import NotPortedError
 from repro_torch.core import (ClusterCfg, FleetCfg, LifecycleCfg, ms_trace,
                               parse_policy, synth_workload)
 from repro_torch.device import NoCudaDeviceError
@@ -256,9 +257,39 @@ def test_launcher_prints_the_reference_lines(reference, monkeypatch,
     assert "timeline     : 64 windows" in ours
 
 
+def _without_ms(text):
+    """Each line without its last field, the measured milliseconds."""
+    return [line.rsplit(None, 1)[0] for line in text.splitlines()]
+
+
+@pytest.mark.parametrize("flags", [[], ["--keepalive", "FIXED_TTL",
+                                        "--ttl", "30"]],
+                         ids=["legacy", "fixed-ttl"])
+def test_launcher_models_backend_prints_the_reference_lines(
+        reference, monkeypatch, flags):
+    """``--backend models --requests 4``: the reference's registrations
+    (olmo-tiny, rwkv-tiny) behind the Hermes frontend, the same request,
+    function, worker and cold/warm on every line."""
+    flags = ["--backend", "models", "--requests", "4", *flags]
+    monkeypatch.setattr(sys, "argv", ["serve", *flags])
+    theirs = _printed(ref_serve.main)
+    ours = _printed(lambda: serve.main(flags, device="cpu"))
+    assert len(ours.splitlines()) == 4
+    assert _without_ms(ours) == _without_ms(theirs)
+    assert _without_ms(ours)[:2] == ["req  0 olmo-tiny  worker=0 COLD",
+                                     "req  1 rwkv-tiny  worker=0 COLD"]
+    for line in ours.splitlines():
+        assert line.endswith("ms") and float(line.split()[-1][:-2]) > 0
+
+
 def test_launcher_refuses_the_models_backend():
-    with pytest.raises(NotPortedError, match="Queue 1, item 9"):
-        serve.main(["--backend", "models"], device="cpu")
+    """``--backend models`` runs now (its lines:
+    ``test_launcher_models_backend_prints_the_reference_lines``); it
+    refuses a keep-alive the lifecycle registry does not know, with the
+    registry's named error, before it builds anything."""
+    with pytest.raises(ValueError, match="NOPE"):
+        serve.main(["--backend", "models", "--keepalive", "NOPE"],
+                   device="cpu")
 
 
 def test_card_dispatch_launches_once_per_arrival():
