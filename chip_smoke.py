@@ -258,7 +258,28 @@ non-zero):
     HIKU, DD and SWARM on the card; (e) ``python -m
     repro_torch.launch.serve --backend models --requests 12`` in a
     subprocess on the card beside (d): exit 0 and 12 lines in the
-    reference's format; the phase ≤ 60 s.
+    reference's format; the phase ≤ 60 s;
+19. the training path (``repro_torch.training``): (a) olmo-1b at its
+    published widths and all 16 layers, f32 parameters, bf16 compute,
+    ``remat="full"``, AdamW with the launcher's defaults (lr 3e-4), lcg
+    data at batch 8 × seq 64 in 2 microbatches, 6 steps: ms a step (the
+    median of the last 4, host clock around a synchronised step), the
+    device peak, loss and grad norm finite at every step; (b) in f32 from
+    the same initial weights, one step's loss and gradients on the card
+    against the CPU's (worker processes, started before phase 18 and run
+    beside it) on a 2 × 64 lcg batch, for olmo-1b at 1 layer, rwkv6-3b at
+    2 and zamba2-2.7b at 6 (its shared block once), published widths: the
+    loss within 1e-5 relative, every gradient leaf within 1e-4 × its max
+    |value| (rwkv6-3b 4e-4: its f32 gradients at published widths differ
+    by 1.27e-4 on the CPU against themselves), ``adamw_update`` fed the
+    CPU's gradients on both sides within 1e-6 × max |p|; the scans
+    through their kernels under
+    autograd, launched once a layer and once more in the remat
+    recompute (counted); (c) ``python -m repro_torch.launch.train
+    --smoke --arch olmo-1b --steps 60 --lr 1e-2 --batch 4 --seq 32
+    --ckpt-every 20`` in a subprocess on the card beside (b): exit 0, the
+    reference's line with the final loss at least 0.5 below the first, at
+    most ``keep`` checkpoint directories; the phase ≤ 45 s.
 
 TF32 is off for matrix products and cuDNN throughout.  The line before the
 last is ``{"kernels": [...]}``; the last line is
@@ -271,6 +292,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -4312,6 +4335,355 @@ def moe_serving(torch, np, report):
     return totals, kernel_err
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the training path
+# ---------------------------------------------------------------------------
+
+#: 19a: olmo-1b at published widths and depth, f32 parameters, bf16
+#: compute, remat "full", the launcher's AdamW defaults, lcg data
+TRAIN_ARCH = "olmo-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 64, 2, 6
+TRAIN_TIMED = 4                     # the last steps, whose median is reported
+#: 19b: (arch, layers) held card against CPU in f32 at published widths,
+#: cut in depth only; zamba2-2.7b's 6 layers run its shared block once
+TRAIN_CHECKED = (("olmo-1b", 1), ("rwkv6-3b", 2), ("zamba2-2.7b", 6))
+CHECK_BATCH, CHECK_SEQ = 2, 64
+TRAIN_SEED = 7
+#: the loss, relative; AdamW fed the CPU's gradients on both sides, ×
+#: max |p|
+TRAIN_LOSS_TOL, TRAIN_OPT_TOL = 1e-5, 1e-6
+#: every gradient leaf, × its max |value|: the port's f32 model bound,
+#: 1e-4, where the f32 gradients of a model at published widths reproduce
+#: that closely.  rwkv6-3b's do not: the CPU against itself at 2 and 3
+#: intra-op threads differs by up to 1.27e-4 (layers/0/tm/bonus;
+#: olmo-1b 1.56e-6, zamba2-2.7b 1.07e-5; tools/train_grad_noise.py), so
+#: it is held to about 3× that spread
+TRAIN_GRAD_TOL = {"olmo-1b": 1e-4, "rwkv6-3b": 4e-4, "zamba2-2.7b": 1e-4}
+#: the CPU side's intra-op threads in each of its three workers (of the
+#: card machine's 8 cores; the rest for phases 18 and 19's host work)
+TRAIN_WORKER_THREADS = 2
+#: 19c: the launcher, as the reference's ``test_train_loss_decreases``
+TRAIN_LAUNCH_FLAGS = ("--smoke", "--arch", "olmo-1b", "--steps", "60",
+                      "--lr", "1e-2", "--batch", "4", "--seq", "32",
+                      "--ckpt-every", "20")
+TRAIN_KEEP = 3                      # CheckpointManager's default
+TRAIN_PHASE_S = 45.0
+
+
+def _checked_cfg(arch, n_layers):
+    import dataclasses
+
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(arch), n_layers=n_layers,
+                               dtype="float32")
+
+
+def _train_opt_cfg():
+    """The launcher's AdamW for a run of ``TRAIN_STEPS`` steps."""
+    from repro_torch.training.optimizer import OptCfg
+    return OptCfg(lr=3e-4, warmup_steps=min(50, TRAIN_STEPS // 10 + 1),
+                  total_steps=TRAIN_STEPS)
+
+
+def _write_trees(path, **trees) -> dict:
+    """The trees' leaves written back to back to one raw file (a pickle-free
+    file that the main process maps); returns where each leaf lies."""
+    from repro_torch.training.tree import tree_leaves
+    index, offset = {}, 0
+    with open(path, "wb") as f:
+        for name, tree in trees.items():
+            index[name] = []
+            for leaf in tree_leaves(tree):
+                a = leaf.detach().contiguous().numpy()
+                a.tofile(f)
+                index[name].append((offset, a.shape, a.dtype.str))
+                offset += a.nbytes
+    return index
+
+
+def _read_tree(np, torch, path, like, index):
+    """``like``'s structure with the leaves of ``index`` read from the raw
+    file at ``path`` (mapped, not copied)."""
+    from repro_torch.training.tree import unflatten_like
+    data = np.memmap(path, dtype=np.uint8, mode="c")
+    leaves = [torch.from_numpy(np.ndarray(shape, dtype=np.dtype(dt),
+                                          buffer=data, offset=off))
+              for off, shape, dt in index]
+    return unflatten_like(like, leaves)
+
+
+def cpu_train_check(arch, n_layers, out_dir):
+    """19b's CPU side, in a worker process: ``arch`` at published widths
+    and ``n_layers`` from ``TRAIN_SEED``, its loss and gradients on the
+    lcg batch of step 0, and AdamW's first step fed those gradients; the
+    initial parameters, the gradients and the updated parameters written
+    to a raw file in ``out_dir``; the card's remat left out.  Returns
+    (path, the parameters' tree with 0 for each leaf, the leaf index,
+    loss, seconds of each part).  Top-level, so that a worker process can
+    run it."""
+    t0 = time.perf_counter()
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.pipeline import lcg_batch
+    from repro_torch.models.transformer import build_model
+    from repro_torch.training.optimizer import adamw_update, init_opt_state
+    from repro_torch.training.train import value_and_grad
+    from repro_torch.training.tree import tree_map
+    torch.set_num_threads(TRAIN_WORKER_THREADS)
+    secs = {"import": time.perf_counter() - t0}
+    t = time.perf_counter()
+    # no recompute on the CPU: remat gives its gradients bit for bit
+    # there (tests/test_torch_training.py)
+    cfg = dataclasses.replace(_checked_cfg(arch, n_layers), remat="none")
+    model = build_model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(TRAIN_SEED))
+    secs["init"], t = time.perf_counter() - t, time.perf_counter()
+    tokens, labels = (torch.from_numpy(a) for a in
+                      lcg_batch(0, CHECK_BATCH, CHECK_SEQ, cfg.vocab))
+    loss, grads = value_and_grad(model.loss, params, tokens, labels)
+    secs["grad"], t = time.perf_counter() - t, time.perf_counter()
+    new, _, _ = adamw_update(_train_opt_cfg(), params, grads,
+                             init_opt_state(params))
+    secs["adamw"], t = time.perf_counter() - t, time.perf_counter()
+    path = str(Path(out_dir) / f"{arch}.bin")
+    index = _write_trees(path, params=params, grads=grads, new=new)
+    secs["write"] = time.perf_counter() - t
+    skeleton = tree_map(lambda _: 0, params)
+    return path, skeleton, index, float(loss), secs
+
+
+def _tree_ratio(torch, got, want):
+    """(max over leaves of max |got − want| ÷ max |want|, its leaf's
+    path); ``want`` may lie on the CPU."""
+    from repro_torch.training.tree import flatten_with_paths, tree_leaves
+    worst, where = 0.0, ""
+    for (path, g), w in zip(flatten_with_paths(got), tree_leaves(want)):
+        check(g.shape == w.shape, f"{'/'.join(path)}: {tuple(g.shape)} "
+                                  f"against {tuple(w.shape)}")
+        if not w.numel():
+            continue
+        w = w.to(g.device)
+        err = (g.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        ratio = err / scale if scale else (0.0 if err == 0 else float("inf"))
+        if ratio > worst or not where:
+            worst, where = ratio, "/".join(path)
+    return worst, where
+
+
+def train_full_width(torch, report):
+    """19a: ``TRAIN_STEPS`` AdamW steps of olmo-1b at full width and
+    depth; ms a step (median of the last ``TRAIN_TIMED``, host clock
+    around a synchronised step), the device peak, loss and grad norm
+    finite at every step, no kernel launched (dense, ``xla_chunked``)."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_data_iter
+    from repro_torch.models.transformer import build_model
+    from repro_torch.training.train import build_train_step, init_train_state
+    cfg = configs.get(TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    state = init_train_state(model,
+                             torch.Generator("cuda").manual_seed(TRAIN_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = build_train_step(model, _train_opt_cfg(), microbatches=TRAIN_MICRO)
+    data = make_data_iter("lcg", TRAIN_BATCH, TRAIN_SEQ, cfg.vocab)
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    rows = []
+    for i in range(TRAIN_STEPS):
+        tokens, labels = data(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, tokens, labels)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        row = dict(ms=ms, **{k: float(v) for k, v in m.items()})
+        check(all(math.isfinite(row[k]) for k in ("loss", "grad_norm")),
+              f"19a: step {i} gave {row}")
+        log(f"19a: step {i}: {ms:.1f} ms, loss {row['loss']:.4f}, grad norm "
+            f"{row['grad_norm']:.4f}, lr {row['lr']:.3e}")
+        rows.append(row)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: c.launches for n, c in counters.items()}
+    check(not any(launches.values()), f"19a launched kernels: {launches}")
+    med = statistics.median(r["ms"] for r in rows[-TRAIN_TIMED:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n = cfg.n_params()
+    # 6 N per token (forward and backward), 8 N under full remat
+    mfu = 8 * n * tokens / (med / 1e3) / BF16_FLOPS_PER_S
+    log(f"19a: {TRAIN_ARCH} at {cfg.n_layers} layers ({n / 1e9:.3f} B "
+        f"params, f32, bf16 compute, remat {cfg.remat}), batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MICRO} microbatches: "
+        f"{med:.1f} ms a step (median of the last {TRAIN_TIMED}; all "
+        f"{[round(r['ms'], 1) for r in rows]}), {tokens / med * 1e3:.0f} "
+        f"tokens/s, {mfu:.4f} of the bf16 peak at 8N per token; device "
+        f"peak {peak / 1e9:.2f} GB; init {init_s:.1f} s")
+    report["train_full_width"] = dict(
+        init_s=init_s, steps=rows, ms_per_step=med,
+        tokens_per_s=tokens / med * 1e3,
+        bf16_peak_share=mfu, max_memory_allocated_gb=peak / 1e9,
+        n_params=n)
+    del state
+    torch.cuda.empty_cache()
+
+
+def train_card_vs_cpu(torch, np, report, jobs):
+    """19b's card side: each checked model from the CPU's initial
+    parameters, its loss and gradients on the card (the scans through
+    their kernels, counted) against the CPU's, and AdamW fed the CPU's
+    gradients on both sides.  Returns the scan kernels' launches."""
+    from repro_torch.data.pipeline import lcg_batch, place
+    from repro_torch.models.transformer import build_model
+    from repro_torch.training.optimizer import adamw_update, init_opt_state
+    from repro_torch.training.train import value_and_grad
+    from repro_torch.training.tree import tree_map
+    counters = _counters()
+    total = {n: 0 for n in counters}
+    out = {}
+    for (arch, n_layers), job in zip(TRAIN_CHECKED, jobs):
+        t_wait = time.perf_counter()
+        path, skeleton, index, cpu_loss, cpu_s = job.get(
+            timeout=TRAIN_PHASE_S)
+        t_card = time.perf_counter()
+        cfg = _checked_cfg(arch, n_layers)
+        model = build_model(cfg)
+        cpu = {k: _read_tree(np, torch, path, skeleton, index[k])
+               for k in index}
+        params = tree_map(lambda t: t.to("cuda"), cpu["params"])
+        tokens, labels = place(*lcg_batch(0, CHECK_BATCH, CHECK_SEQ,
+                                          cfg.vocab))
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        loss, grads = value_and_grad(model.loss, params, tokens, labels)
+        torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+        # one launch a layer in the forward, one more in the remat
+        # recompute; the backward is the plain chunked form's
+        per_layer = 2 if cfg.remat != "none" else 1
+        want = {n: 0 for n in counters}
+        if cfg.family == "rwkv6":
+            want["rwkv6_wkv"] = per_layer * n_layers
+        elif cfg.family == "hybrid":
+            want["mamba2_ssd"] = per_layer * n_layers
+        check(launches == want, f"19b {arch}: launches {launches}, "
+                                f"expected {want}")
+        for n, k in launches.items():
+            total[n] += k
+        loss_rel = abs(float(loss) / cpu_loss - 1)
+        grad_ratio, grad_leaf = _tree_ratio(torch, grads, cpu["grads"])
+        cpu_grads = tree_map(lambda t: t.to("cuda"), cpu["grads"])
+        new, _, _ = adamw_update(_train_opt_cfg(), params, cpu_grads,
+                                 init_opt_state(params))
+        opt_ratio, opt_leaf = _tree_ratio(torch, new, cpu["new"])
+        card_s = time.perf_counter() - t_card
+        log(f"19b: {arch} at {n_layers} layers: loss {float(loss):.6f} (CPU "
+            f"{cpu_loss:.6f}, {loss_rel:.3e} relative); gradients "
+            f"{grad_ratio:.3e} x max |leaf| at worst ({grad_leaf}); AdamW on "
+            f"the CPU's gradients {opt_ratio:.3e} x max |p| ({opt_leaf}); "
+            f"launches {dict((n, k) for n, k in launches.items() if k)}; "
+            f"the CPU side in its worker "
+            f"{ {k: round(v, 1) for k, v in cpu_s.items()} } s, waited for "
+            f"{t_card - t_wait:.1f} s, the card side {card_s:.1f} s")
+        check(loss_rel <= TRAIN_LOSS_TOL, f"19b {arch}: loss {loss_rel:.3e}")
+        check(grad_ratio <= TRAIN_GRAD_TOL[arch],
+              f"19b {arch}: gradient {grad_leaf} {grad_ratio:.3e}")
+        check(opt_ratio <= TRAIN_OPT_TOL,
+              f"19b {arch}: AdamW {opt_leaf} {opt_ratio:.3e}")
+        out[arch] = dict(n_layers=n_layers, loss=float(loss),
+                         cpu_loss=cpu_loss, loss_rel=loss_rel,
+                         grad_ratio=grad_ratio, grad_leaf=grad_leaf,
+                         opt_ratio=opt_ratio, opt_leaf=opt_leaf,
+                         launches=launches, cpu_s=cpu_s, card_s=card_s)
+        del cpu, params, grads, cpu_grads, new
+        Path(path).unlink()
+        torch.cuda.empty_cache()
+    report["train_card_vs_cpu"] = out
+    return total
+
+
+def train_launcher_line(stdout: str) -> tuple[float, float]:
+    """(first loss, final loss) of the launcher's line, checked against
+    the reference's format."""
+    import re
+    lines = stdout.strip().splitlines()
+    m = re.fullmatch(r"(\d+) steps in \d+s; loss (-?[\d.]+) → "
+                     r"(-?[\d.]+); restarts=(\d+)", lines[-1] if lines else "")
+    check(m is not None and int(m[1]) == int(TRAIN_LAUNCH_FLAGS[4])
+          and m[4] == "0", f"19c: the launcher printed {lines}")
+    return float(m[2]), float(m[3])
+
+
+@contextlib.contextmanager
+def train_checks():
+    """19b's CPU side, started before phase 18 and run beside it: a
+    scratch directory under ``build/`` and a worker process per checked
+    model, each running :func:`cpu_train_check` at once.  Yields (the
+    directory, the jobs)."""
+    import multiprocessing
+    import tempfile
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp, \
+            multiprocessing.get_context("spawn").Pool(
+                len(TRAIN_CHECKED)) as pool:
+        yield tmp, [pool.apply_async(cpu_train_check, (arch, n, tmp))
+                    for arch, n in TRAIN_CHECKED]
+
+
+def training(torch, np, report, tmp, jobs):
+    """Phase 19: the training path (19a full width; 19b card against CPU,
+    the CPU side from ``jobs``; 19c the launcher in a subprocess, started
+    first and run beside 19a and 19b).  Returns the scan kernels'
+    launches."""
+    import os
+    t_phase = time.perf_counter()
+    ckpt = Path(tmp) / "ckpt"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    launcher = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train",
+         *TRAIN_LAUNCH_FLAGS, "--ckpt-dir", str(ckpt)], env=env,
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        train_full_width(torch, report)
+        launches = train_card_vs_cpu(torch, np, report, jobs)
+        stdout, stderr = launcher.communicate(timeout=TRAIN_PHASE_S)
+    finally:
+        if launcher.poll() is None:
+            launcher.kill()
+            launcher.communicate()
+    launch_s = time.perf_counter() - t_phase
+    check(launcher.returncode == 0,
+          f"19c: the launcher exited {launcher.returncode}: "
+          f"{stderr[-2000:]}")
+    first, last = train_launcher_line(stdout)
+    dirs = sorted(os.listdir(ckpt))
+    log(f"19c: the launcher (subprocess on the card, done {launch_s:.1f} s "
+        f"into the phase) printed {stdout.strip().splitlines()[-1]!r}; "
+        f"checkpoints {dirs}")
+    check(last <= first - 0.5, f"19c: the loss fell from {first} to {last}, "
+                               f"less than 0.5")
+    check(0 < len(dirs) <= TRAIN_KEEP and all(d.isdigit() for d in dirs)
+          and dirs[-1] == TRAIN_LAUNCH_FLAGS[4],
+          f"19c: checkpoint directories {dirs}")
+    report["train_launcher"] = dict(line=stdout.strip().splitlines()[-1],
+                                    done_s=launch_s, checkpoints=dirs)
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 19: {phase_s:.1f} s")
+    report["train_phase_s"] = phase_s
+    check(phase_s <= TRAIN_PHASE_S, f"phase 19 took {phase_s:.1f} s (limit "
+                                    f"{TRAIN_PHASE_S:.0f} s)")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run it from the root of a checkout of the repo",
@@ -4393,8 +4765,14 @@ def main() -> int:
             with Phase("17 streaming on the card", report):
                 stream_launches, fcfs_launches, stream_err = streaming(
                     torch, np, report, pool)
-        with Phase("18 MoE and MLA serving at full width", report):
-            moe_launches, moe_kernel_err = moe_serving(torch, np, report)
+        # 19b's CPU side runs in its worker processes beside phase 18
+        with train_checks() as (train_tmp, train_jobs):
+            with Phase("18 MoE and MLA serving at full width", report):
+                moe_launches, moe_kernel_err = moe_serving(torch, np,
+                                                           report)
+            with Phase("19 training on the card", report):
+                train_launches = training(torch, np, report, train_tmp,
+                                          train_jobs)
         total_s = time.perf_counter() - t_start
         check(total_s <= SCRIPT_S, f"the script took {total_s:.1f} s (limit "
                                    f"{SCRIPT_S:.0f} s)")
@@ -4433,7 +4811,8 @@ def main() -> int:
     # the headline shape of each: olmo-1b's attention, rwkv6-3b's and
     # zamba2-2.7b's scans at T = 777, bf16; launches from the paths that
     # serve them (phases 7 and 18 for attention, phase 10 for the scans,
-    # phase 18 for the launcher's rwkv-tiny); the error the largest of the
+    # phase 18 for the launcher's rwkv-tiny) and train them (phase 19b:
+    # the scans' forwards and remat recomputes); the error the largest of the
     # headline shape's and, for attention, dbrx-132b's shapes (phase 18)
     for name, path, rows, n in (
             ("flash_attention", "flash_attention/kernel.py:63",
@@ -4451,7 +4830,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{path}",
-            "launches": n[name] + moe_launches.get(name, 0),
+            "launches": n[name] + moe_launches.get(name, 0)
+            + train_launches[name],
             "max_abs_err": err,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -6,7 +6,10 @@ These constructors take the reference's ``Workload`` / ``WorkloadBatch``
 reference's objects, which the port does not import), so that one case
 can be fed identically to both packages.  The served models do have
 weights: :func:`params_from_reference` carries the reference's parameter
-tree across bit for bit.
+tree across bit for bit, :func:`train_state_from_reference` a whole
+training state (parameters, AdamW moments and step, error feedback), and
+:func:`stack_like_reference` takes a port tree back to the reference's
+layout for the tests.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ from repro_torch.core.cluster import ClusterCfg
 from repro_torch.core.workload import (Workload, WorkloadBatch,
                                        validate_workload)
 from repro_torch.device import resolve_device
+from repro_torch.training.optimizer import OptState
+from repro_torch.training.train import TrainState
 
 
 def workload_from_arrays(arrival, func, service, u_lb, func_home,
@@ -92,4 +97,48 @@ def params_from_reference(cfg, tree, device=None) -> dict:
 
     return {k: ([walk(v, i, "layers") for i in range(n_layers)]
                 if k == "layers" else walk(v, path=k))
+            for k, v in tree.items()}
+
+
+def train_state_from_reference(cfg, state, device=None):
+    """The port's :class:`~repro_torch.training.train.TrainState` from the
+    reference's, leaf by leaf as numpy arrays.
+
+    ``state`` has the reference's fields: ``params``, ``opt`` (``m``,
+    ``v``, ``step``) and ``err`` (``None`` unless the compressed step made
+    it).  ``params``, ``m``, ``v`` and ``err`` are split per layer as in
+    :func:`params_from_reference`; ``step`` becomes a 0-d int32 tensor.
+    ``device=None`` is CUDA.
+    """
+    dev = resolve_device(device)
+    tree = lambda t: params_from_reference(cfg, t, dev)   # noqa: E731
+    opt = state.opt
+    step = torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                        device=dev)
+    return TrainState(params=tree(state.params),
+                      opt=OptState(m=tree(opt.m), v=tree(opt.v), step=step),
+                      err=None if state.err is None else tree(state.err))
+
+
+def stack_like_reference(tree) -> dict:
+    """A port tree (``{"layers": [one dict per layer], ...}``) in the
+    reference's layout: numpy arrays, every leaf under ``"layers"`` stacked
+    on a leading ``L`` axis, the other subtrees whole.  bfloat16 leaves
+    come back as float32 (exact)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return leaf(node)
+
+    def stack(layers):
+        first = layers[0]
+        if isinstance(first, dict):
+            return {k: stack([layer[k] for layer in layers]) for k in first}
+        return np.stack([leaf(t) for t in layers])
+
+    return {k: stack(v) if k == "layers" else walk(v)
             for k, v in tree.items()}

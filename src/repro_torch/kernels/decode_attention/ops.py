@@ -6,6 +6,8 @@ kernel reads the cache in place through strides, so nothing is transposed.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.autograd import refuse_grad
+
 from . import kernel
 from .ref import decode_attention_ref
 
@@ -15,8 +17,11 @@ def decode_attention(q, k, v, pos):
     ``[B,H,Dh]``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which raises on anything it does not take.
+    which raises on anything it does not take.  Neither has a gradient,
+    as in the reference: an input that requires one raises
+    ``NotImplementedError``.
     """
+    refuse_grad("decode_attention", q, k, v)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, pos)
     return kernel.decode_attention(q, k, v, pos)

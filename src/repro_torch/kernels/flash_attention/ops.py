@@ -7,6 +7,8 @@ through strides, so nothing is transposed.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.autograd import refuse_grad
+
 from . import kernel
 from .ref import flash_attention_ref
 
@@ -16,8 +18,11 @@ def flash_attention(q, k, v):
     ``[B,S,H,Dh]``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which raises on anything it does not take.
+    which raises on anything it does not take.  Neither has a gradient,
+    as in the reference: an input that requires one raises
+    ``NotImplementedError``.
     """
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v)
     return kernel.flash_attention(q, k, v)

@@ -3,9 +3,14 @@ tensors on the CPU.
 
 Seq-major API, as the reference's ``ops.ssd``, with the models' optional
 carry-in state; the kernel reads the model's views through strides, so
-nothing is copied.
+nothing is copied.  Under autograd the call goes through
+:class:`~repro_torch.kernels.autograd.ScanGrad`: the same forward, the
+gradient of the plain chunked form (the reference trains through that
+form and has no backward kernel).
 """
 from __future__ import annotations
+
+from repro_torch.kernels.autograd import ScanGrad, wants_grad
 
 from . import kernel
 from .ref import ssd_chunked_ref
@@ -19,6 +24,8 @@ def ssd(x, dt_h, bmat, cmat, a, h0=None, *, chunk: int = 128):
     CPU tensors take the plain chunked form; CUDA tensors launch the
     kernels (three passes), which raise on anything they do not take.
     """
-    if x.device.type == "cpu":
-        return ssd_chunked_ref(x, dt_h, bmat, cmat, a, h0, chunk)
-    return kernel.ssd(x, dt_h, bmat, cmat, a, h0, chunk=chunk)
+    forward = ssd_chunked_ref if x.device.type == "cpu" else kernel.ssd
+    if wants_grad(x, dt_h, bmat, cmat, a, h0):
+        return ScanGrad.apply(forward, ssd_chunked_ref, chunk, x, dt_h, bmat,
+                              cmat, a, h0)
+    return forward(x, dt_h, bmat, cmat, a, h0, chunk=chunk)

@@ -48,9 +48,11 @@ def ssd_ref(x, dt_h, bmat, cmat, a, h0=None):
 def ssd_chunked_ref(x, dt_h, bmat, cmat, a, h0=None, chunk: int = 128):
     """Chunked SSD scan with chunk ``min(chunk, T)``; a ragged tail is
     padded with ``dt = 0`` (no state contribution) and ``x = B = C = 0``
-    → ``(y [B,T,H,P], state [B,H,P,N])``."""
+    → ``(y [B,T,H,P], state [B,H,P,N])``.  It computes in f32, or in
+    f64 for f64 inputs (the gradient checks)."""
     B, T, H, P = x.shape
     N = bmat.shape[-1]
+    acc = torch.promote_types(x.dtype, torch.float32)
     h = _zero_state(x, N) if h0 is None else h0
     c = min(chunk, T)
     T0 = T
@@ -69,8 +71,7 @@ def ssd_chunked_ref(x, dt_h, bmat, cmat, a, h0=None, chunk: int = 128):
     mask = (t_idx[:, None] >= t_idx[None, :])[None, :, :, None]
     ys = []
     for i in range(n):
-        xx, dd = xc[:, i].float(), dtc[:, i].float()
-        bb, ccm = bc[:, i].float(), cc[:, i].float()
+        xx, dd, bb, ccm = (z[:, i].to(acc) for z in (xc, dtc, bc, cc))
         la = torch.cumsum(dd * a[None, None, :], dim=1)      # [B,c,H] <= 0
         # intra-chunk scores M[t,s] = (C_t.B_s) exp(la_t - la_s) dt_s, s <= t
         cb = torch.einsum("btn,bsn->bts", ccm, bb)

@@ -3,9 +3,14 @@ tensors on the CPU.
 
 Seq-major ``[B,T,H,K]`` API, as the reference's ``ops.wkv6``, with the
 models' optional carry-in state; the kernel reads that layout through
-strides, so nothing is transposed.
+strides, so nothing is transposed.  Under autograd the call goes through
+:class:`~repro_torch.kernels.autograd.ScanGrad`: the same forward, the
+gradient of the plain chunked form (the reference trains through that
+form and has no backward kernel).
 """
 from __future__ import annotations
+
+from repro_torch.kernels.autograd import ScanGrad, wants_grad
 
 from . import kernel
 from .ref import wkv6_chunked_ref
@@ -18,6 +23,8 @@ def wkv6(r, k, v, lw, u, s0=None, *, chunk: int = 32):
     CPU tensors take the plain chunked form; CUDA tensors launch the
     kernel, which raises on anything it does not take.
     """
-    if r.device.type == "cpu":
-        return wkv6_chunked_ref(r, k, v, lw, u, s0, chunk)
-    return kernel.wkv6(r, k, v, lw, u, s0, chunk=chunk)
+    forward = wkv6_chunked_ref if r.device.type == "cpu" else kernel.wkv6
+    if wants_grad(r, k, v, lw, u, s0):
+        return ScanGrad.apply(forward, wkv6_chunked_ref, chunk, r, k, v, lw,
+                              u, s0)
+    return forward(r, k, v, lw, u, s0, chunk=chunk)

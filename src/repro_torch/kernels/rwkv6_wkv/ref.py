@@ -45,8 +45,10 @@ def wkv6_ref(r, k, v, lw, u, s0=None):
 def wkv6_chunked_ref(r, k, v, lw, u, s0=None, chunk: int = 32):
     """Chunked WKV scan with chunk ``min(chunk, T)``; a ragged tail is
     padded with ``lw = 0`` (decay 1) and ``r = k = v = 0`` (no
-    contribution) → ``(y [B,T,H,K], state [B,H,K,K])``."""
+    contribution) → ``(y [B,T,H,K], state [B,H,K,K])``.  It computes in
+    f32, or in f64 for f64 inputs (the gradient checks)."""
     B, T, H, K = r.shape
+    acc = torch.promote_types(r.dtype, torch.float32)
     s = _zero_state(r) if s0 is None else s0
     c = min(chunk, T)
     T0 = T
@@ -61,18 +63,18 @@ def wkv6_chunked_ref(r, k, v, lw, u, s0=None, chunk: int = 32):
         return x.reshape(B, n, c, H, K).permute(1, 0, 3, 2, 4)
 
     rc, kc, vc, lwc = rs(r), rs(k), rs(v), rs(lw)      # [n,B,H,c,K]
-    uf = u.float()[None, :, None, :]
+    uf = u.to(acc)[None, :, None, :]
     t_idx = torch.arange(c, device=r.device)
     strict = t_idx[:, None] > t_idx[None, :]
     eye = torch.eye(c, device=r.device)
     ys = []
     for i in range(n):
-        ll = lwc[i].float()
+        ll = lwc[i].to(acc)
         li = torch.cumsum(ll, dim=2)                    # inclusive
         lx = li - ll                                    # exclusive
         # pairwise decay exp(lx_t - li_s), s < t: exponent <= 0
         dec = torch.exp(lx[:, :, :, None, :] - li[:, :, None, :, :])
-        rrf, kkf, vvf = rc[i].float(), kc[i].float(), vc[i].float()
+        rrf, kkf, vvf = (z[i].to(acc) for z in (rc, kc, vc))
         a = (rrf[:, :, :, None, :] * kkf[:, :, None, :, :] * dec).sum(-1)
         a = torch.where(strict, a, 0.0)
         diag = (rrf * uf * kkf).sum(-1)

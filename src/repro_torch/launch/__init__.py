@@ -1,1 +1,2 @@
-"""Launchers of the port (counterpart of ``repro.launch``): ``serve``."""
+"""Launchers of the port (counterpart of ``repro.launch``): ``serve`` and
+``train``."""

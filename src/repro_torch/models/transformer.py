@@ -10,8 +10,10 @@ plain functions:
   on the generator's device;
 * ``forward(params, tokens) → (logits, aux)`` — full sequence; ``aux`` is
   the MoE router losses summed over layers (0 without MoE);
-* ``loss(params, tokens, labels)`` — mean cross-entropy plus ``aux``
-  (forward only: the port has no training path yet);
+* ``loss(params, tokens, labels)`` — mean cross-entropy plus ``aux``;
+  ``forward`` and ``loss`` are functional (a recurrent layer starts from
+  a fresh zero state and returns its new one, which they drop), so
+  autograd runs through them;
 * ``init_cache / prefill / decode_step`` — the serving path.  The cache
   is the reference's: ``{"k", "v"}`` of ``[L, B, max_len, KV, Dh]``
   (dense), MLA's latent ``{"c_kv", "k_rope"}`` of ``[L, B, max_len,
@@ -22,17 +24,22 @@ plain functions:
   and return it.
 
 The reference's ``lax.scan`` over stacked layers is a Python loop here,
-with a static layer index (the reference's unrolled mode).  Remat,
-``param_specs`` and ``layer_mode`` belong to training, sharding and the
-roofline and are not ported yet.
+with a static layer index (the reference's unrolled mode).  Under
+training each layer runs under ``cfg.remat`` (:func:`_remat`).
+``param_specs`` and ``layer_mode`` belong to sharding and the roofline
+and are not ported yet.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.autograd import wants_grad
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
@@ -42,6 +49,7 @@ from repro_torch.models.layers import (apply_norm, embed, init_embed,
                                        init_mlp, lm_logits, mlp, rmsnorm,
                                        sinusoidal_at, sinusoidal_pe,
                                        softmax_xent, zeros)
+from repro_torch.training.tree import tree_leaves
 
 
 class Model(NamedTuple):
@@ -207,6 +215,37 @@ def _write_state(state: dict, i: int, new: dict) -> None:
         state[k][i].copy_(v)
 
 
+# -- rematerialisation (training only) ---------------------------------------
+
+#: the products the reference's ``checkpoint_dots`` policy keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg, fn):
+    """One layer ``fn(p_l, *args)`` under ``cfg.remat`` (the reference's
+    ``_remat``): ``"full"`` keeps the layer's inputs and recomputes the
+    rest in the backward, ``"dots"`` keeps its matrix products too
+    (``checkpoint_dots``), ``"none"`` keeps everything.  It acts only when
+    grad mode is on and a parameter of the layer requires a gradient, so
+    serving runs ``fn`` as it is."""
+    if cfg.remat == "none":
+        return fn
+    kw = {} if cfg.remat == "full" else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _keep_dots)}
+
+    def layer(p_l, *args):
+        if not wants_grad(*tree_leaves(p_l)):
+            return fn(p_l, *args)
+        return checkpoint(fn, p_l, *args, use_reentrant=False, **kw)
+    return layer
+
+
 # -- dense ------------------------------------------------------------------
 
 def _build_dense(cfg: ModelCfg, dev: torch.device) -> Model:
@@ -232,8 +271,9 @@ def _build_dense(cfg: ModelCfg, dev: torch.device) -> Model:
         S = tokens.shape[1]
         pos = torch.arange(S, device=tokens.device)
         aux = _zero(x)
+        block = _remat(cfg, lambda p_l, x: dense_block(cfg, p_l, x, pos))
         for i, p_l in enumerate(params["layers"]):
-            x, kv, a = dense_block(cfg, p_l, x, pos)
+            x, kv, a = block(p_l, x)
             aux = aux + a
             if cache is not None:
                 for name, t in kv.items():
@@ -280,12 +320,17 @@ def _build_rwkv(cfg: ModelCfg, dev: torch.device) -> Model:
                            for _ in range(cfg.n_layers)],
                 "final_norm": zeros(gen, (cfg.d_model,), cfg.p_dtype)}
 
-    def _run(params, x, state):
-        """The layer stack from ``state``, which it advances in place."""
+    block = _remat(cfg, lambda p_l, x, st: rk.rwkv_block(
+        cfg, p_l, x, st, chunk=cfg.rwkv.chunk))
+
+    def _run(params, x, state, write=False):
+        """The layer stack from ``state`` (layer i reads ``state[k][i]``);
+        with ``write`` (the serving path) each layer's new state is written
+        back into ``state`` in place, else dropped."""
         for i, p_l in enumerate(params["layers"]):
-            x, new = rk.rwkv_block(cfg, p_l, x, _layer_state(state, i),
-                                   chunk=cfg.rwkv.chunk)
-            _write_state(state, i, new)
+            x, new = block(p_l, x, _layer_state(state, i))
+            if write:
+                _write_state(state, i, new)
         return x
 
     def forward(params, tokens):
@@ -301,14 +346,15 @@ def _build_rwkv(cfg: ModelCfg, dev: torch.device) -> Model:
     def prefill(params, tokens, cache):
         """Logits of the last prompt token; the state advanced over the
         prompt in place."""
-        x = _run(params, _embed_in(cfg, params, tokens), cache)
+        x = _run(params, _embed_in(cfg, params, tokens), cache, write=True)
         x = rmsnorm(x[:, -1:], params["final_norm"])
         return lm_logits(cfg, params["embed"], x), cache
 
     def decode_step(params, tok, cache, pos):
         """tok ``[B, 1]`` → logits ``[B, 1, V]``; the state advanced one
         token in place (``pos`` is not needed)."""
-        x = _run(params, embed(cfg, params["embed"], tok), cache)
+        x = _run(params, embed(cfg, params["embed"], tok), cache,
+                 write=True)
         x = rmsnorm(x, params["final_norm"])
         return lm_logits(cfg, params["embed"], x), cache
 
@@ -331,17 +377,24 @@ def _build_hybrid(cfg: ModelCfg, dev: torch.device) -> Model:
                 "shared": init_hybrid_shared(gen, cfg),
                 "final_norm": zeros(gen, (cfg.d_model,), cfg.p_dtype)}
 
-    def _run(params, x, state, shared):
-        """Mamba layers from ``state``, which they advance in place; after
-        every ``every``-th layer ``shared(x, ai)`` runs the shared block
-        for its ``ai``-th time."""
-        for li, p_l in enumerate(params["layers"]):
-            y, new = m2.mamba2_block(cfg, p_l["m"], rmsnorm(x, p_l["ln"]),
-                                     _layer_state(state, li))
-            _write_state(state, li, new)
+    def _run(params, x, state, shared, write=False):
+        """Mamba layers from ``state`` (layer li reads ``state[k][li]``);
+        after every ``every``-th layer ``shared(x, ai)`` runs the shared
+        block for its ``ai``-th time; with ``write`` (the serving path)
+        each layer's new state is written back into ``state`` in place,
+        else dropped."""
+        def layer(p_l, x, st, li):
+            y, new = m2.mamba2_block(cfg, p_l["m"], rmsnorm(x, p_l["ln"]), st)
             x = x + y
             if every and li % every == every - 1:
                 x = shared(x, li // every)
+            return x, new
+
+        layer = _remat(cfg, layer)
+        for li, p_l in enumerate(params["layers"]):
+            x, new = layer(p_l, x, _layer_state(state, li), li)
+            if write:
+                _write_state(state, li, new)
         return x
 
     def forward(params, tokens):
@@ -376,7 +429,8 @@ def _build_hybrid(cfg: ModelCfg, dev: torch.device) -> Model:
             cache["attn_v"][ai, :, :S] = v.to(cache["attn_v"].dtype)
             return x
 
-        x = _run(params, _embed_in(cfg, params, tokens), state, shared)
+        x = _run(params, _embed_in(cfg, params, tokens), state, shared,
+                 write=True)
         x = rmsnorm(x[:, -1:], params["final_norm"])
         return lm_logits(cfg, params["embed"], x), cache
 
@@ -388,7 +442,7 @@ def _build_hybrid(cfg: ModelCfg, dev: torch.device) -> Model:
         x = _run(params, embed(cfg, params["embed"], tok), state,
                  lambda x, ai: shared_attn_decode(
                      cfg, params["shared"], x, cache["attn_k"][ai],
-                     cache["attn_v"][ai], pos))
+                     cache["attn_v"][ai], pos), write=True)
         x = rmsnorm(x, params["final_norm"])
         return lm_logits(cfg, params["embed"], x), cache
 
