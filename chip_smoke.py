@@ -279,7 +279,36 @@ non-zero):
     --smoke --arch olmo-1b --steps 60 --lr 1e-2 --batch 4 --seq 32
     --ckpt-every 20`` in a subprocess on the card beside (b): exit 0, the
     reference's line with the final loss at least 0.5 below the first, at
-    most ``keep`` checkpoint directories; the phase ≤ 45 s.
+    most ``keep`` checkpoint directories; the phase ≤ 45 s;
+20. the numpy oracle (``repro_torch.core.sim_ref``) against the card:
+    runs that the card made, each held replication by replication to the
+    oracle's run of the same inputs at the reference's own oracle
+    tolerances (``oracle_gaps``: ``worker``, ``cold``, ``rejected`` and
+    the telemetry's and timeline's integer planes equal; ``response`` and
+    the end time within 1e-6 s; server and core time within 1e-3
+    relative; ``prov_core_s`` within 1e-9 relative; the telemetry's and
+    timeline's float integrals within 1e-9), the largest gap of each lane
+    printed beside its bound.  The oracle runs in two spawned worker
+    processes of its own, started before phase 5 and fed as each earlier
+    phase's card runs are made, so that it runs beside the later phases.
+    (a) The nine balancers fused (E/<B>/PS) on the paper's small cluster
+    (4 × 12 cores, 96 slots), ``ms-trace`` at the fig4 loads, seed 1, the
+    first 1000 arrivals, launched here; (b) phase 5's card runs at N =
+    300: fig4's E/{H,LL,LOC,R}/PS, the overloaded 4 × 3 cluster's four
+    and E/H/FCFS, E/H/SRPT (the batched engine, ``hermes_select`` once an
+    arrival) and late binding; and ``ServingCluster`` with Hermes on the
+    card with no platform overheads (``hermes_select`` once an arrival),
+    under fig12's budgeted FIXED_TTL with telemetry and under a
+    ``two-gen`` fleet with ``TARGET_P99``, 1000 arrivals each, launched
+    here; (c) the planes: phase 14's fused runs of the first 1000 arrivals
+    of fig12's six lanes (the life plane: its budget lane under the three
+    keep-alives, its balancer lane), phase 15's of fig13's 24 runs (a
+    ``two-gen`` fleet, static fleets and ``TARGET_P99``, with telemetry:
+    the observation plane and ``prov_core_s``), phase 16's parity stacks (the timeline plane); (d)
+    phase 17's fused E/LL/PS stream at chunk 80 (N = 240, R = 2): the
+    kernel's telemetry carry after each chunk against
+    ``simulate_ref_chunks``' snapshot, and the stream's outputs; the
+    phase ≤ 20 s.
 
 TF32 is off for matrix products and cuDNN throughout.  The line before the
 last is ``{"kernels": [...]}``; the last line is
@@ -819,12 +848,13 @@ def card_vs_cpu(np, card, cpu, what: str) -> float:
     return gap
 
 
-def end_to_end(torch, np, report, cluster, pool):
+def end_to_end(torch, np, report, cluster, pool, oracle=None):
     """Phase 5: the kernel paths against the plain paths.  The batched
     engine's runs that hold them (on the card and on the CPU) and the
     fused kernel's plain version (``sim_engine_ref``, on the CPU) go to
-    ``pool``'s workers while the card runs the kernel paths here.
-    Returns the kernel's max abs error against its plain version."""
+    ``pool``'s workers while the card runs the kernel paths here; the
+    card's runs at N_SHORT go to ``oracle`` (phase 20b).  Returns the
+    kernel's max abs error against its plain version."""
     from repro_torch.core import (E_LL_PS, E_LOC_PS, E_R_PS, HERMES,
                                   LATE_BINDING, ClusterCfg, WorkerSched,
                                   ms_trace, replicate_workload,
@@ -899,6 +929,9 @@ def end_to_end(torch, np, report, cluster, pool):
                                   f"hermes_select launched {counts}, "
                                   f"expected {want}")
             card[key] = (out, counts, stats)
+            if oracle is not None and (label == "overload"
+                                       or policy in fused):
+                oracle.hold("20b", key, policy, cl, wbs, out, counts)
 
     plain = {k: out for k, (out, _) in zip(jobs, plain_done.get())}
     plain_s = time.perf_counter() - t0
@@ -2399,14 +2432,15 @@ N_LIFE_PLAIN = 1_000
 LIFE_PHASE_S = 60.0
 
 
-def keepalive_axis(torch, np, report, pool):
+def keepalive_axis(torch, np, report, pool, oracle=None):
     """Phase 14: the container lifecycle through ``simulate_many`` on the
     card, every run fused: (a) fig12's full mode (its budget and balancer
     lanes), (b) fig7's keep-alive axis, with two timing runs beside
     fig12's budget lane (its Hermes inputs without the lifecycle, and
     under FIXED_TTL without the budget).  The batched engine's runs that
     hold them, the plain version's and the repair's go to ``pool``'s
-    workers while the card runs.  Returns (``sim_engine`` launches of the
+    workers while the card runs; the fused runs of fig12's first arrivals go
+    to ``oracle`` (phase 20c).  Returns (``sim_engine`` launches of the
     fused runs, the kernel's max abs error against ``sim_engine_ref``)."""
     from repro_torch.core import (E_LL_PS, E_LOC_PS, HERMES, PAPER_TESTBED,
                                   WORKLOADS, ClusterCfg, LifecycleCfg,
@@ -2497,6 +2531,10 @@ def keepalive_axis(torch, np, report, pool):
                                  f"{key} N={N_LIFE_PLAIN}")[0]
                   for key, (p, cl, wb) in plan.items()}
     launches += len(prefix_out)
+    for key, (p, cl, wb) in plan.items():
+        if oracle is not None and key.startswith("fig12"):
+            oracle.hold("20c life", key, p, cl, prefix(wb, N_LIFE_PLAIN),
+                        prefix_out[key], (1, 0))
 
     for key, r in runs.items():
         log(f"{key} R={r['reps']} F={r['functions']} N={r['n']}: wall "
@@ -2699,7 +2737,7 @@ def same_obs(np, a, b, what: str) -> None:
           f"{what}: not equal in prov_core_s")
 
 
-def telemetry_fleet(torch, np, report, pool):
+def telemetry_fleet(torch, np, report, pool, oracle=None):
     """Phase 15: telemetry and the heterogeneous fleet through
     ``simulate_many`` on the card, every run fused (one ``sim_engine``
     launch, the observation plane): (a) bench_telemetry's sketch lane in
@@ -2710,7 +2748,8 @@ def telemetry_fleet(torch, np, report, pool):
     and the two named errors; (d) the plane's cost on fig4's E/H/PS
     inputs; and ``sim_engine`` against ``sim_engine_ref`` for the nine
     balancers under the plane.  The CPU runs go to ``pool``'s workers
-    while the card runs.  Returns (``sim_engine`` launches of the fused
+    while the card runs; the fused runs of fig13's first arrivals go to
+    ``oracle`` (phase 20c).  Returns (``sim_engine`` launches of the fused
     runs, the kernel's max abs error against ``sim_engine_ref``, the
     plane's timing on fig4's inputs)."""
     from repro_torch.core import (E_LL_PS, E_SWARM_PS, HERMES, LATE_BINDING,
@@ -2831,6 +2870,10 @@ def telemetry_fleet(torch, np, report, pool):
                                  f"{key} N={N_OBS_PLAIN}", telemetry=tel)[0]
                   for key, (p, cl, wb, tel) in zip(plan, map(held, plan))}
     launches += len(prefix_out)
+    for key, (p, cl, wb, tel) in zip(plan, map(held, plan)):
+        if oracle is not None and key.startswith("fig13"):
+            oracle.hold("20c observation", key, p, cl, wb, prefix_out[key],
+                        (1, 0), telemetry=tel)
 
     for key, r in runs.items():
         extra = (f"sketch p50 {r['sketch_p50']:.6f} (exact "
@@ -3140,7 +3183,7 @@ def replay_checks(np, tl, n_workers, max_events, what: str) -> dict:
                 n_on_max=int(np.max(tl.n_on[has])))
 
 
-def timeline_platform(torch, np, report, pool):
+def timeline_platform(torch, np, report, pool, oracle=None):
     """Phase 16: the timeline plane and the serving platform on the card.
     (a) fig15's parity stacks, E/LL/PS, E/H/PS (its mode flips) and
     E/LL/PS on a two-gen fleet under TARGET_P99 fused, L/LL/FCFS on the
@@ -3156,7 +3199,8 @@ def timeline_platform(torch, np, report, pool):
     repro_torch.launch.serve`` in a subprocess, its lines and files equal
     to the same run in-process on the CPU; and ``sim_engine`` against
     ``sim_engine_ref`` for the nine balancers under the timeline.  The CPU
-    runs go to ``pool``'s workers while the card runs.  Returns
+    runs go to ``pool``'s workers while the card runs; the parity stacks'
+    card runs go to ``oracle`` (phase 20c).  Returns
     (``sim_engine`` launches of the fused runs, ``hermes_select`` launches
     of the platform's runs, the kernel's max abs error against its plain
     version, the plane's timing)."""
@@ -3298,6 +3342,10 @@ def timeline_platform(torch, np, report, pool):
         same_planes(np, off, out, f"{key}: with and without the timeline")
         same_obs(np, off, out, f"{key}: with and without the timeline")
         par_out[key] = out
+        if oracle is not None:
+            oracle.hold("20c timeline", key, policy, cl, par_wb[key], out,
+                        (0, 0) if key == "L/LL/FCFS" else (1, 0),
+                        telemetry=tel, timeline=par_tl)
         runs[f"parity {key}"] = dict(wall_s=wall,
                                      events=out.timeline.ev_count.tolist())
 
@@ -3765,7 +3813,7 @@ def _horizon_lane(go) -> dict:
     return out_rows
 
 
-def streaming(torch, np, report, pool):
+def streaming(torch, np, report, pool, oracle=None):
     """Phase 17: horizon-scale streaming (``simulate_stream``) on the card.
     (a) fig14's equivalence lane: its fifteen stacks at chunks 96 and 80,
     each a fused stream (one ``sim_engine`` launch per chunk in chunk mode,
@@ -3782,9 +3830,10 @@ def streaming(torch, np, report, pool):
     budget; the chunks enqueued with no host sync.  (c) fig15's streaming
     check: the three early-binding parity stacks' timelines and final
     states equal the monolithic runs'.  The CPU runs go to ``pool``'s
-    workers while the card runs.  Returns (``sim_engine`` launches,
-    ``hermes_select`` launches, the chunk mode's max abs error against its
-    plain version)."""
+    workers while the card runs; E/LL/PS's stream at ORACLE_CHUNK, with
+    its carry after each chunk, goes to ``oracle`` (phase 20d).  Returns
+    (``sim_engine`` launches, ``hermes_select`` launches, the chunk mode's
+    max abs error against its plain version)."""
     import multiprocessing
 
     from repro_torch.core import E_LL_PS, HERMES, FleetCfg, parse_policy
@@ -3858,6 +3907,11 @@ def streaming(torch, np, report, pool):
                       f"{label} chunk {k}: stream != monolithic in {plane}")
             segs_card[label, k], streams_card[label, k] = seen, out
             eq_rows[f"{label} k{k}"] = dict(wall_s=wall, chunks=n_chunks)
+            if oracle is not None and label == "E/LL/PS" and \
+                    k == ORACLE_CHUNK:
+                oracle.hold("20d", f"{label} chunk {k}", policy, cl, wb,
+                            out, (n_chunks + 1, 0), telemetry=tel,
+                            chunk=k, segments=seen)
     # E/H/FCFS through the batched engine on the card
     ek.sim_engine.launches = 0
     hk.hermes_select_batch.launches = 0
@@ -4684,6 +4738,261 @@ def training(torch, np, report, tmp, jobs):
     return launches
 
 
+# -- the numpy oracle against the card (phase 20) --
+
+#: depth of the runs launched for the oracle (20a and the platform)
+ORACLE_N = 1_000
+#: the oracle's worker processes (numpy on the host, one run a job)
+ORACLE_WORKERS = 2
+#: 20d: phase 17's E/LL/PS stream at this chunk
+ORACLE_CHUNK = 80
+ORACLE_PHASE_S = 20.0
+
+
+def _oracle_worker():
+    """An oracle worker's imports, made before its first job."""
+    import repro_torch.core.sim_ref  # noqa: F401
+
+
+def oracle_pool():
+    """Phase 20's worker processes for the numpy oracle."""
+    import multiprocessing
+    return multiprocessing.get_context("spawn").Pool(
+        ORACLE_WORKERS, initializer=_oracle_worker)
+
+
+def oracle_run(policy, cluster, wb, telemetry=None, timeline=None,
+               chunk=None):
+    """The numpy oracle on each replication of a workload batch: (its
+    results, with ``chunk`` each with its per-chunk telemetry snapshots,
+    s).  Top-level, so that a worker process can run it."""
+    from repro_torch.core.sim_ref import simulate_ref, simulate_ref_chunks
+    t0 = time.perf_counter()
+    if chunk:
+        runs = [simulate_ref_chunks(policy, cluster, wb.rep(r),
+                                    chunk_size=chunk, telemetry=telemetry)
+                for r in range(wb.n_reps)]
+    else:
+        runs = [simulate_ref(policy, cluster, wb.rep(r),
+                             telemetry=telemetry, timeline=timeline)
+                for r in range(wb.n_reps)]
+    return runs, time.perf_counter() - t0
+
+
+class Oracle:
+    """Phase 20's runs: each card run to hold, with its inputs, beside the
+    oracle's run of the same inputs, sent to ``pool`` when it is held (so
+    that the oracle runs beside the later phases).  ``card`` is the card's
+    output (filled in later for the runs phase 20 launches itself) and
+    ``launches`` the (``sim_engine``, ``hermes_select``) launches that made
+    it."""
+
+    def __init__(self, pool):
+        self.pool, self.runs = pool, {}
+
+    def hold(self, lane, key, policy, cluster, wb, card=None,
+             launches=(0, 0), telemetry=None, timeline=None, chunk=None,
+             segments=None):
+        job = self.pool.apply_async(
+            oracle_run, (policy, cluster, wb, telemetry, timeline, chunk))
+        self.runs[lane, key] = dict(
+            policy=policy, cluster=cluster, wb=wb, card=card,
+            launches=launches, telemetry=telemetry, timeline=timeline,
+            segments=segments, job=job)
+
+    def lane(self, lane):
+        return [(key, run) for (ln, key), run in self.runs.items()
+                if ln == lane]
+
+    def hold_launched_here(self):
+        """The inputs of the runs phase 20 launches itself, held at once:
+        (a) the nine balancers on the paper's small cluster; the platform
+        under a budgeted lifecycle and under an autoscaled fleet."""
+        from repro_torch.core import (HERMES, PAPER_SMALL, PAPER_TESTBED,
+                                      WORKLOADS, FleetCfg, LifecycleCfg,
+                                      ms_trace, parse_policy,
+                                      replicate_workload, stack_workloads)
+        from repro_torch.policy import balancer_names
+        from repro_torch.telemetry import TelemetryCfg
+        wb = replicate_workload(ms_trace, PAPER_SMALL, LOADS, ORACLE_N,
+                                seeds=(SEED,))
+        for b in balancer_names():
+            self.hold("20a", f"E/{b}/PS", parse_policy(f"E/{b}/PS"),
+                      PAPER_SMALL, wb)
+        budget = PAPER_TESTBED._replace(lifecycle=LifecycleCfg(
+            "FIXED_TTL", LIFE_TTL_S, LIFE_MAX_IDLE, LIFE_PRESET))
+        auto = PAPER_TESTBED._replace(fleet=FleetCfg(
+            preset="two-gen", autoscale="TARGET_P99",
+            target_p99=FIG13_TARGET, min_workers=2, cooldown_s=2.0))
+        for key, cl, name, load in (
+                ("FIXED_TTL budget", budget, "azure-cold-heavy", 0.85),
+                ("two-gen TARGET_P99", auto, "azure-diurnal", 0.85)):
+            wl = WORKLOADS[name](PAPER_TESTBED, load, ORACLE_N, seed=SEED)
+            self.hold("20b platform", key, HERMES, cl,
+                      stack_workloads([wl]), telemetry=TelemetryCfg())
+
+
+def platform_run(policy, cluster, wl, telemetry):
+    """``ServingCluster`` on the card with no platform overheads (the
+    cluster's cold cost, no controller latency), which makes it the
+    oracle's event loop: (result, wall s)."""
+    from repro_torch.serving.engine import ServeCfg, ServingCluster
+    sc = ServingCluster(ServeCfg(cluster=cluster,
+                                 cold_start_s=cluster.cold_start_penalty,
+                                 ctrl_latency_s=0.0), policy,
+                        telemetry=telemetry, device="cuda")
+    t0 = time.perf_counter()
+    out = sc.run(wl)
+    return out, time.perf_counter() - t0
+
+
+def stream_gaps(np, out, r, ref, snaps, segments, what) -> dict:
+    """A fused stream's replication ``r`` held to the oracle: the kernel's
+    telemetry carry after each chunk to ``simulate_ref_chunks``' snapshot,
+    then the stream's per-arrival planes, telemetry, times and exact
+    counters to the oracle's run."""
+    from repro_torch.core.sim_ref import (PLANE_TOL, RESPONSE_ATOL,
+                                          TIME_RTOL, OracleMismatch,
+                                          telemetry_gap)
+    from repro_torch.telemetry import warmup_cutoff
+    check(len(segments) == len(snaps),
+          f"{what}: {len(segments)} chunks, the oracle {len(snaps)}")
+    gaps = {"telemetry": 0.0}
+    for c, (carry, snap) in enumerate(zip(segments, snaps)):
+        tel = {k[4:]: v[r].numpy() for k, v in carry.items()
+               if k.startswith("tel_")}
+        gaps["telemetry"] = max(gaps["telemetry"], telemetry_gap(
+            tel, snap, f"{what} after chunk {c}"))
+    for name in ("worker", "cold", "rejected"):
+        check(np.array_equal(getattr(out, name)[r], getattr(ref, name)),
+              f"{what}: {name} differs from the oracle")
+    gaps["telemetry"] = max(gaps["telemetry"], telemetry_gap(
+        out.telemetry.rep(r), ref.telemetry, what))
+    cut = warmup_cutoff(len(ref.response), out.telemetry.cfg)
+    obs = ~ref.rejected[cut:]
+    check(int(out.n_observed[r]) == int(obs.sum())
+          and int(out.n_done[r]) == int((~ref.rejected).sum()),
+          f"{what}: completion counts differ from the oracle")
+    gaps["response"] = abs(float(out.resp_mean[r])
+                           - float(ref.response[cut:][obs].mean()))
+    gaps["end_time"] = abs(float(out.end_time[r]) - ref.end_time)
+    gaps["times"] = max(abs(float(getattr(out, k)[r]) - getattr(ref, k))
+                        / max(1.0, abs(getattr(ref, k)))
+                        for k in ("server_time", "core_time"))
+    gaps["prov_core_s"] = abs(float(out.prov_core_s[r]) - ref.prov_core_s) \
+        / max(1.0, ref.prov_core_s)
+    if max(gaps["response"], gaps["end_time"]) > RESPONSE_ATOL or \
+            gaps["times"] > TIME_RTOL or gaps["prov_core_s"] > PLANE_TOL:
+        raise OracleMismatch(f"{what}: beyond the oracle's tolerances "
+                             f"({gaps})")
+    return gaps
+
+
+def numpy_oracle(torch, np, report, oracle):
+    """Phase 20: the card's runs against the numpy oracle, lane by lane
+    (see the module docstring).  Launches 20a's nine fused runs and the
+    platform's two runs here, collects the oracle's runs from its worker
+    processes and holds every replication.  Returns the (``sim_engine``,
+    ``hermes_select``) launches made here."""
+    import multiprocessing
+
+    from repro_torch.core.sim_ref import (PLANE_TOL, RESPONSE_ATOL,
+                                          TIME_RTOL, OracleMismatch,
+                                          oracle_gaps)
+    from repro_torch.kernels.hermes_select import kernel as hk
+    from repro_torch.kernels.sim_engine import kernel as ek
+
+    # the reference's oracle tolerances, printed beside each lane's gaps
+    bounds = dict(response=RESPONSE_ATOL, end_time=RESPONSE_ATOL,
+                  times=TIME_RTOL, prov_core_s=PLANE_TOL,
+                  telemetry=PLANE_TOL, timeline=PLANE_TOL)
+    t_phase = time.perf_counter()
+    launched = [0, 0]
+    # (a) the nine balancers, fused, one sim_engine launch each
+    for key, run in oracle.lane("20a"):
+        run["card"] = fused_run(torch, np, run["policy"], run["cluster"],
+                                run["wb"], f"20a {key}")[0]
+        run["launches"] = (1, 0)
+        launched[0] += 1
+    # (b) the platform on the card, one hermes_select launch an arrival
+    for key, run in oracle.lane("20b platform"):
+        wl = run["wb"].rep(0)
+        torch.cuda.synchronize()
+        ek.sim_engine.launches = 0
+        hk.hermes_select_batch.launches = 0
+        run["card"], wall = platform_run(run["policy"], run["cluster"], wl,
+                                         run["telemetry"])
+        counts = (ek.sim_engine.launches, hk.hermes_select_batch.launches)
+        check(counts == (0, wl.n), f"20b platform {key}: sim_engine and "
+                                   f"hermes_select launched {counts}, "
+                                   f"expected (0, {wl.n})")
+        run["launches"] = counts
+        launched[1] += counts[1]
+        log(f"20b platform {key}: ServingCluster on the card, {wall:.2f} s "
+            f"({wall / wl.n * 1e6:.1f} us per arrival), {counts[1]} "
+            f"hermes_select launches")
+    card_s = time.perf_counter() - t_phase
+
+    # every held run against the oracle's run of its inputs
+    t_wait = time.perf_counter()
+    lanes, oracle_s = {}, 0.0
+    for (lane, key), run in oracle.runs.items():
+        try:
+            refs, s = run["job"].get(timeout=ORACLE_PHASE_S)
+        except multiprocessing.TimeoutError:
+            raise SmokeFailure(f"{lane} {key}: the oracle's run did not "
+                               f"end within {ORACLE_PHASE_S:.0f} s") from None
+        oracle_s += s
+        row = lanes.setdefault(lane, dict(
+            card_runs=0, replications=0, sim_engine_launches=0,
+            hermes_select_launches=0, gaps={}))
+        row["card_runs"] += 1
+        row["sim_engine_launches"] += run["launches"][0]
+        row["hermes_select_launches"] += run["launches"][1]
+        out = run["card"]
+        for r, ref in enumerate(refs):
+            what = f"{lane} {key} rep {r}"
+            try:
+                if run["segments"] is not None:
+                    ref, snaps = ref
+                    gaps = stream_gaps(np, out, r, ref, snaps,
+                                       run["segments"], what)
+                else:
+                    # a BatchSimOutput's replication, or the platform's
+                    # one run
+                    one = out.rep(r) if hasattr(out, "rep") else out
+                    gaps = oracle_gaps(one, ref, what)
+            except OracleMismatch as e:
+                raise SmokeFailure(str(e)) from None
+            row["replications"] += 1
+            for k, g in gaps.items():
+                row["gaps"][k] = max(row["gaps"].get(k, 0.0), g)
+    wait_s = time.perf_counter() - t_wait
+    for lane, row in lanes.items():
+        log(f"{lane}: {row['replications']} replications of "
+            f"{row['card_runs']} card runs ({row['sim_engine_launches']} "
+            f"sim_engine, {row['hermes_select_launches']} hermes_select "
+            f"launches) == the oracle in worker, cold, rejected and every "
+            f"integer plane; largest gaps " + ", ".join(
+                f"{k} {g!r} (bound {bounds[k]:g})"
+                for k, g in row["gaps"].items()))
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 20: the card's runs in {card_s:.2f} s, the oracle's "
+        f"{oracle_s:.1f} s of work in {ORACLE_WORKERS} worker processes "
+        f"beside the earlier phases, {wait_s:.2f} s to collect and hold "
+        f"them; {launched[0]} sim_engine and {launched[1]} hermes_select "
+        f"launches here; {phase_s:.1f} s")
+    report["oracle"] = dict(lanes=lanes, bounds=bounds,
+                            card_s=card_s, oracle_cpu_s=oracle_s,
+                            collect_s=wait_s,
+                            sim_engine_launches=launched[0],
+                            hermes_select_launches=launched[1],
+                            phase_s=phase_s)
+    check(phase_s <= ORACLE_PHASE_S, f"phase 20 took {phase_s:.1f} s "
+                                     f"(limit {ORACLE_PHASE_S:.0f} s)")
+    return launched
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run it from the root of a checkout of the repo",
@@ -4714,65 +5023,73 @@ def main() -> int:
                                                   PAPER_LARGE)
         with Phase("4b profile of the main path", report):
             profile_main_path(torch, np, report, PAPER_LARGE)
-        # the batched engine's check runs of phases 5 and 12-17 go to
-        # worker processes
-        with contextlib.ExitStack() as workers:
-            with Phase("5 kernel path vs plain path", report):
-                pool = workers.enter_context(plain_pool())
-                engine_err = end_to_end(torch, np, report, PAPER_LARGE, pool)
-            with Phase("6 attention kernels vs plain", report):
-                attn_t = attention_kernels(torch, np, report)
-            with Phase("7 serving path at full width", report):
-                frontend, serve_launches = serving_path(
-                    torch, np, report, SERVED, 1, "serving")
-            with Phase("7b profile of decode steps", report):
-                profile_decode(torch, report, frontend, SERVED,
-                               "decode_profile")
-            del frontend
-            torch.cuda.empty_cache()
-            with Phase("8 prefill and decode vs full forward", report):
-                prefill_decode_vs_forward(torch, np, report, CHECKED_DENSE,
-                                          "prefill_decode_vs_forward")
-            with Phase("9 scan kernels vs plain", report):
-                scan_t = scan_kernels(torch, report)
-            with Phase("10 recurrent serving at full width", report):
-                frontend, rec_launches = serving_path(
-                    torch, np, report, RECURRENT, 2, "recurrent_serving")
-            with Phase("10b profile of recurrent decode steps", report):
-                profile_decode(torch, report, frontend, RECURRENT,
-                               "recurrent_decode_profile")
-            del frontend
-            torch.cuda.empty_cache()
-            with Phase("11 recurrent prefill and decode vs full forward",
-                       report):
-                prefill_decode_vs_forward(
-                    torch, np, report, RECURRENT,
-                    "recurrent_prefill_decode_vs_forward")
-            with Phase("12 trace replay on the card", report):
-                trace_launches = trace_replay(torch, np, report, pool)
-            with Phase("13 policy zoo on the card", report):
-                zoo_launches, zoo_err = policy_zoo(torch, np, report, pool)
-            with Phase("14 keep-alive axis on the card", report):
-                life_launches, life_err = keepalive_axis(torch, np, report,
-                                                         pool)
-            with Phase("15 telemetry and fleet on the card", report):
-                obs_launches, obs_err, _ = telemetry_fleet(torch, np,
-                                                           report, pool)
-            with Phase("16 timeline and serving platform on the card",
-                       report):
-                tl_launches, platform_launches, tl_err, _ = \
-                    timeline_platform(torch, np, report, pool)
-            with Phase("17 streaming on the card", report):
-                stream_launches, fcfs_launches, stream_err = streaming(
-                    torch, np, report, pool)
-        # 19b's CPU side runs in its worker processes beside phase 18
-        with train_checks() as (train_tmp, train_jobs):
-            with Phase("18 MoE and MLA serving at full width", report):
-                moe_launches, moe_kernel_err = moe_serving(torch, np,
-                                                           report)
-            with Phase("19 training on the card", report):
-                train_launches = training(torch, np, report, train_tmp,
-                                          train_jobs)
+        # phase 20's numpy oracle runs in worker processes of its own, fed
+        # as the card's runs it holds are made (phases 5 and 14-17)
+        with oracle_pool() as opool:
+            oracle = Oracle(opool)
+            oracle.hold_launched_here()
+            # the batched engine's check runs of phases 5 and 12-17 go to
+            # worker processes
+            with contextlib.ExitStack() as workers:
+                with Phase("5 kernel path vs plain path", report):
+                    pool = workers.enter_context(plain_pool())
+                    engine_err = end_to_end(torch, np, report, PAPER_LARGE,
+                                            pool, oracle)
+                with Phase("6 attention kernels vs plain", report):
+                    attn_t = attention_kernels(torch, np, report)
+                with Phase("7 serving path at full width", report):
+                    frontend, serve_launches = serving_path(
+                        torch, np, report, SERVED, 1, "serving")
+                with Phase("7b profile of decode steps", report):
+                    profile_decode(torch, report, frontend, SERVED,
+                                   "decode_profile")
+                del frontend
+                torch.cuda.empty_cache()
+                with Phase("8 prefill and decode vs full forward", report):
+                    prefill_decode_vs_forward(torch, np, report, CHECKED_DENSE,
+                                              "prefill_decode_vs_forward")
+                with Phase("9 scan kernels vs plain", report):
+                    scan_t = scan_kernels(torch, report)
+                with Phase("10 recurrent serving at full width", report):
+                    frontend, rec_launches = serving_path(
+                        torch, np, report, RECURRENT, 2, "recurrent_serving")
+                with Phase("10b profile of recurrent decode steps", report):
+                    profile_decode(torch, report, frontend, RECURRENT,
+                                   "recurrent_decode_profile")
+                del frontend
+                torch.cuda.empty_cache()
+                with Phase("11 recurrent prefill and decode vs full forward",
+                           report):
+                    prefill_decode_vs_forward(
+                        torch, np, report, RECURRENT,
+                        "recurrent_prefill_decode_vs_forward")
+                with Phase("12 trace replay on the card", report):
+                    trace_launches = trace_replay(torch, np, report, pool)
+                with Phase("13 policy zoo on the card", report):
+                    zoo_launches, zoo_err = policy_zoo(torch, np, report, pool)
+                with Phase("14 keep-alive axis on the card", report):
+                    life_launches, life_err = keepalive_axis(torch, np, report,
+                                                             pool, oracle)
+                with Phase("15 telemetry and fleet on the card", report):
+                    obs_launches, obs_err, _ = telemetry_fleet(
+                        torch, np, report, pool, oracle)
+                with Phase("16 timeline and serving platform on the card",
+                           report):
+                    tl_launches, platform_launches, tl_err, _ = \
+                        timeline_platform(torch, np, report, pool, oracle)
+                with Phase("17 streaming on the card", report):
+                    stream_launches, fcfs_launches, stream_err = streaming(
+                        torch, np, report, pool, oracle)
+            # 19b's CPU side runs in its worker processes beside phase 18
+            with train_checks() as (train_tmp, train_jobs):
+                with Phase("18 MoE and MLA serving at full width", report):
+                    moe_launches, moe_kernel_err = moe_serving(torch, np,
+                                                               report)
+                with Phase("19 training on the card", report):
+                    train_launches = training(torch, np, report, train_tmp,
+                                              train_jobs)
+            with Phase("20 the numpy oracle against the card", report):
+                oracle_launches = numpy_oracle(torch, np, report, oracle)
         total_s = time.perf_counter() - t_start
         check(total_s <= SCRIPT_S, f"the script took {total_s:.1f} s (limit "
                                    f"{SCRIPT_S:.0f} s)")
@@ -4784,17 +5101,18 @@ def main() -> int:
         log("report " + json.dumps(report, separators=(",", ":")))
     # hermes_select's path is serving (phases 7 and 18: one launch per
     # dispatch; phase 16: one per dispatch of the platform's controller) and
-    # the batched engine's E/H/FCFS stream (phase 17: one per arrival); the
-    # simulator's E/H/PS makes its choice inside sim_engine (phases 4 and
-    # 12-17: every fused run's launch and every stream's chunk launch on
-    # those paths; its times from phase 4, where the plain engine runs the
-    # same inputs)
+    # the batched engine's E/H/FCFS stream (phase 17: one per arrival) and
+    # the platform held to the oracle (phase 20b: one per arrival); the
+    # simulator's E/H/PS makes its choice inside sim_engine (phases 4,
+    # 12-17 and 20a: every fused run's launch and every stream's chunk
+    # launch on those paths; its times from phase 4, where the plain engine
+    # runs the same inputs)
     kernels = [{
         "name": "hermes_select", "route": "cuda",
         "source": "src/repro_torch/csrc/hermes_select.cu",
         "replaces": "src/repro/kernels/hermes_select/kernel.py:66",
         "launches": serve_launches["hermes_select"] + platform_launches
-        + fcfs_launches + moe_launches["hermes_select"],
+        + fcfs_launches + moe_launches["hermes_select"] + oracle_launches[1],
         "max_abs_err": max_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": "bytes", "library_ms": None}, {
@@ -4802,7 +5120,8 @@ def main() -> int:
         "source": "src/repro_torch/csrc/sim_engine.cu",
         "replaces": "src/repro/kernels/hermes_select/kernel.py:66",
         "launches": engine_launches + trace_launches + zoo_launches
-        + life_launches + obs_launches + tl_launches + stream_launches,
+        + life_launches + obs_launches + tl_launches + stream_launches
+        + oracle_launches[0],
         "max_abs_err": max(engine_err, zoo_err, life_err, obs_err, tl_err,
                            stream_err),
         "ms": engine_t["ms"], "plain_ms": engine_t["plain_ms"],

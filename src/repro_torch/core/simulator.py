@@ -106,7 +106,8 @@ from repro_torch.fleet import STATIC, get_autoscaler, resolve_fleet
 from repro_torch.kernels.sim_engine import ops as sim_engine_ops
 from repro_torch.lifecycle import resolve_lifecycle
 from repro_torch.policy import engine, resolve
-from repro_torch.policy.registry import check_balancer, check_binding
+from repro_torch.policy.registry import (check_balancer, check_binding,
+                                         check_engine_backend)
 from repro_torch.telemetry import engine as tel_engine
 from repro_torch.telemetry import timeline_engine as tl_engine
 from repro_torch.telemetry.sketch import N_BINS
@@ -884,7 +885,10 @@ def simulate_many(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
     ``telemetry`` the output carries a :class:`TelemetryResult` and with
     ``timeline`` (a :class:`TimelineCfg`) a :class:`TimelineResult`, both
     with the leading ``R`` axis (their readers pool over it).
+    ``backend="np"`` is refused by name: the numpy backend is the
+    oracle's, :func:`repro_torch.core.sim_ref.simulate_ref`.
     """
+    check_engine_backend(backend)
     if timeline is not None:
         validate_timeline(timeline)
     dev = resolve_device(device)

@@ -45,7 +45,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.sim_engine import ops as sim_engine_ops
 from repro_torch.policy import engine
-from repro_torch.policy.registry import check_balancer
+from repro_torch.policy.registry import check_balancer, check_engine_backend
 from repro_torch.telemetry import engine as tel_engine
 from repro_torch.telemetry import timeline_engine as tl_engine
 from repro_torch.telemetry.spans import get_tracer
@@ -290,6 +290,7 @@ def simulate_stream(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
     fused engine's carry in place, so a callback copies what it keeps.
     """
     _check_stream(policy)
+    check_engine_backend(backend)
     if isinstance(policy, str):
         policy = parse_policy(policy)
     if isinstance(workloads, Workload):
@@ -382,6 +383,7 @@ def monolithic_state(policy: PolicySpec, cluster: ClusterCfg, workloads, *,
         else stack_workloads(workloads)
     if telemetry is None:
         telemetry = TelemetryCfg()
+    check_engine_backend(backend)
     dev = resolve_device(device)
     cluster.validate()
     if engine(policy, dev, backend, cluster) == "sim_engine":

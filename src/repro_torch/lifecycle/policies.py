@@ -13,9 +13,14 @@
   HIST_BINS]`` and ``n_obs [R, F]``, both f64 counts, and its float
   operations run in the reference's order, so the windows are bit-equal
   to the reference's ``np`` and ``jax`` backends.
+
+Each policy also has the reference's numpy backend (``*_np``, one run on
+the host: the oracle's), its state ``hist [F, HIST_BINS]`` and ``n_obs
+[F]``, bit-equal to the reference's ``np`` backend.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .registry import BUILTINS, register_keepalive
@@ -108,13 +113,67 @@ def _hybrid(cfg, n_functions, device):
     return windows, observe
 
 
-for _name, _doc, _make, _init in (
+def _const_np(pre_s: float, keep_s: float):
+    def make(cfg, n_functions):
+        pre = np.full(n_functions, pre_s, dtype=np.float64)
+        keep = np.full(n_functions, keep_s, dtype=np.float64)
+
+        def windows(state):
+            return pre, keep
+        return windows, None
+    return make
+
+
+def _none_np(cfg, n_functions):
+    return _const_np(0.0, 0.0)(cfg, n_functions)
+
+
+def _fixed_ttl_np(cfg, n_functions):
+    return _const_np(0.0, float(cfg.ttl_s))(cfg, n_functions)
+
+
+def _hybrid_init_np(cfg, n_workers, n_functions):
+    return {"hist": np.zeros((n_functions, HIST_BINS), dtype=np.float64),
+            "n_obs": np.zeros(n_functions, dtype=np.float64)}
+
+
+def _hybrid_np(cfg, n_functions):
+    bin_s, ttl = hybrid_params(cfg)
+
+    def windows(state):
+        hist, n_obs = state["hist"], state["n_obs"]
+        cdf = np.cumsum(hist, axis=1)
+        head = np.argmax(cdf >= HIST_HEAD_Q * n_obs[:, None], axis=1)
+        tail = np.argmax(cdf >= HIST_TAIL_Q * n_obs[:, None], axis=1)
+        pre = head * bin_s * (1.0 - HIST_MARGIN)
+        end = (tail + 1.0) * bin_s * (1.0 + HIST_MARGIN)
+        learned = n_obs >= HIST_MIN_OBS
+        pre = np.where(learned, pre, 0.0)
+        keep = np.where(learned, end - pre, ttl)
+        return pre, keep
+
+    def observe(state, func, gap):
+        b = min(int(gap / bin_s), HIST_BINS - 1)
+        b = max(b, 0)
+        hist = state["hist"].copy()
+        hist[func, b] += 1.0
+        n_obs = state["n_obs"].copy()
+        n_obs[func] += 1.0
+        return dict(state, hist=hist, n_obs=n_obs)
+
+    return windows, observe
+
+
+for _name, _doc, _make, _init, _make_np, _init_np in (
         ("NONE", "no keep-alive: executors torn down at completion "
-                 "(cold-start upper bound)", _none, None),
+                 "(cold-start upper bound)", _none, None, _none_np, None),
         ("FIXED_TTL", "fixed idle-timeout of cfg.ttl_s seconds for every "
-                      "function (OpenWhisk-style)", _fixed_ttl, None),
+                      "function (OpenWhisk-style)", _fixed_ttl, None,
+         _fixed_ttl_np, None),
         ("HYBRID_HIST", "per-function idle-time histogram choosing "
                         "pre-warm + keep-alive windows (Shahrad et al. "
-                        "ATC'20)", _hybrid, _hybrid_init)):
-    BUILTINS[_name] = register_keepalive(_name, doc=_doc, make_torch=_make,
-                                         init_state=_init)
+                        "ATC'20)", _hybrid, _hybrid_init, _hybrid_np,
+         _hybrid_init_np)):
+    BUILTINS[_name] = register_keepalive(
+        _name, doc=_doc, make_torch=_make, init_state=_init,
+        make_np=_make_np, init_np=_init_np)

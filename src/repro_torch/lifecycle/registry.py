@@ -26,8 +26,14 @@ which leaves a replication's state as it was where ``mask`` is false.
 ``make_torch(cfg, n_functions, device) -> (windows, observe)`` builds
 both (``observe`` is ``None`` for a stateless policy, whose ``windows``
 ignores its argument and returns ``[F]`` tensors).  It takes the place of
-the reference's ``make_np`` and ``make_jax``: the float operations run in
-their order, so the windows are bit-equal to both.
+the reference's ``make_jax``: the float operations run in its order, so
+the windows are bit-equal to it and to ``make_np``.
+
+A policy may also carry the reference's numpy backend, one run on the
+host (the oracle's, :mod:`repro_torch.core.sim_ref`): ``make_np(cfg,
+n_functions) -> (windows, observe)`` over numpy arrays, ``observe(state,
+func, gap) -> state`` with scalars, and, for an adaptive policy,
+``init_np(cfg, n_workers, n_functions)``.  The built-ins have it.
 """
 from __future__ import annotations
 
@@ -50,6 +56,8 @@ class KeepAlivePolicy:
     doc: str = ""
     make_torch: Optional[Callable[[LifecycleCfg, int, Any], tuple]] = None
     init_state: Optional[Callable[..., dict]] = None
+    make_np: Optional[Callable[[LifecycleCfg, int], tuple]] = None
+    init_np: Optional[Callable[[LifecycleCfg, int, int], dict]] = None
 
     @property
     def stateful(self) -> bool:
@@ -84,13 +92,15 @@ def _load_builtins() -> None:
 
 
 def register_keepalive(name: str, *, make_torch=None, init_state=None,
-                       doc: str = "",
+                       make_np=None, init_np=None, doc: str = "",
                        overwrite: bool = False) -> KeepAlivePolicy:
     """Register a keep-alive policy under ``name`` (upper-cased).
 
     ``init_state`` opts into the carried-state contract (``make_torch``
-    then returns a non-``None`` observe hook).  A policy registered here
-    runs in the batched engine; the fused engine runs the built-ins only.
+    then returns a non-``None`` observe hook; ``init_np`` and ``make_np``
+    are its numpy backend, which the oracle needs).  A policy registered
+    here runs in the batched engine; the fused engine runs the built-ins
+    only.
     """
     name = name.strip().upper()
     if "/" in name or "*" in name or not name:
@@ -103,7 +113,8 @@ def register_keepalive(name: str, *, make_torch=None, init_state=None,
         raise ValueError(f"keep-alive {name!r} already registered "
                          f"(pass overwrite=True to replace)")
     ka = KeepAlivePolicy(name=name, doc=doc, make_torch=make_torch,
-                         init_state=init_state)
+                         init_state=init_state, make_np=make_np,
+                         init_np=init_np)
     KEEPALIVES[name] = ka
     return ka
 
@@ -150,18 +161,21 @@ class ResolvedLifecycle:
     """A lifecycle config resolved for one function count and device.
 
     ``windows``/``observe`` follow the module contract (``observe`` is
-    ``None`` for a stateless policy).  ``cold_costs`` is the preset's
-    per-function cost vector (``np.ndarray [F]``), or ``None`` for the
-    scalar penalty.  ``max_idle`` is the per-worker budget (0: none).
+    ``None`` for a stateless policy); under ``backend="np"`` they are the
+    numpy backend's and ``device`` is ``None``.  ``cold_costs`` is the
+    preset's per-function cost vector (``np.ndarray [F]``), or ``None``
+    for the scalar penalty.  ``max_idle`` is the per-worker budget (0:
+    none).
     """
 
     cfg: LifecycleCfg
     policy: KeepAlivePolicy
-    device: torch.device
+    device: Optional[torch.device]
     windows: Callable
     observe: Optional[Callable]
     cold_costs: Optional[Any]
     max_idle: int
+    backend: str = "torch"
 
     @property
     def stateful(self) -> bool:
@@ -169,26 +183,46 @@ class ResolvedLifecycle:
 
     def init_policy_state(self, n_reps: int, n_workers: int,
                           n_functions: int):
-        """The policy's fresh ``[R, …]`` state, or ``None``."""
+        """The policy's fresh ``[R, …]`` state, or ``None``; under
+        ``"np"`` the one run's numpy state (``n_reps`` is not read)."""
         if self.policy.init_state is None:
             return None
+        if self.backend == "np":
+            return self.policy.init_np(self.cfg, n_workers, n_functions)
         return self.policy.init_state(self.cfg, n_reps, n_workers,
                                       n_functions, self.device)
 
 
-def resolve_lifecycle(cluster, n_functions: int,
-                      device=None) -> Optional[ResolvedLifecycle]:
+def resolve_lifecycle(cluster, n_functions: int, device=None, *,
+                      backend: str = "torch"
+                      ) -> Optional[ResolvedLifecycle]:
     """Resolve ``cluster.lifecycle`` for ``n_functions`` functions on
     ``device`` (``None`` = CUDA); ``None`` when the cluster has no
-    lifecycle, so that an engine gates the whole plane on one check."""
+    lifecycle, so that an engine gates the whole plane on one check.
+    ``backend="np"`` resolves the numpy backend on the host (the
+    oracle's), which takes no device."""
     cfg = getattr(cluster, "lifecycle", None)
     if cfg is None:
         return None
-    dev = resolve_device(device)
+    if backend not in ("torch", "np"):
+        raise ValueError(f"unknown lifecycle backend {backend!r}; choose "
+                         f"from ('torch', 'np')")
     ka = get_keepalive(cfg.keepalive)
-    windows, observe = ka.make_torch(cfg, int(n_functions), dev)
+    if backend == "np":
+        if device is not None:
+            raise ValueError("the np lifecycle runs on the host and takes "
+                             f"no device (got {device!r})")
+        if ka.make_np is None or (ka.stateful and ka.init_np is None):
+            raise ValueError(f"keep-alive {ka.name!r} has no np backend "
+                             f"(register it with make_np and, if it "
+                             f"carries state, init_np)")
+        dev, (windows, observe) = None, ka.make_np(cfg, int(n_functions))
+    else:
+        dev = resolve_device(device)
+        windows, observe = ka.make_torch(cfg, int(n_functions), dev)
     from .coldstart import cold_costs_for
     costs = cold_costs_for(cfg.coldstart, int(n_functions))
     return ResolvedLifecycle(cfg=cfg, policy=ka, device=dev,
                              windows=windows, observe=observe,
-                             cold_costs=costs, max_idle=int(cfg.max_idle))
+                             cold_costs=costs, max_idle=int(cfg.max_idle),
+                             backend=backend)

@@ -2,12 +2,15 @@
 (counterpart of ``repro/lifecycle/runtime.py``).
 
 An event loop that places and completes one invocation at a time (the
-serving controller) keeps its lifecycle state here, in numpy on the
-host; the engines of :mod:`repro_torch.core.simulator` and
+numpy oracle, :mod:`repro_torch.core.sim_ref`, and the serving
+controller) keeps its lifecycle state here, in numpy on the host; the
+engines of :mod:`repro_torch.core.simulator` and
 :mod:`repro_torch.kernels.sim_engine` make the same operations in their
 own form, and each method names the engine step it mirrors.  The
-keep-alive policy's state is the resolved policy's own, with one
-replication (``R = 1``), on the resolved device.
+keep-alive policy's state is the resolved policy's own: under a
+``backend="np"`` resolution (the oracle's) numpy, used as it is, as in
+the reference; otherwise one replication (``R = 1``) on the resolved
+device, its windows brought to the host after each observation.
 
 State: ``idle_since [W, F]``, the time of each pool's latest completion
 (``-1``: none yet; a warm placement does not refresh it), and the
@@ -43,7 +46,10 @@ class LifecycleRuntime:
 
     def _windows(self) -> None:
         pre, keep = self.res.windows(self.ka)
-        self.pre, self.keep = _host(pre), _host(keep)
+        if self.res.backend == "np":
+            self.pre, self.keep = pre, keep
+        else:
+            self.pre, self.keep = _host(pre), _host(keep)
 
     def cold_cost(self, f: int, scalar_default: float) -> float:
         """Cold-start latency of function ``f``: the preset's, or
@@ -115,13 +121,15 @@ class LifecycleRuntime:
         """Feed the policy the placed pool's idle age, after the warm or
         cold decision, and recompute the windows (the engines' placement
         step).  A pool without a completion yet is not an observation."""
-        if self.res.observe is None:
+        if self.res.observe is None or self.idle_since[w, f] < 0.0:
             return
-        if self.idle_since[w, f] >= 0.0:
+        gap = now - self.idle_since[w, f]
+        if self.res.backend == "np":
+            self.ka = self.res.observe(self.ka, f, gap)
+        else:
             dev = self.res.device
             self.ka = self.res.observe(
                 self.ka, torch.tensor([f], dtype=torch.int64, device=dev),
-                torch.tensor([now - self.idle_since[w, f]],
-                             dtype=torch.float64, device=dev),
+                torch.tensor([gap], dtype=torch.float64, device=dev),
                 torch.ones(1, dtype=torch.bool, device=dev))
-            self._windows()
+        self._windows()

@@ -40,9 +40,23 @@ The policy zoo (the reference's registry extensions):
   when the ring is empty); ``DD`` joins the worker with the least
   expected work from per-function EMAs of the service; ``SWARM`` learns
   per-function scales and per-worker slowness as median trackers.
+
+The numpy backends (``*_np``, the reference's ``np`` backend, which the
+oracle :mod:`repro_torch.core.sim_ref` and the numpy compat shims run)
+take ``(cores, slots)`` and return the reference's one-replication
+contract::
+
+    select(active [W], warm_col [W], func, func_home [F], u, idx) -> w
+
+(``-1`` when every worker is slot-full, the first index on ties); the
+carried-state ones return ``(select, on_complete)`` over a dict of numpy
+arrays from ``*_init_np(W, F)``, with ``select(state, ...) -> (w,
+state)``.  They make the reference's float and integer operations in its
+order, so they equal its ``np`` backend bit for bit.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.hermes_select import ops as hermes_ops
@@ -269,5 +283,213 @@ def swarm(cores: int, slots: int, n_workers: int, device):
         return dict(state, est=est.index_put((rows, func), est_f_new),
                     inv=inv.index_put((rows, w), inv_w_new),
                     cnt=cnt.index_put((rows, w), cnt[rows, w] + 1))
+
+    return select, on_complete
+
+
+# --------------------------------------------------------------------------
+# numpy backends: the reference's ``np`` selects, one replication each
+# --------------------------------------------------------------------------
+
+_INT_INF = np.int64(1 << 40)
+
+
+def hermes_score_np(active: np.ndarray, warm_f: np.ndarray, cores: int,
+                    slots: int) -> tuple[np.ndarray, bool]:
+    """Hermes' score to maximise over the workers, and whether some worker
+    has a free core (the packing mode); the kernels' oracle."""
+    has_core = active < cores
+    low_load = bool(has_core.any())
+    warm = warm_f > 0
+    if low_load:
+        nonempty = active > 0
+        cls = np.where(nonempty, 2 + warm.astype(np.int64),
+                       warm.astype(np.int64))
+        score = cls * (slots + 1) + active
+        score = np.where(has_core, score, -_INT_INF)
+    else:
+        has_slot = active < slots
+        key = active.astype(np.int64) * 2 - warm.astype(np.int64)
+        score = np.where(has_slot, -key, -_INT_INF)  # maximise = least loaded
+    return score, low_load
+
+
+def _two_choices(u: float, n_workers: int) -> tuple[int, int]:
+    """JSQ2's two candidates from one uniform: the integer part of ``u *
+    W`` and its fractional part rescaled, in f64."""
+    x = u * n_workers
+    a = min(int(x), n_workers - 1)
+    frac = x - np.floor(x)
+    b = min(int(frac * n_workers), n_workers - 1)
+    return a, b
+
+
+def loc_np(cores: int, slots: int):
+    def select(active, warm_col, func, func_home, u, idx):
+        has_slot = active < slots
+        if not has_slot.any():
+            return -1
+        W = active.shape[0]
+        home = int(func_home[func])
+        ring = (home + np.arange(W)) % W
+        return int(ring[int(np.argmax(has_slot[ring]))])
+    return select
+
+
+def random_np(cores: int, slots: int):
+    def select(active, warm_col, func, func_home, u, idx):
+        has_slot = active < slots
+        if not has_slot.any():
+            return -1
+        free_idx = np.nonzero(has_slot)[0]
+        return int(free_idx[min(int(u * len(free_idx)), len(free_idx) - 1)])
+    return select
+
+
+def least_loaded_np(cores: int, slots: int):
+    def select(active, warm_col, func, func_home, u, idx):
+        has_slot = active < slots
+        if not has_slot.any():
+            return -1
+        key = np.where(has_slot, active, _INT_INF)
+        return int(np.argmin(key))
+    return select
+
+
+def hybrid_np(cores: int, slots: int):
+    def select(active, warm_col, func, func_home, u, idx):
+        if not (active < slots).any():
+            return -1
+        score, _ = hermes_score_np(active, warm_col, cores, slots)
+        return int(np.argmax(score))
+    return select
+
+
+def jsq2_np(cores: int, slots: int):
+    def select(active, warm_col, func, func_home, u, idx):
+        has_slot = active < slots
+        if not has_slot.any():
+            return -1
+        W = active.shape[0]
+        a, b = _two_choices(float(u), W)
+        key = np.where(has_slot, active, _INT_INF)
+        w = b if key[b] < key[a] else a
+        if not has_slot[w]:            # both sampled workers full
+            w = int(np.argmin(key))
+        return int(w)
+    return select
+
+
+def round_robin_np(cores: int, slots: int):
+    def select(active, warm_col, func, func_home, u, idx):
+        has_slot = active < slots
+        if not has_slot.any():
+            return -1
+        W = active.shape[0]
+        ring = (int(idx) % W + np.arange(W)) % W
+        return int(ring[int(np.argmax(has_slot[ring]))])
+    return select
+
+
+def hiku_init_np(n_workers: int, n_functions: int) -> dict:
+    """Every worker starts advertised (all are idle at t = 0)."""
+    return {"ring": np.arange(n_workers, dtype=np.int32),
+            "in_ring": np.ones(n_workers, dtype=np.int32),
+            "head": np.int32(0),
+            "tail": np.int32(n_workers)}
+
+
+def hiku_np(cores: int, slots: int):
+    def select(state, active, warm_col, func, func_home, u, idx):
+        has_slot = active < slots
+        if not has_slot.any():
+            return -1, state
+        if int(state["tail"]) > int(state["head"]):
+            ring = state["ring"]
+            cand = int(ring[int(state["head"]) % ring.shape[0]])
+            in_ring = state["in_ring"].copy()
+            in_ring[cand] = 0
+            new = dict(state, head=np.int32(int(state["head"]) + 1),
+                       in_ring=in_ring)
+            # a popped worker is idle inside the engines; a placement made
+            # outside them (the platform's re-dispatch) can fill it: then
+            # least loaded, as the torch backend does
+            if has_slot[cand]:
+                return cand, new
+            key = np.where(has_slot, active, _INT_INF)
+            return int(np.argmin(key)), new
+        key = np.where(has_slot, active, _INT_INF)
+        return int(np.argmin(key)), state
+
+    def on_complete(state, w, func, service, n_active_after):
+        if n_active_after != 0 or int(state["in_ring"][w]) != 0:
+            return state
+        ring = state["ring"].copy()
+        ring[int(state["tail"]) % ring.shape[0]] = w
+        in_ring = state["in_ring"].copy()
+        in_ring[w] = 1
+        return dict(state, ring=ring, in_ring=in_ring,
+                    tail=np.int32(int(state["tail"]) + 1))
+
+    return select, on_complete
+
+
+def dd_init_np(n_workers: int, n_functions: int) -> dict:
+    return {"est": np.full(n_functions, DD_PRIOR_S, dtype=np.float64),
+            "ew": np.zeros(n_workers, dtype=np.float64)}
+
+
+def data_driven_np(cores: int, slots: int):
+    def select(state, active, warm_col, func, func_home, u, idx):
+        has_slot = active < slots
+        if not has_slot.any():
+            return -1, state
+        key = np.where(has_slot, state["ew"], np.inf)
+        w = int(np.argmin(key))
+        ew = state["ew"].copy()
+        ew[w] = ew[w] + state["est"][func]
+        return w, dict(state, ew=ew)
+
+    def on_complete(state, w, func, service, n_active_after):
+        est = state["est"].copy()
+        ew = state["ew"].copy()
+        ew[w] = np.maximum(ew[w] - est[func], 0.0)
+        est[func] = est[func] + DD_ALPHA * (service - est[func])
+        return dict(state, est=est, ew=ew)
+
+    return select, on_complete
+
+
+def swarm_init_np(n_workers: int, n_functions: int) -> dict:
+    return {"est": np.full(n_functions, SWARM_PRIOR_S, dtype=np.float64),
+            "inv": np.ones(n_workers, dtype=np.float64),
+            "cnt": np.zeros(n_workers, dtype=np.int64)}
+
+
+def swarm_np(cores: int, slots: int):
+    def select(state, active, warm_col, func, func_home, u, idx):
+        has_slot = active < slots
+        if not has_slot.any():
+            return -1, state
+        inv = state["inv"]
+        key = np.where(has_slot,
+                       np.where(active + 1 <= cores, inv,
+                                (active + 1.0) * inv),
+                       np.inf)
+        return int(np.argmin(key)), state
+
+    def on_complete(state, w, func, service, n_active_after):
+        est = state["est"].copy()
+        inv = state["inv"].copy()
+        cnt = state["cnt"].copy()
+        sample = service / est[func]
+        est[func] = est[func] * (_SW_EST_UP if service > est[func]
+                                 else _SW_EST_DN)
+        hot = cnt[w] < SWARM_WARM_N
+        inv[w] = inv[w] * ((_SW_HOT_UP if hot else _SW_COLD_UP)
+                           if sample > inv[w]
+                           else (_SW_HOT_DN if hot else _SW_COLD_DN))
+        cnt[w] = cnt[w] + 1
+        return dict(state, est=est, inv=inv, cnt=cnt)
 
     return select, on_complete

@@ -12,7 +12,10 @@ Backends: ``"torch"`` runs every balancer as plain tensor code;
 ``"kernel"`` sends a balancer that has a hand-written kernel (today
 ``H``, through :mod:`repro_torch.kernels.hermes_select`) to it and runs
 the others as plain tensor code; ``"auto"`` is ``"kernel"`` for early
-binding, mirroring the reference's ``default_backend``.
+binding, mirroring the reference's ``default_backend``.  ``"np"`` is the
+reference's numpy backend, one replication at a time on the host: the
+backend of the oracle (:mod:`repro_torch.core.sim_ref`) and of the
+numpy compat shims, which takes no device and which no engine runs.
 
 Engines: :data:`ENGINES` and :func:`engine` say which engine runs a
 policy.  On a CUDA device under ``"kernel"`` or ``"auto"``, early
@@ -33,7 +36,9 @@ from repro_torch.device import resolve_device
 
 from . import balancers, scheds
 
-BACKENDS = ("torch", "kernel")
+BACKENDS = ("torch", "kernel", "np")
+#: the backends the engines run (``"np"`` is the oracle's)
+ENGINE_BACKENDS = ("torch", "kernel")
 
 #: name -> (plain factory, kernel factory or None), in the reference's
 #: registration order
@@ -53,6 +58,21 @@ BALANCERS = {
 INIT_STATE = {"HIKU": balancers.hiku_init, "DD": balancers.dd_init,
               "SWARM": balancers.swarm_init}
 SCHEDS = {"PS": scheds.ps, "FCFS": scheds.fcfs, "SRPT": scheds.srpt}
+#: the numpy backend: name -> ``(cores, slots)`` factory (a ``(select,
+#: on_complete)`` pair for a carried-state balancer, whose state comes
+#: from ``INIT_STATE_NP[name](W, F)``); scheduler -> ``(cores)`` factory
+BALANCERS_NP = {
+    "LOC": balancers.loc_np, "R": balancers.random_np,
+    "LL": balancers.least_loaded_np, "H": balancers.hybrid_np,
+    "JSQ2": balancers.jsq2_np, "RR": balancers.round_robin_np,
+    "HIKU": balancers.hiku_np, "DD": balancers.data_driven_np,
+    "SWARM": balancers.swarm_np,
+}
+INIT_STATE_NP = {"HIKU": balancers.hiku_init_np,
+                 "DD": balancers.dd_init_np,
+                 "SWARM": balancers.swarm_init_np}
+SCHEDS_NP = {"PS": scheds.ps_np, "FCFS": scheds.fcfs_np,
+             "SRPT": scheds.srpt_np}
 #: binding name -> late?
 BINDINGS = {"E": False, "L": True}
 #: (binding, balancer, scheduler) -> the engine that runs it on a CUDA
@@ -104,9 +124,10 @@ class ResolvedPolicy:
     ``select``/``rates`` are ``None`` for late binding: the engine owns
     the controller queue, places on ``argmin(active)`` and runs every
     dispatched task at rate 1.  For a carried-state balancer
-    (:attr:`stateful`), ``init_state(R, W, F, device)`` makes the state,
-    ``select`` takes and returns it and ``on_complete`` updates it once
-    per task completion; both are ``None`` otherwise.
+    (:attr:`stateful`), ``init_state(R, W, F, device)`` makes the state
+    (``init_state(W, F)`` under ``"np"``), ``select`` takes and returns
+    it and ``on_complete`` updates it once per task completion; both are
+    ``None`` otherwise.
     """
 
     spec: object
@@ -155,9 +176,7 @@ def engine(policy, device, backend: str = "auto", cluster=None) -> str:
     if isinstance(policy, str):
         from repro_torch.core.taxonomy import parse_policy
         policy = parse_policy(policy)
-    if backend not in (*BACKENDS, "auto"):
-        raise ValueError(f"unknown backend {backend!r}; choose from "
-                         f"{BACKENDS} or 'auto'")
+    check_engine_backend(backend)
     if backend == "torch" or torch.device(device).type != "cuda":
         return "batched"
     key = (_name(policy.binding), check_balancer(policy.balance),
@@ -167,6 +186,19 @@ def engine(policy, device, backend: str = "auto", cluster=None) -> str:
             not _fused_takes(cluster):
         return "batched"
     return route
+
+
+def check_engine_backend(backend: str) -> None:
+    """A named error unless an engine runs ``backend``: ``"np"`` is the
+    numpy oracle's, which no engine takes in place of its own."""
+    if backend == "np":
+        raise ValueError(
+            "backend 'np' is the numpy oracle's, not an engine's: run "
+            "repro_torch.core.sim_ref.simulate_ref for it, or choose from "
+            f"{ENGINE_BACKENDS} or 'auto'")
+    if backend not in (*ENGINE_BACKENDS, "auto"):
+        raise ValueError(f"unknown backend {backend!r}; choose from "
+                         f"{ENGINE_BACKENDS} or 'auto'")
 
 
 def _fused_takes(cluster) -> bool:
@@ -185,13 +217,49 @@ def _fused_takes(cluster) -> bool:
                              and fl.preset_is_builtin(fleet))
 
 
+def np_rates(sched, cores: int):
+    """The numpy rates of scheduler ``sched`` for ``cores`` cores:
+    ``rates(remaining, seqs) -> list[float]`` over one worker's tasks."""
+    return SCHEDS_NP[check_sched(sched)](int(cores))
+
+
+def np_select(balancer, cores: int, slots: int):
+    """The numpy select of ``balancer`` for a cluster shape; a ``(select,
+    on_complete)`` pair for a carried-state balancer, whose state
+    :func:`resolve` with ``backend="np"`` hands over with it."""
+    return BALANCERS_NP[check_balancer(balancer)](int(cores), int(slots))
+
+
+def _resolve_np(policy, cluster) -> ResolvedPolicy:
+    """The reference's ``resolve(policy, backend="np", cluster)``."""
+    if check_binding(policy.binding):
+        return ResolvedPolicy(spec=policy, backend="np", late=True,
+                              select=None, rates=None)
+    key = check_balancer(policy.balance)
+    select, on_complete = np_select(key, cluster.cores, cluster.slots), None
+    if key in INIT_STATE_NP:
+        select, on_complete = select
+    return ResolvedPolicy(
+        spec=policy, backend="np", late=False, select=select,
+        rates=np_rates(policy.sched, cluster.cores),
+        init_state=INIT_STATE_NP.get(key), on_complete=on_complete)
+
+
 def resolve(policy, cluster, device=None, backend: str = "auto"
             ) -> ResolvedPolicy:
     """Resolve ``policy`` (a PolicySpec or ``"T/LB/S"`` text) into batched
-    callables for ``cluster`` on ``device`` (``None`` = CUDA)."""
+    callables for ``cluster`` on ``device`` (``None`` = CUDA); under
+    ``backend="np"``, into the reference's numpy callables, one
+    replication at a time on the host, which take no device."""
     if isinstance(policy, str):
         from repro_torch.core.taxonomy import parse_policy
         policy = parse_policy(policy)
+    if backend == "np":
+        if device is not None:
+            raise ValueError("backend 'np' runs on the host and takes no "
+                             f"device (got {device!r})")
+        cluster.validate()
+        return _resolve_np(policy, cluster)
     dev = resolve_device(device)
     cluster.validate()
     if backend == "auto":

@@ -13,9 +13,9 @@ The virtual-time event loop is host Python over numpy, as in the
 reference: the redispatch of stragglers, the health mask, the controller
 latency, the container lifecycle (:class:`LifecycleRuntime`), the fleet's
 speeds and its ``TARGET_P99`` control loop, telemetry, the timeline and
-the tracer's events.  Each task's rate comes from a numpy copy of the
-reference's ``np`` schedulers (:data:`NP_RATES`), so responses are the
-reference's bit for bit.
+the tracer's events.  Each task's rate comes from the policy table's
+numpy schedulers (:func:`repro_torch.policy.np_rates`, the reference's
+``np`` backend), so responses are the reference's bit for bit.
 
 The dispatch decision runs on ``device`` through
 :func:`repro_torch.policy.resolve` (``backend="auto"``): on the card,
@@ -44,9 +44,8 @@ from repro_torch.device import resolve_device
 from repro_torch.fleet import resolve_fleet
 from repro_torch.kernels.hermes_select import ops as hermes_ops
 from repro_torch.lifecycle import LifecycleRuntime, resolve_lifecycle
-from repro_torch.policy import resolve
-from repro_torch.policy.registry import (BALANCERS, check_balancer,
-                                         check_sched)
+from repro_torch.policy import np_rates, resolve
+from repro_torch.policy.registry import BALANCERS, check_balancer
 from repro_torch.telemetry.sketch import N_BINS
 from repro_torch.telemetry.spans import get_tracer
 from repro_torch.telemetry.state import (TelemetryCfg, TelemetryResult,
@@ -67,41 +66,6 @@ from repro_torch.telemetry.timeline import (EV_AUTOSCALE, EV_MODE_FLIP,
 
 EPS = 1e-9
 _F64, _I32, _I64 = torch.float64, torch.int32, torch.int64
-
-
-def _ps_np(cores: int):
-    def rates(remaining, seqs):
-        n = len(remaining)
-        r = min(1.0, cores / n) if n else 0.0
-        return [r] * n
-    return rates
-
-
-def _fcfs_np(cores: int):
-    def rates(remaining, seqs):
-        n = len(seqs)
-        order = sorted(range(n), key=lambda i: seqs[i])
-        out = [0.0] * n
-        for k, i in enumerate(order):
-            out[i] = 1.0 if k < cores else 0.0
-        return out
-    return rates
-
-
-def _srpt_np(cores: int):
-    def rates(remaining, seqs):
-        n = len(seqs)
-        order = sorted(range(n), key=lambda i: (remaining[i], seqs[i]))
-        out = [0.0] * n
-        for k, i in enumerate(order):
-            out[i] = 1.0 if k < cores else 0.0
-        return out
-    return rates
-
-
-#: scheduler -> ``make(cores) -> rates(remaining, seqs) -> [rate]`` over
-#: one worker's task lists (the reference's ``np`` schedulers)
-NP_RATES = {"PS": _ps_np, "FCFS": _fcfs_np, "SRPT": _srpt_np}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,8 +152,7 @@ class ServingCluster:
         self.device = resolve_device(device)
         self._res = resolve(policy, cfg.cluster, device=self.device,
                             backend="auto")
-        self._rates = NP_RATES[check_sched(policy.sched)](
-            int(cfg.cluster.cores))
+        self._rates = np_rates(policy.sched, cfg.cluster.cores)
         if use_kernel and (self._res.late or BALANCERS[check_balancer(
                 policy.balance)][1] is None):
             raise ValueError(

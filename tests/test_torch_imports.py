@@ -52,7 +52,8 @@ def test_engine_import_leaves_jax_and_reference_out():
     # walk cannot follow: reach each through the package's __getattr__
     code = ("import sys, repro_torch.core.simulator, repro_torch.convert, "
             "repro_torch.kernels._build, "
-            "repro_torch.kernels.sim_engine.ops, repro_torch.trace\n"
+            "repro_torch.kernels.sim_engine.ops, repro_torch.trace, "
+            "repro_torch.core.sim_ref, repro_torch.core.policies\n"
             "for name in ('schema', 'synth_trace', 'replay', 'cache'):\n"
             "    mod = getattr(repro_torch.trace, name)\n"
             "    assert mod.__name__ == 'repro_torch.trace.' + name, mod\n"
