@@ -27,13 +27,13 @@ non-zero):
    ``sim_engine`` launch (the fused early-binding loop) and no
    ``hermes_select`` launch, with no host sync in the loop (the counts are
    zeroed just before each run and read just after), and Hermes on the
-   first N=3000 arrivals of the same inputs; then the batched engine on
-   those 3000: the plain Hermes run (``backend="torch"``, the fused
-   engine's "before"), which the fused Hermes run of the 3000 must equal
-   in every plane and the one of 12000 in its first 3000 choices (worker,
+   first N=2000 arrivals of the same inputs; then the batched engine on
+   those 2000: the plain Hermes run (``backend="torch"``, the fused
+   engine's "before"), which the fused Hermes run of the 2000 must equal
+   in every plane and the one of 12000 in its first 2000 choices (worker,
    cold, rejected), and late binding; each fused policy must take ≤ 100
    µs per arrival and ≥ 50× less than the plain Hermes run; then
-   ``sim_engine``'s device time on the 3000 (its output again equal to
+   ``sim_engine``'s device time on the 2000 (its output again equal to
    the plain run's) beside that run's and the bound; 4b. the
    fused Hermes run at N=12000: its wall time beside the kernel's device
    time on the same inputs (CUDA events), the idle share they give, its
@@ -308,7 +308,30 @@ non-zero):
     phase 17's fused E/LL/PS stream at chunk 80 (N = 240, R = 2): the
     kernel's telemetry carry after each chunk against
     ``simulate_ref_chunks``' snapshot, and the stream's outputs; the
-    phase ≤ 20 s.
+    phase ≤ 20 s;
+21. sharded execution (``repro_torch.distribution.sharding``): two rank
+    processes on the one card over a ``gloo`` group with CUDA tensors
+    (NCCL refuses two ranks on one device; gloo stages the tensors
+    through the host, every product runs on the card), started before
+    phase 18 (imports, the rendezvous, the (data 1 x model 2) mesh and a
+    probe of gloo: all-gather, reduce-scatter, all-to-all and a DTensor
+    tensor-parallel product with its backward, each named if it fails),
+    each sharded run against rank 0's one-device run of the same code
+    from the same weights: (a) olmo-1b at published widths, 2 layers,
+    f32, 2 AdamW steps (the launcher's optimizer): the loss within 2e-3,
+    every parameter allclose 1e-3, DTensor's collectives a step counted;
+    (b) olmo-1b, 2 layers, bf16, ``pallas``: a prefill of 777 and 32
+    decode steps within 6e-2 × max |logit|, ``flash_attention`` 2 and
+    ``decode_attention`` 64 launches a rank, each on 8 local heads; (c)
+    gemma-2b, 2 layers, f32, its cache's sequence dim sharded over
+    ``model``: 4 decode steps through the seq-sharded flash-decode,
+    allclose 1e-3; (d) one dbrx-132b MoE layer (8 experts a rank, bf16),
+    512 tokens through ``moe_ep`` at capacity factor 16 against
+    ``moe_dense``: allclose 2e-2 where the routing agrees, flips counted,
+    aux within 1e-3, no token dropped (drops at the published 1.25
+    counted); (e) the compressed step on (pod 2 x data 1 x model 1), 3
+    steps: the loss falls, the first update within 1e-6 × max |p| of
+    AdamW on the int8 sync of the two pods' gradients; the phase ≤ 30 s.
 
 TF32 is off for matrix products and cuDNN throughout.  The line before the
 last is ``{"kernels": [...]}``; the last line is
@@ -345,7 +368,7 @@ N_MAIN = 12_000
 #: the batched engine's runs (the plain Hermes "before" and late binding)
 #: take ~7 ms an arrival on the host, so they run the first N_BATCHED
 #: arrivals of the main workload, to keep the whole check inside its time
-N_BATCHED = 3_000
+N_BATCHED = 2_000
 N_CHECK = 2_000
 N_SHORT = 300
 SEED = 1
@@ -1028,7 +1051,7 @@ MAX_LEN = 2048
 PROMPT_MIN, PROMPT_MAX = 200, 1500
 CHECK_PROMPT, CHECK_STEPS = 777, 16
 #: decode steps in each profiled stretch (phases 7b, 10b and 18a)
-PROFILE_STEPS = 4
+PROFILE_STEPS = 2
 #: phase 8's bound on max |Δ logit| / max |logit| for each dtype
 MODEL_TOL = {"float32": 1e-4, "bfloat16": 6e-2}
 #: phase 11's ratios before each recurrent model's scan kernel was
@@ -4993,6 +5016,611 @@ def numpy_oracle(torch, np, report, oracle):
     return launched
 
 
+# -- sharded execution on two ranks of the card (phase 21) --
+
+#: phase 21's process group: two rank processes on the one card over
+#: gloo (NCCL refuses two ranks on one device); gloo stages CUDA tensors
+#: through the host, every product runs on the card
+SHARD_WORLD = 2
+SHARD_SEED = 11
+SHARD_LAYERS = 2
+#: 21a: AdamW steps (the launcher's optimizer, phase 19's) and
+#: tests/test_distributed.py:25-67's bounds (the loss; every parameter as
+#: allclose(rtol=atol))
+SHARD_STEPS = 2
+SHARD_LOSS_TOL = 2e-3
+SHARD_PARAM_TOL = 1e-3
+#: 21b: a request of phase 7's lengths, phase 7's dtype and phase 8's bound
+SHARD_PROMPT = CHECK_PROMPT
+#: 21c: gemma-2b's prompt, decode steps, cache length and
+#: tests/test_distributed.py:172-202's bound
+SEQ_PROMPT, SEQ_STEPS, SEQ_LEN = 511, 4, 1024
+SEQ_TOL = 1e-3
+#: 21d: dbrx-132b's MoE layer: tokens, the raised capacity factor (the
+#: reference test's) and tests/test_distributed.py:70-95's bounds
+MOE_EP_TOKENS = (2, 256)
+MOE_EP_CF = 16.0
+MOE_EP_TOL = 2e-2
+MOE_AUX_TOL = 1e-3
+#: 21e: compressed steps and the bound on the first update
+POD_STEPS = 3
+POD_TOL = 1e-6
+SHARD_PHASE_S = 30.0
+
+
+def shard_rank(rank, port, conn, dev="cuda", cfg_of=None):
+    """One rank of phase 21, in a spawned process: joins the gloo group,
+    imports the port, makes the (data 1 x model 2) mesh and probes gloo on
+    it (:func:`_probe_gloo`), says it is ready, and runs
+    :func:`sharded_checks` when the main process says go (``"stop"`` ends
+    it).  Top-level, so that spawn can run it."""
+    import datetime
+    import traceback
+    t0 = time.perf_counter()
+    dist = None
+    try:
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+        sys.path.insert(0, str(ROOT / "src"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if dev == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}",
+            world_size=SHARD_WORLD, rank=rank,
+            timeout=datetime.timedelta(seconds=4 * SHARD_PHASE_S))
+        from repro_torch.distribution import sharding as sh
+        from repro_torch.launch.mesh import make_test_mesh
+        mesh = make_test_mesh((1, SHARD_WORLD), ("data", "model"),
+                              device_type=dev)
+        _probe_gloo(torch, dist, sh, mesh, rank, dev)
+        conn.send(("ready", time.perf_counter() - t0))
+        if conn.recv() != "go":
+            return
+        conn.send(("done", sharded_checks(torch, np, rank, conn, dev,
+                                          cfg_of or _published, mesh)))
+    except BaseException:                                # noqa: BLE001
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        if dist is not None and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _published(name, **kw):
+    import dataclasses
+
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(name), **kw)
+
+
+def _allclose_excess(torch, got, want, tol):
+    """max(|got − want| − tol·|want|): allclose(rtol=atol=tol) holds when
+    it is at most tol."""
+    return float(((got.float() - want.float()).abs()
+                  - tol * want.float().abs()).max()) if want.numel() \
+        else -math.inf
+
+
+def _probe_gloo(torch, dist, sh, mesh, rank, dev):
+    """What the steps need of gloo on this device's tensors, each named
+    if it fails: the three collectives DTensor and the manual regions
+    use, and a DTensor tensor-parallel product with its backward."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    def named(what, fn):
+        try:
+            fn()
+        except Exception as e:                          # noqa: BLE001
+            raise RuntimeError(f"gloo on {dev} tensors: {what} failed: "
+                               f"{e}") from e
+
+    x = torch.arange(8, dtype=torch.float32, device=dev) + 10 * rank
+
+    def all_gather():
+        out = torch.empty(16, device=dev)
+        dist.all_gather_into_tensor(out, x)
+        assert out.tolist() == [float(i + 10 * r) for r in (0, 1)
+                                for i in range(8)], out
+
+    def reduce_scatter():
+        out = torch.empty(4, device=dev)
+        dist.reduce_scatter_tensor(out, x)
+        assert out.tolist() == [float(2 * i + 10 + 8 * rank)
+                                for i in range(4)], out
+
+    def all_to_all():
+        out = torch.empty(8, device=dev)
+        dist.all_to_all_single(out, x)
+        assert out.tolist() == [float(i + 4 * rank + 10 * r)
+                                for r in (0, 1) for i in range(4)], out
+
+    def tp_product():
+        g = torch.Generator(dev).manual_seed(0)
+        a = torch.randn(64, 128, generator=g, device=dev)
+        w1 = torch.randn(128, 256, generator=g, device=dev)
+        w2 = torch.randn(256, 128, generator=g, device=dev)
+        ws = [distribute_tensor(w, mesh, [Replicate(), Shard(d)],
+                                src_data_rank=None).requires_grad_()
+              for w, d in ((w1, 1), (w2, 0))]
+        with sh.plain_as_replicated():
+            y = torch.relu(a @ ws[0]) @ ws[1]
+            g1, g2 = torch.autograd.grad((y * y).mean(), ws)
+        wr = [w.clone().requires_grad_() for w in (w1, w2)]
+        yr = torch.relu(a @ wr[0]) @ wr[1]
+        r1, r2 = torch.autograd.grad((yr * yr).mean(), wr)
+        gap = max(float((y.full_tensor() - yr).abs().max() / yr.abs().max()),
+                  float((g1.full_tensor() - r1).abs().max() / r1.abs().max()),
+                  float((g2.full_tensor() - r2).abs().max() / r2.abs().max()))
+        assert gap <= 1e-5, gap
+
+    for what, fn in (("all_gather_into_tensor", all_gather),
+                     ("reduce_scatter_tensor", reduce_scatter),
+                     ("all_to_all_single", all_to_all),
+                     ("a DTensor tensor-parallel product and its backward",
+                      tp_product)):
+        named(what, fn)
+
+
+def sharded_checks(torch, np, rank, conn, dev, cfg_of, mesh):
+    """Phase 21 on this rank: 21a-e, each sharded run beside rank 0's
+    one-device run of the same code from the same weights.  Returns this
+    rank's numbers (rank 0's hold the gaps)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import lcg_batch, place
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import build_model
+    from repro_torch.training.compression import init_error_feedback
+    from repro_torch.training.optimizer import (OptCfg, adamw_update,
+                                                init_opt_state)
+    from repro_torch.training.train import (TrainState, _inner,
+                                            build_train_step,
+                                            build_train_step_compressed,
+                                            shard_train_state, value_and_grad)
+    from repro_torch.training.tree import tree_leaves, unflatten_like
+    out, secs = {}, {}
+    t_stage = [time.perf_counter(), None]
+
+    def stage(name):
+        if t_stage[1]:
+            secs[t_stage[1]] = time.perf_counter() - t_stage[0]
+        t_stage[:] = [time.perf_counter(), name]
+        conn.send(("stage", name))
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def free():
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+
+    def gen(seed=SHARD_SEED):
+        return torch.Generator(dev).manual_seed(seed)
+
+    # 21a: the sharded train step
+    stage("21a")
+    cfg = cfg_of("olmo-1b", n_layers=SHARD_LAYERS, dtype="float32")
+    model = build_model(cfg, dev)
+    params = model.init(gen())
+    tokens, labels = place(*lcg_batch(0, CHECK_BATCH, CHECK_SEQ, cfg.vocab),
+                           device=dev)
+    ocfg = _train_opt_cfg()
+    ctx = make_ctx(mesh, cfg)
+    with sh.sharding_ctx(ctx):
+        state = shard_train_state(
+            TrainState(params, init_opt_state(params), None), model, ctx)
+        placed = sorted({str(p.placements) for p in
+                         tree_leaves(state.params)})
+        step = build_train_step(model, ocfg)
+        losses = []
+        sh.ROUTED_CALLS.clear()
+        for _ in range(SHARD_STEPS):
+            state, m = step(state, tokens, labels)
+            losses.append(float(m["loss"]))
+        out["collectives_a_step"] = {k: v / SHARD_STEPS for k, v in
+                                     sh.ROUTED_CALLS.items()}
+    got = [sh.full(p) for p in tree_leaves(state.params)]
+    del state
+    if rank == 0:
+        s = TrainState(params, init_opt_state(params), None)
+        step = build_train_step(model, ocfg)
+        want = []
+        for _ in range(SHARD_STEPS):
+            s, m = step(s, tokens, labels)
+            want.append(float(m["loss"]))
+        excess = [_allclose_excess(torch, a, b, SHARD_PARAM_TOL)
+                  for a, b in zip(got, tree_leaves(s.params))]
+        gap = max(float((a - b).abs().max()) for a, b in
+                  zip(got, tree_leaves(s.params)) if b.numel())
+        # where the worst parameter is: its leaf and its first-step
+        # gradient on one device beside AdamW's eps
+        leaf = max(range(len(excess)), key=excess.__getitem__)
+        a, b = got[leaf], tree_leaves(s.params)[leaf]
+        at = int(((a - b).abs() - SHARD_PARAM_TOL * b.abs()).argmax())
+        _, g0 = value_and_grad(model.loss, params, tokens, labels)
+        g_at = float(tree_leaves(g0)[leaf].flatten()[at])
+        g_max = float(tree_leaves(g0)[leaf].abs().max())
+        del g0
+        out["21a"] = dict(losses=losses, one_device=want,
+                          loss_gap=max(abs(a - b) for a, b in
+                                       zip(losses, want)),
+                          param_gap=gap, param_excess=max(excess),
+                          worst=dict(leaf=leaf, index=at, grad=g_at,
+                                     leaf_max_grad=g_max),
+                          placements=placed, lr=ocfg.lr)
+        del s
+    del params, got
+    free()
+
+    # 21b: sharded prefill and decode under pallas, the kernels on each
+    # rank's local heads
+    stage("21b")
+    cfg = cfg_of("olmo-1b", n_layers=SHARD_LAYERS, attn_impl="pallas")
+    model = build_model(cfg, dev)
+    params = model.init(gen())
+    n = SHARD_PROMPT + N_NEW
+    toks = torch.as_tensor(np.random.default_rng(SHARD_SEED).integers(
+        0, cfg.vocab, (1, n)), device=dev)
+
+    def serve(pp, cache):
+        lg, cache = model.prefill(pp, toks[:, :SHARD_PROMPT], cache)
+        outs = [sh.full(lg)]
+        for i in range(SHARD_PROMPT, n):
+            lg, cache = model.decode_step(
+                pp, toks[:, i:i + 1], cache,
+                torch.full((1,), i, dtype=torch.int32, device=dev))
+            outs.append(sh.full(lg))
+        return torch.cat(outs, dim=1).float()
+
+    heads = {"flash_attention": [], "decode_attention": []}
+    fa0, da0 = fa_ops.flash_attention, da_ops.decode_attention
+
+    def fa(q, k, v, **kw):
+        heads["flash_attention"].append(q.shape[2])
+        return fa0(q, k, v, **kw)
+
+    def da(q, k, v, pos, **kw):
+        heads["decode_attention"].append(q.shape[1])
+        return da0(q, k, v, pos, **kw)
+
+    ctx = make_ctx(mesh, cfg)
+    counters = _counters()
+    with sh.sharding_ctx(ctx):
+        pd = sh.param_sharding_tree(params, model.param_specs(), mesh)
+        cache = sh.param_sharding_tree(model.init_cache(1, MAX_LEN),
+                                       model.cache_specs(1, MAX_LEN), mesh)
+        fa_ops.flash_attention, da_ops.decode_attention = fa, da
+        try:
+            sync()
+            for c in counters.values():
+                c.launches = 0
+            sh.ROUTED_CALLS.clear()
+            got = serve(pd, cache)
+            sync()
+            launches = {k: counters[k].launches for k in heads}
+            out["collectives_21b"] = dict(sh.ROUTED_CALLS)
+        finally:
+            fa_ops.flash_attention, da_ops.decode_attention = fa0, da0
+    out["launches"] = launches
+    out["local_heads"] = {k: sorted(set(v)) for k, v in heads.items()}
+    del pd, cache
+    if rank == 0:
+        want = serve(params, model.init_cache(1, MAX_LEN))
+        out["21b"] = dict(max_abs_err=float((got - want).abs().max()),
+                          max_abs_logit=float(want.abs().max()),
+                          finite=bool(got.isfinite().all()),
+                          shape=list(got.shape), vocab=cfg.vocab,
+                          local_heads=cfg.n_heads // SHARD_WORLD)
+    del params, got
+    free()
+
+    # 21c: the seq-sharded flash-decode over gemma-2b's cache
+    stage("21c")
+    cfg = cfg_of("gemma-2b", n_layers=SHARD_LAYERS, dtype="float32")
+    model = build_model(cfg, dev)
+    params = model.init(gen())
+    toks = torch.as_tensor(np.random.default_rng(SHARD_SEED + 1).integers(
+        0, cfg.vocab, (1, SEQ_PROMPT + SEQ_STEPS)), device=dev)
+    cache = model.init_cache(1, SEQ_LEN)
+    model.prefill(params, toks[:, :SEQ_PROMPT], cache)
+    cache_1 = {k: v.clone() for k, v in cache.items()}
+
+    def decode(pp, cache):
+        outs = []
+        for i in range(SEQ_PROMPT, SEQ_PROMPT + SEQ_STEPS):
+            lg, cache = model.decode_step(
+                pp, toks[:, i:i + 1], cache,
+                torch.full((1,), i, dtype=torch.int32, device=dev))
+            outs.append(sh.full(lg))
+        return torch.cat(outs, dim=1)
+
+    ctx = make_ctx(mesh, cfg)
+    with sh.sharding_ctx(ctx):
+        cspec = model.cache_specs(1, SEQ_LEN)
+        pd = sh.param_sharding_tree(params, model.param_specs(), mesh)
+        got = decode(pd, sh.param_sharding_tree(cache, cspec, mesh))
+    out["21c_cache_spec"] = repr(cspec["k"])
+    out["21c_seq_sharded"] = cspec["k"][2] is not None
+    if rank == 0:
+        want = decode(params, cache_1)
+        out["21c"] = dict(
+            max_abs_err=float((got - want).abs().max()),
+            excess=_allclose_excess(torch, got, want, SEQ_TOL),
+            max_abs_logit=float(want.abs().max()))
+    del params, pd, cache, cache_1, got
+    free()
+
+    # 21d: moe_ep against moe_dense, one dbrx-132b MoE layer
+    stage("21d")
+    pub = cfg_of("dbrx-132b")
+    cfg = dataclasses.replace(pub, moe=dataclasses.replace(
+        pub.moe, capacity_factor=MOE_EP_CF))
+    p = moe_mod.init_moe(gen(), cfg)
+    B, S = MOE_EP_TOKENS
+    x = torch.randn((B, S, cfg.d_model), generator=gen(SHARD_SEED + 2),
+                    device=dev).to(cfg.act_dtype)
+    ctx = make_ctx(mesh, cfg)
+    x_spec = sh.Spec(ctx.rules["batch"], ctx.tp_axis, None)
+    with sh.sharding_ctx(ctx):
+        specs = build_model(cfg, "meta").param_specs()["layers"][0]["mlp"]
+        pd = sh.param_sharding_tree(p, specs, mesh)
+        with sh.plain_as_replicated():
+            y, aux = moe_mod.moe_ep(cfg, pd, x)
+        xl = sh.to_local_as(x, x_spec)
+        T_l = xl.shape[0] * xl.shape[1]
+        _, idx_l, _ = moe_mod._router(cfg, p, xl.reshape(T_l, cfg.d_model))
+        idx = sh.full(sh.from_local_as(
+            idx_l.reshape(*xl.shape[:2], -1), x_spec))
+    y, aux = sh.full(y).float(), float(sh.full(aux))
+    counts = torch.bincount(idx_l.flatten(), minlength=cfg.moe.n_experts)
+    out["21d_drops"] = {
+        "published": int((counts - moe_mod._capacity(T_l, pub)).clamp_min(0)
+                          .sum()),
+        "raised": int((counts - moe_mod._capacity(T_l, cfg)).clamp_min(0)
+                      .sum()),
+        "capacity_published": moe_mod._capacity(T_l, pub),
+        "capacity_raised": moe_mod._capacity(T_l, cfg), "tokens": T_l}
+    del pd
+    if rank == 0:
+        y_d, aux_d = moe_mod.moe_dense(cfg, p, x)
+        _, idx_d, _ = moe_mod._router(cfg, p, x.reshape(B * S, cfg.d_model))
+        same = (idx.reshape(B * S, -1).sort(-1).values
+                == idx_d.sort(-1).values).all(-1)
+        y_d = y_d.float().reshape(B * S, -1)
+        ok = y.reshape(B * S, -1)[same]
+        flips = (~same).nonzero().flatten().tolist()
+        out["21d"] = dict(
+            tokens=B * S, flips=len(flips), first_flip=flips[:1],
+            max_abs_err=float((ok - y_d[same]).abs().max()),
+            excess=_allclose_excess(torch, ok, y_d[same], MOE_EP_TOL),
+            aux=aux, aux_dense=float(aux_d), aux_gap=abs(aux - float(aux_d)))
+        del y_d
+    del p, x, y
+    free()
+
+    # 21e: the compressed cross-pod step, a pod a rank
+    stage("21e")
+    cfg = cfg_of("olmo-1b", n_layers=SHARD_LAYERS, dtype="float32")
+    model = build_model(cfg, dev)
+    params = model.init(gen())
+    pmesh = make_test_mesh((SHARD_WORLD, 1, 1), ("pod", "data", "model"),
+                           device_type=dev)
+    ctx = make_ctx(pmesh, cfg)
+    ocfg = OptCfg(lr=5e-3, warmup_steps=2, total_steps=20)
+    tokens, labels = place(*lcg_batch(0, CHECK_BATCH, CHECK_SEQ, cfg.vocab),
+                           device=dev)
+    b = CHECK_BATCH // SHARD_WORLD
+    pod = pmesh.get_local_rank("pod")
+    with sh.sharding_ctx(ctx):
+        sc = shard_train_state(TrainState(params, init_opt_state(params),
+                                          init_error_feedback(params)),
+                               model, ctx)
+        step = build_train_step_compressed(model, ocfg)
+        with sh.sharding_ctx(_inner(ctx)), sh.plain_as_replicated():
+            _, g = value_and_grad(model.loss, sc.params,
+                                  tokens[pod * b:(pod + 1) * b],
+                                  labels[pod * b:(pod + 1) * b])
+        g = [sh.full(t) for t in tree_leaves(g)]
+        losses = []
+        for i in range(POD_STEPS):
+            sc, m = step(sc, tokens, labels)
+            losses.append(float(m["loss"]))
+            if i == 0:
+                after = [sh.full(t).clone() for t in tree_leaves(sc.params)]
+    del sc
+    # the int8 error-feedback sync of the two pods' gradients, here
+    synced = []
+    for t in g:
+        if not t.numel():
+            synced.append(t)
+            continue
+        both = torch.empty(SHARD_WORLD * t.numel(), device=dev)
+        dist.all_gather_into_tensor(both, t.reshape(-1))
+        both = both.view(SHARD_WORLD, -1)
+        scale = torch.clamp(both.abs().amax(1), min=1e-12) / 127.0
+        scale = scale.max()
+        q = torch.clamp(torch.round(both / scale), -127, 127).to(torch.int32)
+        synced.append((q.sum(0).float() * scale / SHARD_WORLD).view(t.shape))
+    want, _, _ = adamw_update(ocfg, params, unflatten_like(params, synced),
+                              init_opt_state(params))
+    gap = max(float((a - w).abs().max() / w.abs().max())
+              for a, w in zip(after, tree_leaves(want)) if w.numel())
+    out["21e"] = dict(losses=losses, update_gap=gap)
+    del params, g, after, want, synced
+    free()
+    stage("end")
+    out["secs"] = secs
+    return out
+
+
+@contextlib.contextmanager
+def shard_ranks(dev="cuda", cfg_of=None):
+    """Phase 21's two rank processes, started before phase 18 so that
+    their imports and the gloo rendezvous run beside phases 18-20; they
+    wait for the go.  Yields (processes, pipes)."""
+    import multiprocessing
+    import socket
+    mp = multiprocessing.get_context("spawn")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs, conns = [], []
+    for r in range(SHARD_WORLD):
+        mine, theirs = mp.Pipe()
+        p = mp.Process(target=shard_rank, args=(r, port, theirs, dev, cfg_of),
+                       daemon=True)
+        p.start()
+        procs.append(p)
+        conns.append(mine)
+    try:
+        yield procs, conns
+    finally:
+        for c in conns:
+            with contextlib.suppress(OSError):
+                c.send("stop")
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def sharded_execution(torch, report, ranks):
+    """Phase 21: the sharded paths on two ranks of the card (21a-e), each
+    against the one-device run of the same code.  Returns the attention
+    kernels' launches of 21b, summed over the ranks."""
+    procs, conns = ranks
+    t_phase = time.perf_counter()
+    ready = []
+    for r, c in enumerate(conns):
+        check(c.poll(4 * SHARD_PHASE_S), f"21: rank {r} never got ready")
+        kind, val = c.recv()
+        check(kind == "ready", f"21: rank {r} failed to start: {val}")
+        ready.append(val)
+    wait_s = time.perf_counter() - t_phase
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for c in conns:
+        c.send("go")
+    results, stage = [None] * SHARD_WORLD, ["go"] * SHARD_WORLD
+    deadline = time.perf_counter() + 4 * SHARD_PHASE_S
+    while any(r is None for r in results):
+        for r, c in enumerate(conns):
+            if results[r] is not None:
+                continue
+            if c.poll(0.02):
+                kind, val = c.recv()
+                if kind == "stage":
+                    stage[r] = val
+                elif kind == "error":
+                    raise SmokeFailure(f"21: rank {r} failed in {stage[r]}: "
+                                       f"{val[-3000:]}")
+                else:
+                    results[r] = val
+            elif not procs[r].is_alive():
+                raise SmokeFailure(f"21: rank {r} died (exit "
+                                   f"{procs[r].exitcode}) in {stage[r]}")
+        check(time.perf_counter() < deadline,
+              f"21: the ranks did not finish (stages {stage})")
+    r0 = results[0]
+    a, b, c_, d, e = (r0[k] for k in ("21a", "21b", "21c", "21d", "21e"))
+    log(f"21: the ranks were ready {['%.1f s' % s for s in ready]} after "
+        f"they started (waited {wait_s:.1f} s here); gloo carried "
+        f"all_gather_into_tensor, reduce_scatter_tensor, all_to_all_single "
+        f"and a DTensor tensor-parallel product with its backward on CUDA "
+        f"tensors; seconds a stage on rank 0 "
+        f"{ {k: round(v, 2) for k, v in r0['secs'].items()} }")
+    log(f"21a: olmo-1b at published widths, {SHARD_LAYERS} layers, f32, "
+        f"(data 1 x model {SHARD_WORLD}), {SHARD_STEPS} AdamW steps at lr "
+        f"{a['lr']:g}: losses {a['losses']} against one device "
+        f"{a['one_device']}: gap {a['loss_gap']:.3e} (bound "
+        f"{SHARD_LOSS_TOL:g}); parameters max |Δ| {a['param_gap']:.3e}, "
+        f"allclose excess {a['param_excess']:.3e} (bound "
+        f"{SHARD_PARAM_TOL:g}) at leaf {a['worst']['leaf']} element "
+        f"{a['worst']['index']}, whose first-step gradient is "
+        f"{a['worst']['grad']:.3e} (the leaf's largest "
+        f"{a['worst']['leaf_max_grad']:.3e}, AdamW's eps 1e-08); "
+        f"placements {a['placements']}; DTensor's collectives a step "
+        f"{r0['collectives_a_step']}")
+    check(a["loss_gap"] <= SHARD_LOSS_TOL, f"21a: loss gap {a['loss_gap']}")
+    check(a["param_excess"] <= SHARD_PARAM_TOL,
+          f"21a: parameter gap {a['param_excess']}")
+    check(any("Shard" in p for p in a["placements"]),
+          f"21a: nothing sharded: {a['placements']}")
+    ratio = b["max_abs_err"] / b["max_abs_logit"]
+    tol = MODEL_TOL["bfloat16"]
+    launches = {k: sum(r["launches"][k] for r in results)
+                for k in ("flash_attention", "decode_attention")}
+    log(f"21b: olmo-1b at published widths, {SHARD_LAYERS} layers, bf16, "
+        f"pallas: prefill of {SHARD_PROMPT} + {N_NEW} decode steps sharded "
+        f"against one device: max |Δ| {b['max_abs_err']:.4e}, max |logit| "
+        f"{b['max_abs_logit']:.4f}, ratio {ratio:.3e} (bound {tol:g}); "
+        f"launches a rank {[r['launches'] for r in results]}, the kernels' "
+        f"local heads {[r['local_heads'] for r in results]}; DTensor's "
+        f"collectives over the prefill and {N_NEW} steps "
+        f"{r0['collectives_21b']}")
+    check(b["finite"] and b["shape"] == [1, N_NEW + 1, b["vocab"]],
+          f"21b: logits {b}")
+    check(ratio <= tol, f"21b: sharded != one device ({ratio:.3e})")
+    heads = b["local_heads"]
+    for r in results:
+        check(r["launches"] == {"flash_attention": SHARD_LAYERS,
+                                "decode_attention": SHARD_LAYERS * N_NEW},
+              f"21b: launches {r['launches']}")
+        check(r["local_heads"] == {"flash_attention": [heads],
+                                   "decode_attention": [heads]},
+              f"21b: the kernels saw heads {r['local_heads']}")
+    log(f"21c: gemma-2b at published widths (8 heads, 1 KV head, Dh 256, "
+        f"shard_heads=False), {SHARD_LAYERS} layers, f32: cache "
+        f"{r0['21c_cache_spec']}, {SEQ_STEPS} decode steps after a prompt of "
+        f"{SEQ_PROMPT}: max |Δ| {c_['max_abs_err']:.3e}, allclose excess "
+        f"{c_['excess']:.3e} (bound {SEQ_TOL:g}), max |logit| "
+        f"{c_['max_abs_logit']:.3f}")
+    check(r0["21c_seq_sharded"], f"21c: the cache's sequence dim is not "
+                                 f"sharded: {r0['21c_cache_spec']}")
+    check(c_["excess"] <= SEQ_TOL, f"21c: gap {c_['excess']}")
+    drops = [r["21d_drops"] for r in results]
+    log(f"21d: one dbrx-132b MoE layer (d 6144, 16 experts top 4, bf16; "
+        f"{16 // SHARD_WORLD} experts a rank), {d['tokens']} tokens, "
+        f"capacity factor {MOE_EP_CF:g}: moe_ep against moe_dense at the "
+        f"{d['tokens'] - d['flips']} tokens whose routing agrees: max |Δ| "
+        f"{d['max_abs_err']:.3e}, allclose excess {d['excess']:.3e} (bound "
+        f"{MOE_EP_TOL:g}); {d['flips']} routing flips {d['first_flip']}; aux "
+        f"{d['aux']:.6f} against {d['aux_dense']:.6f} (gap "
+        f"{d['aux_gap']:.3e}, bound {MOE_AUX_TOL:g}); tokens dropped a rank "
+        f"at the published capacity factor "
+        f"{_published('dbrx-132b').moe.capacity_factor:g} "
+        f"{[x['published'] for x in drops]} (capacity "
+        f"{drops[0]['capacity_published']}), at {MOE_EP_CF:g} "
+        f"{[x['raised'] for x in drops]}")
+    check(all(x["raised"] == 0 for x in drops), f"21d: drops {drops}")
+    check(d["excess"] <= MOE_EP_TOL, f"21d: gap {d['excess']}")
+    check(d["aux_gap"] <= MOE_AUX_TOL, f"21d: aux gap {d['aux_gap']}")
+    log(f"21e: (pod {SHARD_WORLD} x data 1 x model 1), olmo-1b "
+        f"{SHARD_LAYERS} layers f32, {POD_STEPS} compressed steps: losses "
+        f"{[round(x, 5) for x in e['losses']]}; the first update against "
+        f"AdamW on the int8 sync of the two pods' gradients "
+        f"{e['update_gap']:.3e} x max |p| (bound {POD_TOL:g})")
+    check(e["losses"][-1] < e["losses"][0], f"21e: losses {e['losses']}")
+    check(e["update_gap"] <= POD_TOL, f"21e: update gap {e['update_gap']}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 21: {phase_s:.1f} s")
+    report["sharded"] = dict(ready_s=ready, wait_s=wait_s, phase_s=phase_s,
+                             ranks=results, launches=launches)
+    check(phase_s <= SHARD_PHASE_S, f"phase 21 took {phase_s:.1f} s (limit "
+                                    f"{SHARD_PHASE_S:.0f} s)")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run it from the root of a checkout of the repo",
@@ -5080,16 +5708,22 @@ def main() -> int:
                 with Phase("17 streaming on the card", report):
                     stream_launches, fcfs_launches, stream_err = streaming(
                         torch, np, report, pool, oracle)
-            # 19b's CPU side runs in its worker processes beside phase 18
-            with train_checks() as (train_tmp, train_jobs):
-                with Phase("18 MoE and MLA serving at full width", report):
-                    moe_launches, moe_kernel_err = moe_serving(torch, np,
-                                                               report)
-                with Phase("19 training on the card", report):
-                    train_launches = training(torch, np, report, train_tmp,
-                                              train_jobs)
-            with Phase("20 the numpy oracle against the card", report):
-                oracle_launches = numpy_oracle(torch, np, report, oracle)
+            # phase 21's two ranks start here and join their gloo group
+            # beside phases 18-20
+            with shard_ranks() as ranks:
+                # 19b's CPU side runs in its worker processes beside phase 18
+                with train_checks() as (train_tmp, train_jobs):
+                    with Phase("18 MoE and MLA serving at full width",
+                               report):
+                        moe_launches, moe_kernel_err = moe_serving(
+                            torch, np, report)
+                    with Phase("19 training on the card", report):
+                        train_launches = training(torch, np, report,
+                                                  train_tmp, train_jobs)
+                with Phase("20 the numpy oracle against the card", report):
+                    oracle_launches = numpy_oracle(torch, np, report, oracle)
+                with Phase("21 sharded execution on two ranks", report):
+                    shard_launches = sharded_execution(torch, report, ranks)
         total_s = time.perf_counter() - t_start
         check(total_s <= SCRIPT_S, f"the script took {total_s:.1f} s (limit "
                                    f"{SCRIPT_S:.0f} s)")
@@ -5130,9 +5764,10 @@ def main() -> int:
     # the headline shape of each: olmo-1b's attention, rwkv6-3b's and
     # zamba2-2.7b's scans at T = 777, bf16; launches from the paths that
     # serve them (phases 7 and 18 for attention, phase 10 for the scans,
-    # phase 18 for the launcher's rwkv-tiny) and train them (phase 19b:
-    # the scans' forwards and remat recomputes); the error the largest of the
-    # headline shape's and, for attention, dbrx-132b's shapes (phase 18)
+    # phase 18 for the launcher's rwkv-tiny), train them (phase 19b:
+    # the scans' forwards and remat recomputes) and serve sharded (phase
+    # 21b: attention on each rank's local heads); the error the largest of
+    # the headline shape's and, for attention, dbrx-132b's shapes (phase 18)
     for name, path, rows, n in (
             ("flash_attention", "flash_attention/kernel.py:63",
              attn_t["flash_attention"], serve_launches),
@@ -5150,7 +5785,7 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{path}",
             "launches": n[name] + moe_launches.get(name, 0)
-            + train_launches[name],
+            + train_launches[name] + shard_launches.get(name, 0),
             "max_abs_err": err,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

@@ -29,21 +29,37 @@ space over a cache of ``kv_lora + qk_rope`` values a token.  Every
 product mirrors the reference's einsums, with its casts in the same
 places; no fused SDPA of torch stands in for them.
 
-Not ported, because they act only under a sharding context, which the
-port does not have: the head padding for uneven tensor parallelism
-(``_gqa_tp_pad``: without a context the reference returns the heads
-unpadded, ``attention.py:221-223``) and the shard-map flash-decodes
-(``cache_seq_axes`` gives ``None`` without a context,
-``attention.py:294-295``, which skips them).  Weights are stored flat
-(``wq: [D, H*Dh]``) as in the reference.
+Under a sharding context (:mod:`repro_torch.distribution.sharding`) the
+projections are DTensor products with the reference's constraints at its
+places (heads over ``model``, batch over the data axes), and the
+attention itself is a manual region on each rank's local heads
+(:func:`sdpa`, :func:`decode_attention`): the kernels, or the plain
+versions on the CPU, see local tensors only.  The reference's head
+padding for uneven tensor parallelism (:func:`_gqa_tp_pad`) pads the
+query groups so the heads split evenly; a decode cache whose sequence
+dim is sharded (:func:`cache_seq_axes`) is read by the seq-sharded
+flash-decodes (:func:`_flash_decode_sharded`,
+:func:`_mla_flash_decode_sharded`): each rank scores its slice of the
+cache at its global offset and an all-reduce (MAX of ``m``, SUM of ``l``
+and ``o``) over the shard group merges them, the reference's ``pmax``
+and ``psum``.  Cache writes under a context land on the shards that hold
+the rows (:func:`write_rows`, :func:`write_prefix`).  Weights are stored
+flat (``wq: [D, H*Dh]``) as in the reference.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import NotPortedError
+from repro_torch.distribution.sharding import (all_reduce, axis_index,
+                                               axis_size, current_ctx,
+                                               from_local_as, is_dtensor,
+                                               n_shards, phys, pspec, shard,
+                                               spec_of, to_local_as,
+                                               whole_dim)
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import apply_rope, dense_init, rmsnorm, zeros
@@ -78,21 +94,42 @@ def init_attention(gen: torch.Generator, cfg) -> dict:
     return p
 
 
+def split_heads(x, *shape):
+    """``x`` ``[..., H·Dh]`` → ``shape`` ``[..., H, Dh]``.  A sharded flat
+    dim whose shards do not hold whole heads (``H`` not a multiple of its
+    pieces: the reference's uneven heads, which GSPMD pads) is gathered
+    first."""
+    if shape[-2] % n_shards(x, -1):
+        x = whole_dim(x, -1)
+    return x.reshape(*shape)
+
+
+def merge_heads(o, *shape):
+    """``o`` ``[..., H, Dh]`` → ``shape`` ``[..., H·Dh]``, its heads
+    gathered first where they are split unevenly."""
+    if o.shape[-2] % n_shards(o, -2):
+        o = whole_dim(o, -2)
+    return o.reshape(*shape)
+
+
 def _qkv(cfg, p, x, pos):
     """Project and position-encode.  x: ``[B,S,D]`` → q ``[B,S,H,Dh]``,
     k/v ``[B,S,KV,Dh]``."""
     B, S, _ = x.shape
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, S, Hq, Dh)
-    k = (x @ p["wk"].to(dt)).reshape(B, S, Hkv, Dh)
-    v = (x @ p["wv"].to(dt)).reshape(B, S, Hkv, Dh)
+    q = split_heads(x @ p["wq"].to(dt), B, S, Hq, Dh)
+    k = split_heads(x @ p["wk"].to(dt), B, S, Hkv, Dh)
+    v = split_heads(x @ p["wv"].to(dt), B, S, Hkv, Dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
     if cfg.pos == "rope":
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
     return q, k, v
 
 
@@ -179,10 +216,90 @@ def _sdpa_unrolled(q, k, v, chunk: int):
     return o.reshape(B, -1, H, Dh)
 
 
+def _gqa_tp_pad(cfg, q, k, v):
+    """Pad query heads / replicate KV heads so attention shards evenly
+    (reference ``attention.py:203-239``).
+
+    When ``H % TP != 0`` (e.g. qwen3's 40 heads on a 16-way model axis)
+    each of the KV heads is replicated ``rep = TP/KV`` times and its query
+    group padded to ``rep·⌈G/rep⌉``: the group-to-KV mapping is kept, and
+    the padded heads are sliced off after SDPA.  The reshuffle runs on
+    each rank's batch shard with the heads whole; the padded heads are
+    then split over ``model``.
+
+    Returns (q', k', v', unpad) where unpad maps [B,S,H',Dh]→[B,S,H,Dh].
+    """
+    tp = axis_size("heads")
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if (not cfg.gqa_pad or current_ctx() is None or tp <= 1
+            or not cfg.shard_heads or H % tp == 0 or tp % KV != 0):
+        return q, k, v, None
+    rep = tp // KV
+    G = H // KV
+    Gp = -(-G // rep)                      # ceil
+    S, Dh = q.shape[1], q.shape[3]
+    whole = (pspec("batch")[0], None, None, None)
+    ql, kl, vl = (to_local_as(t, whole) for t in (q, k, v))
+    Bl = ql.shape[0]
+    qg = F.pad(ql.reshape(Bl, S, KV, G, Dh), (0, 0, 0, rep * Gp - G))
+    qp = qg.reshape(Bl, S, KV * rep * Gp, Dh)
+    kp = kl.repeat_interleave(rep, dim=2)
+    vp = vl.repeat_interleave(rep, dim=2)
+    qp, kp, vp = (shard(from_local_as(t, whole), "batch", "seq", "heads",
+                        None) for t in (qp, kp, vp))
+
+    def unpad(o):
+        ol = to_local_as(o, whole).reshape(Bl, S, KV, rep * Gp, Dh)
+        ol = ol[:, :, :, :G].reshape(Bl, S, H, Dh)
+        return shard(from_local_as(ol, whole), "batch", "seq", "heads", None)
+
+    return qp, kp, vp, unpad
+
+
+def _local_heads(H: int, KV: int) -> tuple[bool, bool]:
+    """Whether a manual region splits the query heads, and the kv heads
+    with them, over the ``heads`` axes: the queries when ``H`` divides
+    evenly, the kv heads when ``KV`` does too (each rank's query groups
+    then read only its own kv heads)."""
+    tp = axis_size("heads")
+    q_sh = tp > 1 and H % tp == 0
+    return q_sh, (q_sh and phys("kv_heads") == phys("heads")
+                  and KV % tp == 0)
+
+
+def _sdpa_sharded(cfg, q, k, v):
+    """Causal attention on each rank's local heads (a manual region over
+    the batch and ``heads`` axes).  Where the query heads split and the kv
+    heads do not, each local query head takes its kv head (a group of
+    one)."""
+    q, k, v, unpad = _gqa_tp_pad(cfg, q, k, v)
+    H, KV = q.shape[2], k.shape[2]
+    b, hp = pspec("batch")[0], pspec("heads")[0]
+    q_sh, kv_sh = _local_heads(H, KV)
+    q_spec = (b, None, hp if q_sh else None, None)
+    kv_spec = (b, None, hp if kv_sh else None, None)
+    ql = to_local_as(q, q_spec)
+    kl, vl = to_local_as(k, kv_spec), to_local_as(v, kv_spec)
+    if q_sh and not kv_sh:
+        n = ql.shape[2]
+        lo = axis_index(phys("heads")) * n
+        idx = torch.arange(lo, lo + n, device=ql.device) // (H // KV)
+        kl, vl = kl[:, :, idx], vl[:, :, idx]
+    o = from_local_as(_sdpa_local(cfg, ql, kl, vl), q_spec)
+    return unpad(o) if unpad is not None else o
+
+
 def sdpa(cfg, q, k, v):
     """Dispatch causal self-attention by ``cfg.attn_impl`` (the
-    reference's conditions, ``attention.py:249-257``)."""
+    reference's conditions, ``attention.py:249-257``); under a sharding
+    context, on each rank's local heads."""
     check_attn_impl(cfg)
+    if current_ctx() is not None:
+        return _sdpa_sharded(cfg, q, k, v)
+    return _sdpa_local(cfg, q, k, v)
+
+
+def _sdpa_local(cfg, q, k, v):
     S = q.shape[1]
     if cfg.attn_impl == "pallas":
         return fa_ops.flash_attention(q, k, v)
@@ -205,36 +322,156 @@ def init_kv_cache(cfg, batch: int, max_len: int, device=None) -> dict:
             "v": torch.zeros(shp, dtype=cfg.act_dtype, device=device)}
 
 
+def cache_seq_axes(cfg):
+    """Physical mesh axes the decode-cache sequence dim is sharded over
+    (mirrors the cache-spec logic in transformer.py; reference
+    ``attention.py:289-301``)."""
+    if current_ctx() is None:
+        return None
+    kv_ok = (cfg.shard_heads
+             and cfg.n_kv_heads % max(axis_size("kv_heads"), 1) == 0
+             and axis_size("kv_heads") > 1)
+    if cfg.mla is not None or not kv_ok:
+        return phys("seq_kv", "seq_kv_tp")
+    return phys("seq_kv")
+
+
+def _axes_spec(axes):
+    return axes if len(axes) > 1 else axes[0]
+
+
+def _flash_decode_sharded(qg, k_cache, v_cache, pos, scale, axes):
+    """Partial-softmax flash-decode over a seq-sharded cache (reference
+    ``attention.py:304-345``).
+
+    qg: ``[B,KV,G,Dh]`` (whole over ``axes``); k/v_cache: ``[B,S,KV,Dh]``
+    with S sharded over ``axes``; pos: ``[B]``.  Each shard scores only
+    its local cache slice, at its global offset, in f32; the combine is
+    an all-reduce of ``m`` (MAX) and of ``l`` and ``o`` (SUM) over the
+    shard group instead of a gathered ``[B,H,S]`` score array.
+    """
+    b = pspec("batch")[0]
+    ql = to_local_as(qg, (b, None, None, None))
+    seq = (b, _axes_spec(axes), None, None)
+    kc, vc = to_local_as(k_cache, seq), to_local_as(v_cache, seq)
+    pl = to_local_as(pos, (b,))
+    S_l = kc.shape[1]
+    t = axis_index(axes) * S_l + torch.arange(S_l, device=kc.device)
+    s = torch.einsum("bkgd,btkd->bkgt", ql, kc).float() * scale
+    s = torch.where((t[None, :] <= pl[:, None])[:, None, None, :], s, NEG_INF)
+    m = all_reduce(s.amax(dim=-1), "max", axes)
+    p = torch.exp(s - m[..., None])
+    l = all_reduce(p.sum(dim=-1), "sum", axes)
+    o = torch.einsum("bkgt,btkd->bkgd", p.to(ql.dtype), vc)
+    o = all_reduce(o.float(), "sum", axes)
+    o = (o / l.clamp_min(1e-30)[..., None]).to(ql.dtype)
+    return from_local_as(o, (b, None, None, None))
+
+
+def _decode_local(cfg, q, k_cache, v_cache, pos):
+    """Decode attention of q ``[B,H,Dh]`` over a cache ``[B,S,KV,Dh]``:
+    the kernel under ``pallas``, else plain torch in the reference's op
+    order (probabilities cast to q's dtype before ``p·V``)."""
+    if cfg.attn_impl == "pallas":
+        return da_ops.decode_attention(q, k_cache, v_cache, pos)
+    B, H, Dh = q.shape
+    KV = k_cache.shape[2]
+    qg = q.reshape(B, KV, H // KV, Dh)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k_cache).float()
+    s = s * (1.0 / math.sqrt(Dh))
+    t = torch.arange(k_cache.shape[1], device=q.device)
+    mask = t[None, :] <= pos[:, None]                        # [B, S]
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    a = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bkgt,btkd->bkgd", a, v_cache).reshape(B, H, Dh)
+
+
+def _decode_sharded(cfg, q, k_cache, v_cache, pos):
+    """Decode attention under a sharding context: the seq-sharded
+    flash-decode where the cache's sequence dim is split
+    (:func:`cache_seq_axes`), else a manual region on each rank's local
+    kv heads and their query groups (all heads where they do not
+    split)."""
+    B, H, Dh = q.shape
+    KV = cfg.n_kv_heads
+    axes = cache_seq_axes(cfg) if cfg.flash_decode else None
+    if axes:
+        qg = whole_dim(q, 1).reshape(B, KV, H // KV, Dh)
+        o = _flash_decode_sharded(qg, k_cache, v_cache, pos,
+                                  1.0 / math.sqrt(Dh), axes)
+        return o.reshape(B, H, Dh)
+    b, hp = pspec("batch")[0], pspec("heads")[0]
+    kv_sh = _local_heads(H, KV)[1]
+    q_spec = (b, hp if kv_sh else None, None)
+    c_spec = (b, None, hp if kv_sh else None, None)
+    o = _decode_local(cfg, to_local_as(q, q_spec),
+                      to_local_as(k_cache, c_spec),
+                      to_local_as(v_cache, c_spec), to_local_as(pos, (b,)))
+    return from_local_as(o, q_spec)
+
+
 def decode_attention(cfg, p, x, k_cache, v_cache, pos):
     """One-token decode.  x: ``[B,1,D]``; k/v_cache: ``[B,S_max,KV,Dh]``
     (already holding this step's k, v at ``pos``); pos: ``[B]`` int32.
 
     Under ``attn_impl="pallas"`` the attention is the decode kernel, which
     reads the cache in place and keys ``t <= pos`` only; otherwise plain
-    torch in the reference's op order (probabilities cast to the
-    activation dtype before ``p·V``).
+    torch in the reference's op order.  Under a sharding context see
+    :func:`_decode_sharded`.
     """
     B = x.shape[0]
-    Hq, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Hq, Dh = cfg.n_heads, cfg.head_dim
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, Hq, Dh)
+    q = split_heads(x @ p["wq"].to(dt), B, Hq, Dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
     if cfg.pos == "rope":
         q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-    if cfg.attn_impl == "pallas":
-        o = da_ops.decode_attention(q, k_cache, v_cache, pos)
+    if current_ctx() is not None:
+        o = _decode_sharded(cfg, q, k_cache, v_cache, pos)
     else:
-        qg = q.reshape(B, KV, Hq // KV, Dh)
-        s = torch.einsum("bkgd,btkd->bkgt", qg, k_cache).float()
-        s = s * (1.0 / math.sqrt(Dh))
-        t = torch.arange(k_cache.shape[1], device=x.device)
-        mask = t[None, :] <= pos[:, None]                    # [B, S]
-        s = torch.where(mask[:, None, None, :], s, NEG_INF)
-        a = torch.softmax(s, dim=-1).to(dt)
-        o = torch.einsum("bkgt,btkd->bkgd", a, v_cache)
-    out = o.reshape(B, Hq * Dh) @ p["wo"].to(dt)
+        o = _decode_local(cfg, q, k_cache, v_cache, pos)
+    out = merge_heads(o, B, Hq * Dh) @ p["wo"].to(dt)
     return out[:, None, :]                                   # [B, 1, D]
+
+
+def write_rows(cache, new, pos) -> None:
+    """``cache[b, pos[b]] = new[b]`` in place (cache ``[B, S, ...]``, new
+    ``[B, ...]``).  A sharded cache is written on the shards that hold
+    row ``pos[b]``, from ``new`` laid out as the cache is."""
+    if not is_dtensor(cache):
+        bidx = torch.arange(cache.shape[0], device=cache.device)
+        cache[bidx, pos.long()] = new.to(cache.dtype)
+        return
+    spec = spec_of(cache)
+    nl = to_local_as(new, (spec[0], *spec[2:])).to(cache.dtype)
+    pl = to_local_as(pos, (spec[0],)).long()
+    cl = cache.to_local()
+    S_l = cl.shape[1]
+    i = pl - (axis_index(spec[1]) * S_l if spec[1] else 0)
+    ok = (i >= 0) & (i < S_l)
+    i = i.clamp(0, S_l - 1)
+    bidx = torch.arange(cl.shape[0], device=cl.device)
+    keep = ok.reshape(-1, *[1] * (nl.dim() - 1))
+    cl[bidx, i] = torch.where(keep, nl, cl[bidx, i])
+
+
+def write_prefix(cache, new) -> None:
+    """``cache[:, :S] = new`` in place (cache ``[B, S_max, ...]``, new
+    ``[B, S, ...]``), on the shards of a sharded cache that hold those
+    rows."""
+    S = new.shape[1]
+    if not is_dtensor(cache):
+        cache[:, :S] = new.to(cache.dtype)
+        return
+    spec = spec_of(cache)
+    nl = to_local_as(new, (spec[0], None, *spec[2:])).to(cache.dtype)
+    cl = cache.to_local()
+    S_l = cl.shape[1]
+    lo = axis_index(spec[1]) * S_l if spec[1] else 0
+    hi = min(lo + S_l, S)
+    if hi > lo:
+        cl[:, :hi - lo] = nl[:, lo:hi]
 
 
 def append_kv(cfg, p, x, k_cache, v_cache, pos):
@@ -246,16 +483,14 @@ def append_kv(cfg, p, x, k_cache, v_cache, pos):
     B = x.shape[0]
     KV, Dh = cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
-    k = (x @ p["wk"].to(dt)).reshape(B, 1, KV, Dh)
-    v = (x @ p["wv"].to(dt)).reshape(B, 1, KV, Dh)
+    k = split_heads(x @ p["wk"].to(dt), B, 1, KV, Dh)
+    v = split_heads(x @ p["wv"].to(dt), B, 1, KV, Dh)
     if cfg.qk_norm:
         k = rmsnorm(k, p["k_norm"])
     if cfg.pos == "rope":
         k = apply_rope(k, pos[:, None], cfg.rope_theta)
-    bidx = torch.arange(B, device=x.device)
-    idx = pos.long()
-    k_cache[bidx, idx] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, idx] = v[:, 0].to(v_cache.dtype)
+    write_rows(k_cache, k[:, 0], pos)
+    write_rows(v_cache, v[:, 0], pos)
     return k_cache, v_cache
 
 
@@ -285,7 +520,7 @@ def _mla_q(cfg, p, x):
     dt = x.dtype
     cq = rmsnorm(x @ p["wq_a"].to(dt), p["q_a_norm"])
     q = cq @ p["wq_b"].to(dt)
-    return q.reshape(*x.shape[:2], cfg.n_heads, m.qk_nope + m.qk_rope)
+    return split_heads(q, *x.shape[:2], cfg.n_heads, m.qk_nope + m.qk_rope)
 
 
 def _mla_qkv(cfg, p, x, pos):
@@ -301,14 +536,17 @@ def _mla_qkv(cfg, p, x, pos):
     kv = x @ p["wkv_a"].to(dt)
     c_kv = rmsnorm(kv[..., :m.kv_lora], p["kv_a_norm"])      # [B,S,kv_lora]
     k_rope = kv[..., m.kv_lora:][:, :, None, :]              # [B,S,1,rope]
-    k_nope = (c_kv @ p["wk_b"].to(dt)).reshape(B, S, H, m.qk_nope)
-    v = (c_kv @ p["wv_b"].to(dt)).reshape(B, S, H, m.v_dim)
+    k_nope = split_heads(c_kv @ p["wk_b"].to(dt), B, S, H, m.qk_nope)
+    v = split_heads(c_kv @ p["wv_b"].to(dt), B, S, H, m.v_dim)
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
     k_rope = apply_rope(k_rope, pos, cfg.rope_theta)
     k_rope1 = k_rope[:, :, 0, :]                             # cached (roped)
     k_rope = k_rope.expand(B, S, H, m.qk_rope)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope], dim=-1)
+    q = shard(torch.cat([q_nope, q_rope], dim=-1), "batch", "seq", "heads",
+              None)
+    k = shard(torch.cat([k_nope, k_rope], dim=-1), "batch", "seq", "heads",
+              None)
+    v = shard(v, "batch", "seq", "heads", None)
     return q, k, v, (c_kv, k_rope1)
 
 
@@ -318,14 +556,27 @@ def mla_attention(cfg, p, x, pos):
     q, k, v, _ = _mla_qkv(cfg, p, x, pos)
     o = _mla_sdpa(cfg, q, k, v)
     B, S = x.shape[:2]
-    return o.reshape(B, S, cfg.n_heads * cfg.mla.v_dim) @ p["wo"].to(x.dtype)
+    out = merge_heads(o, B, S, cfg.n_heads * cfg.mla.v_dim) @ \
+        p["wo"].to(x.dtype)
+    return shard(out, "batch", "seq", "embed")
 
 
 def _mla_sdpa(cfg, q, k, v):
     """Causal SDPA where the q/k head dim differs from v's (reference
     ``attention.py:468-482``): the chunked or unrolled loop when
     ``S > attn_chunk`` under those impls, the full score matrix
-    otherwise (``pallas`` too: MLA has no kernel)."""
+    otherwise (``pallas`` too: MLA has no kernel).  Under a sharding
+    context, on each rank's local heads."""
+    if current_ctx() is None:
+        return _mla_sdpa_local(cfg, q, k, v)
+    b, hp = pspec("batch")[0], pspec("heads")[0]
+    spec = (b, None, hp if _local_heads(q.shape[2], q.shape[2])[0]
+            else None, None)
+    return from_local_as(_mla_sdpa_local(cfg, *(to_local_as(t, spec)
+                                                for t in (q, k, v))), spec)
+
+
+def _mla_sdpa_local(cfg, q, k, v):
     B, S, H, qk = q.shape
     scale = 1.0 / math.sqrt(qk)
     if cfg.attn_impl == "xla_unrolled" and S > cfg.attn_chunk:
@@ -369,38 +620,85 @@ def init_mla_cache(cfg, batch: int, max_len: int, device=None) -> dict:
                                   dtype=cfg.act_dtype, device=device)}
 
 
+def _mla_scores_local(q_lat, q_rope, c_kv, k_rope, pos, scale, t):
+    """Masked f32 latent scores ``[B,H,T]`` of a cache slice whose rows
+    sit at global positions ``t``; the two terms are added in the
+    activation dtype before the f32 cast, as in the reference."""
+    s = torch.einsum("bhr,btr->bht", q_lat, c_kv)
+    s = s + torch.einsum("bhn,btn->bht", q_rope, k_rope)
+    s = s.float() * scale
+    return torch.where((t[None, :] <= pos[:, None])[:, None, :], s, NEG_INF)
+
+
+def _mla_flash_decode_sharded(q_lat, q_rope, c_kv_cache, k_rope_cache,
+                              pos, scale, axes):
+    """MLA flash-decode over a seq-sharded latent cache (reference
+    ``attention.py:627-661``): :func:`_flash_decode_sharded` in the latent
+    space."""
+    b = pspec("batch")[0]
+    whole = (b, None, None)
+    ql, qr = to_local_as(q_lat, whole), to_local_as(q_rope, whole)
+    seq = (b, _axes_spec(axes), None)
+    ckv, kr = to_local_as(c_kv_cache, seq), to_local_as(k_rope_cache, seq)
+    pl = to_local_as(pos, (b,))
+    S_l = ckv.shape[1]
+    t = axis_index(axes) * S_l + torch.arange(S_l, device=ckv.device)
+    s = _mla_scores_local(ql, qr, ckv, kr, pl, scale, t)
+    m = all_reduce(s.amax(dim=-1), "max", axes)
+    p = torch.exp(s - m[..., None])
+    l = all_reduce(p.sum(dim=-1), "sum", axes)
+    o = torch.einsum("bht,btr->bhr", p.to(ql.dtype), ckv)
+    o = all_reduce(o.float(), "sum", axes)
+    return from_local_as((o / l.clamp_min(1e-30)[..., None]).to(ql.dtype),
+                         whole)
+
+
 def mla_decode(cfg, p, x, c_kv_cache, k_rope_cache, pos):
     """One-token MLA decode with weight absorption (reference
-    ``attention.py:584-624``, its unsharded branch).  x: ``[B,1,D]``;
-    c_kv_cache ``[B,S_max,kv_lora]`` and k_rope_cache ``[B,S_max,qk_rope]``
-    already hold this token at ``pos`` ``[B]``.  Scores in the latent
-    space::
+    ``attention.py:584-624``).  x: ``[B,1,D]``; c_kv_cache
+    ``[B,S_max,kv_lora]`` and k_rope_cache ``[B,S_max,qk_rope]`` already
+    hold this token at ``pos`` ``[B]``.  Scores in the latent space::
 
       q_lat = q_nope @ W_kb                    [B,H,kv_lora]
       s     = q_lat · c_kv + q_rope · k_rope   [B,H,S]
       o_lat = softmax(s) · c_kv                [B,H,kv_lora]
       o     = o_lat @ W_vb                     [B,H,v_dim]
 
-    The two score terms are added in the activation dtype before the f32
-    cast, as in the reference.
+    Under a sharding context the absorbed products run on each rank's
+    batch shard with every head (the reference's flash-decode takes the
+    heads whole), over a seq-sharded cache through
+    :func:`_mla_flash_decode_sharded`.
     """
     m, H = cfg.mla, cfg.n_heads
     B = x.shape[0]
     dt = x.dtype
-    q = _mla_q(cfg, p, x).reshape(B, H, m.qk_nope + m.qk_rope)
+    scale = 1.0 / math.sqrt(m.qk_nope + m.qk_rope)
+    b = pspec("batch")[0] if current_ctx() is not None else None
+    whole = (b, None, None)
+    q = to_local_as(split_heads(_mla_q(cfg, p, x), B, 1, H,
+                                m.qk_nope + m.qk_rope)[:, 0], whole)
+    pl = to_local_as(pos, (b,))
     q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
-    q_rope = apply_rope(q_rope[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-    wk_b = p["wk_b"].to(dt).reshape(m.kv_lora, H, m.qk_nope)
-    q_lat = torch.einsum("bhn,rhn->bhr", q_nope, wk_b)        # absorb W_kb
-    s = torch.einsum("bhr,btr->bht", q_lat, c_kv_cache)
-    s = s + torch.einsum("bhn,btn->bht", q_rope, k_rope_cache)
-    s = s.float() * (1.0 / math.sqrt(m.qk_nope + m.qk_rope))
-    t = torch.arange(c_kv_cache.shape[1], device=x.device)
-    s = torch.where((t[None, :] <= pos[:, None])[:, None, :], s, NEG_INF)
-    a = torch.softmax(s, dim=-1).to(dt)
-    o_lat = torch.einsum("bht,btr->bhr", a, c_kv_cache)
-    wv_b = p["wv_b"].to(dt).reshape(m.kv_lora, H, m.v_dim)
-    o = torch.einsum("bhr,rhv->bhv", o_lat, wv_b).reshape(B, H * m.v_dim)
+    q_rope = apply_rope(q_rope[:, None], pl[:, None], cfg.rope_theta)[:, 0]
+    wk_b = to_local_as(p["wk_b"].to(dt), (None, None))
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope,
+                         wk_b.reshape(m.kv_lora, H, m.qk_nope))  # absorb W_kb
+    axes = cache_seq_axes(cfg) if cfg.flash_decode else None
+    if axes:
+        o_lat = to_local_as(_mla_flash_decode_sharded(
+            from_local_as(q_lat, whole), from_local_as(q_rope, whole),
+            c_kv_cache, k_rope_cache, pos, scale, axes), whole)
+    else:
+        ckv = to_local_as(c_kv_cache, whole)
+        t = torch.arange(ckv.shape[1], device=x.device)
+        s = _mla_scores_local(q_lat, q_rope, ckv,
+                              to_local_as(k_rope_cache, whole), pl, scale, t)
+        o_lat = torch.einsum("bht,btr->bhr",
+                             torch.softmax(s, dim=-1).to(dt), ckv)
+    wv_b = to_local_as(p["wv_b"].to(dt), (None, None))
+    o = torch.einsum("bhr,rhv->bhv", o_lat,
+                     wv_b.reshape(m.kv_lora, H, m.v_dim))
+    o = from_local_as(o.reshape(o.shape[0], H * m.v_dim), (b, None))
     return (o @ p["wo"].to(dt))[:, None, :]
 
 
@@ -408,13 +706,10 @@ def mla_append_kv(cfg, p, x, c_kv_cache, k_rope_cache, pos):
     """Write this token's latent and rotated shared key into the caches
     at ``pos``, in place; the same tensors are returned."""
     m = cfg.mla
-    B = x.shape[0]
     kv = x @ p["wkv_a"].to(x.dtype)
     c_kv = rmsnorm(kv[..., :m.kv_lora], p["kv_a_norm"])[:, 0]
     k_rope = apply_rope(kv[..., m.kv_lora:][:, :, None, :], pos[:, None],
                         cfg.rope_theta)[:, 0, 0]
-    bidx = torch.arange(B, device=x.device)
-    idx = pos.long()
-    c_kv_cache[bidx, idx] = c_kv.to(c_kv_cache.dtype)
-    k_rope_cache[bidx, idx] = k_rope.to(k_rope_cache.dtype)
+    write_rows(c_kv_cache, c_kv, pos)
+    write_rows(k_rope_cache, k_rope, pos)
     return c_kv_cache, k_rope_cache

@@ -89,12 +89,12 @@ class ModelCfg:
                        "pallas"] = "xla_chunked"
     attn_chunk: int = 512             # KV block for chunked attention
     remat: Literal["none", "full", "dots"] = "full"
-    # -- sharding hints (consumed by distribution.rules_for) ----------------
+    # -- sharding hints (read by launch.mesh.make_ctx and the models) --------
     fsdp: bool = False                # ZeRO-3 param sharding over data axis
     shard_heads: bool = True          # False when heads % TP != 0 everywhere
     # perf toggles (True = optimized path; False reproduces the baseline
     # lowering for the §Perf before/after attribution)
-    flash_decode: bool = True         # shard_map partial-softmax decode
+    flash_decode: bool = True         # seq-sharded partial-softmax decode
     gqa_pad: bool = True              # head pad/KV-rep when H % TP != 0
     # -- modality stub ------------------------------------------------------
     frontend: Literal["text", "audio_tokens", "vq_image_tokens"] = "text"

@@ -9,33 +9,53 @@ Counterpart of ``repro/models/layers.py``.  Conventions:
   ``cfg.p_dtype`` (f32) and cast at use, with the reference's f32 upcasts
   in the same places (norms, RoPE);
 * initialisers draw from an explicit ``torch.Generator`` and create the
-  tensor on the generator's device.  The two frameworks draw different
-  numbers from one seed: the tests carry the reference's weights across
-  with :func:`repro_torch.convert.params_from_reference`.
+  tensor on the generator's device (:data:`META`, a stand-in on the
+  ``meta`` device, gives shapes without allocating).  The two frameworks
+  draw different numbers from one seed: the tests carry the reference's
+  weights across with :func:`repro_torch.convert.params_from_reference`;
+* the reference's logical sharding constraints
+  (:func:`repro_torch.distribution.sharding.shard`) stand at its places;
+  without a sharding context they do nothing.
 """
 from __future__ import annotations
 
 import math
 
+import types
+
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distribution.sharding import is_dtensor, shard
+
+#: a generator stand-in on the ``meta`` device: initialisers given it
+#: build shapes and dtypes only (``repro_torch.launch.specs``)
+META = types.SimpleNamespace(device=torch.device("meta"))
 
 
 # ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
 
+def randn(gen, shape) -> torch.Tensor:
+    """A standard-normal draw from ``gen`` on its device (shapes only on
+    :data:`META`)."""
+    if gen.device.type == "meta":
+        return torch.randn(shape, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
 def dense_init(gen: torch.Generator, shape, dtype, *, in_axis: int = -2
                ) -> torch.Tensor:
     """LeCun-normal in the contraction dim: normal / sqrt(fan_in)."""
     fan_in = shape[in_axis]
-    x = torch.randn(shape, generator=gen, device=gen.device)
+    x = randn(gen, shape)
     # in place: an f32 draw of a full-width expert tensor is ~5 GB
     return x.div_(math.sqrt(fan_in)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
-    x = torch.randn(shape, generator=gen, device=gen.device)
+    x = randn(gen, shape)
     return (x * 0.02).to(dtype)
 
 
@@ -137,14 +157,15 @@ def mlp(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     """x: ``[B, S, D]`` → ``[B, S, D]``."""
     dt = x.dtype
     if cfg.mlp in ("swiglu", "geglu"):
-        g = x @ p["w_gate"].to(dt)
-        h = x @ p["w_in"].to(dt)
+        g = shard(x @ p["w_gate"].to(dt), "batch", "seq", "ff")
+        h = shard(x @ p["w_in"].to(dt), "batch", "seq", "ff")
         act = F.silu(g) if cfg.mlp == "swiglu" else \
             F.gelu(g, approximate="tanh")
         h = act * h
     else:
-        h = F.gelu(x @ p["w_in"].to(dt), approximate="tanh")
-    return h @ p["w_out"].to(dt)
+        h = shard(x @ p["w_in"].to(dt), "batch", "seq", "ff")
+        h = F.gelu(h, approximate="tanh")
+    return shard(h @ p["w_out"].to(dt), "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -161,12 +182,17 @@ def init_embed(gen: torch.Generator, cfg) -> dict:
 def embed(cfg, p: dict, tokens: torch.Tensor) -> torch.Tensor:
     """Token rows in ``act_dtype``.  The rows are gathered, then cast (the
     reference casts the table, then gathers: the same values, without a
-    cast of the whole table per call)."""
-    x = p["tok"][tokens].to(cfg.act_dtype)
+    cast of the whole table per call).  A sharded table (a DTensor) is
+    read through ``embedding``, which DTensor shards over the vocab."""
+    if is_dtensor(p["tok"]) or is_dtensor(tokens):
+        x = F.embedding(shard(tokens, "batch", "seq"), p["tok"])
+        x = shard(x, "batch", "seq", "embed").to(cfg.act_dtype)
+    else:
+        x = p["tok"][tokens].to(cfg.act_dtype)
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.act_dtype,
                              device=x.device)
-    return x
+    return shard(x, "batch", "seq", "embed")
 
 
 def lm_logits(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -175,11 +201,16 @@ def lm_logits(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.logit_softcap > 0.0:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
-    return logits
+    return shard(logits, "batch", "seq", "vocab")
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy with an f32 reduction; labels < 0 are masked."""
+    """Mean cross-entropy with an f32 reduction; labels < 0 are masked.
+    Sharded logits are gathered over the vocab first, with the labels laid
+    out by batch beside them."""
+    if is_dtensor(logits):
+        logits = shard(logits, "batch", "seq", None)
+        labels = shard(labels, "batch", "seq")
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, labels.clamp_min(0)[..., None].long())[..., 0]

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, randn
 
 
 def _dims(cfg):
@@ -35,8 +35,7 @@ def init_mamba2(gen: torch.Generator, cfg) -> dict:
     conv_ch = d_in + 2 * N
     return {
         "in_proj": dense_init(gen, (D, 2 * d_in + 2 * N + H), dt),
-        "conv_w": (torch.randn((s.conv_width, conv_ch), generator=gen,
-                               device=dev) * 0.1).to(dt),
+        "conv_w": (randn(gen, (s.conv_width, conv_ch)) * 0.1).to(dt),
         "conv_b": torch.zeros((conv_ch,), dtype=dt, device=dev),
         "a_log": torch.zeros((H,), dtype=dt, device=dev),  # A = -exp(a_log)
         "d_skip": torch.ones((H,), dtype=dt, device=dev),

@@ -6,11 +6,15 @@ Counterpart of ``repro/models/moe.py``:
   the combine weights: exact, dropless.  The reference uses it for
   decode, for token counts below ``4 × n_experts`` and as the oracle of
   its expert-parallel path.
-* ``moe_ep`` — the reference's capacity-bounded, sort-based dispatch with
-  ``all_to_all`` runs only under a sharding context; without one the
-  reference returns ``moe_dense`` (``moe.py:133-135``).  The port has no
-  sharding context, so ``moe_ep`` is ``moe_dense`` here too, and the
-  capacity-bounded dispatch is not ported.
+* ``moe_ep`` — the expert-parallel path for many-token steps under a
+  sharding context: each rank routes its (batch, sequence) shard, sorts
+  the token-expert pairs by expert (stable), fills ``_capacity`` slots an
+  expert, sends each expert's slots to the rank that owns it with an
+  ``all_to_all_single`` over the ``model`` group and back after the
+  expert products (the expert weights all-gathered over the data group
+  first under ``fsdp``).  Without a context, or when ``S % M`` or
+  ``E % M`` is not 0, it is ``moe_dense``, as in the reference
+  (``moe.py:133-142``).
 * shared experts (DeepSeek-V2) are a plain dense MLP added to the output.
 
 Router losses: the Switch load-balance aux (``E·Σ f_e·P_e``) and the
@@ -18,9 +22,15 @@ z-loss, summed.  The router runs in f32 on an f32 copy of the tokens.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dnn
 import torch.nn.functional as F
 
+from repro_torch.distribution.sharding import (current_ctx, from_local_as,
+                                               mesh_axes, shard, to_local_as)
 from repro_torch.models.layers import dense_init
 
 
@@ -66,40 +76,162 @@ def _router(cfg, p, xf: torch.Tensor):
 def _shared_mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     sp = p["shared"]
-    g = x @ sp["w_gate"].to(dt)
-    h = x @ sp["w_in"].to(dt)
+    g = shard(x @ sp["w_gate"].to(dt), "batch", "seq", "ff")
+    h = shard(x @ sp["w_in"].to(dt), "batch", "seq", "ff")
     return _act(cfg, g, h) @ sp["w_out"].to(dt)
+
+
+def _experts_dense(cfg, p, xf, gates, idx, lo: int = 0):
+    """The masked combine of experts ``lo .. lo + E_l`` (the experts of
+    ``p``'s weights) over every token of ``xf`` ``[T, D]``."""
+    T, D = xf.shape
+    dt = xf.dtype
+    E_l = p["w_gate"].shape[0]
+    comb = torch.zeros((T, cfg.moe.n_experts), dtype=dt, device=xf.device)
+    comb.scatter_add_(1, idx, gates)
+    # "td,edf->etf" as a batched product over experts with the tokens
+    # broadcast (stride 0): torch's einsum would first copy each [E, D, F]
+    # weight into a [D, E·F] layout, on every call
+    xe = xf.expand(E_l, T, D)
+    g = torch.bmm(xe, p["w_gate"].to(dt))
+    h = torch.bmm(xe, p["w_in"].to(dt))
+    hh = _act(cfg, g, h) * comb.T[lo:lo + E_l, :, None]
+    return torch.einsum("etf,efd->td", hh, p["w_out"].to(dt))
 
 
 def moe_dense(cfg, p, x: torch.Tensor):
     """x: ``[B, S, D]`` → (y ``[B, S, D]``, aux).  Every expert computed
     for every token, then the masked combine: the combine weights
     ``[T, E]`` hold each token's renormalised gates at its top-k experts
-    and zeros elsewhere."""
+    and zeros elsewhere.  Under a sharding context (decode and short
+    steps) it is a manual region: every rank routes all the tokens (the
+    router losses exact), computes its own experts' share (the experts
+    over ``model``) and the shares are summed over the ``model`` group."""
     B, S, D = x.shape
     e = cfg.moe
-    dt = x.dtype
-    xf = x.reshape(B * S, D)
-    gates, idx, aux = _router(cfg, p, xf)
-    comb = torch.zeros((B * S, e.n_experts), dtype=dt, device=x.device)
-    comb.scatter_add_(1, idx, gates)
-    # "td,edf->etf" as a batched product over experts with the tokens
-    # broadcast (stride 0): torch's einsum would first copy each [E, D, F]
-    # weight into a [D, E·F] layout, on every call
-    xe = xf.expand(e.n_experts, B * S, D)
-    g = torch.bmm(xe, p["w_gate"].to(dt))
-    h = torch.bmm(xe, p["w_in"].to(dt))
-    hh = _act(cfg, g, h) * comb.T[:, :, None]
-    y = torch.einsum("etf,efd->td", hh, p["w_out"].to(dt)).reshape(B, S, D)
+    ctx = current_ctx()
+    if ctx is None:
+        xf = x.reshape(B * S, D)
+        gates, idx, aux = _router(cfg, p, xf)
+        y = _experts_dense(cfg, p, xf, gates, idx).reshape(B, S, D)
+    else:
+        tp = ctx.tp_axis
+        M = mesh_axes(ctx.mesh)[tp]
+        ep = tp if e.n_experts % M == 0 else None
+        xf = to_local_as(x, (None, None, None)).reshape(B * S, D)
+        gates, idx, aux = _router(
+            cfg, {"router": to_local_as(p["router"], (None, None))}, xf)
+        wl = {k: to_local_as(p[k], (ep, None, None))
+              for k in ("w_gate", "w_in", "w_out")}
+        lo = (ctx.mesh.get_local_rank(tp) * (e.n_experts // M) if ep
+              else 0)
+        y = _experts_dense(cfg, wl, xf, gates, idx, lo)
+        if ep:
+            y = dnn.all_reduce(y, group=ctx.mesh.get_group(tp))
+        y = from_local_as(y.reshape(B, S, D), (None, None, None))
     if e.n_shared > 0:
         y = y + _shared_mlp(cfg, p, x)
-    return y, aux
+    return shard(y, "batch", "seq", "embed"), aux
+
+
+def _capacity(t_local: int, cfg) -> int:
+    e = cfg.moe
+    c = int(math.ceil(t_local * e.top_k / e.n_experts * e.capacity_factor))
+    return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
+
+
+def _gather(w, axis: str, dim: int):
+    """The FSDP all-gather of an expert weight's shards over ``axis``
+    along ``dim`` (differentiable)."""
+    group = current_ctx().mesh.get_group(axis)
+    return torch.cat(dnn.all_gather(w.contiguous(), group=group), dim=dim)
+
+
+def _all_to_all(x, group):
+    """``x`` ``[M·n, ...]`` split in M blocks, block j sent to rank j of
+    ``group``; the blocks received, in rank order (differentiable)."""
+    return dnn.all_to_all_single(torch.empty_like(x), x.contiguous(),
+                                 group=group)
+
+
+def moe_ep_local(cfg, p, xl, M: int, group, aux_groups=()):
+    """The expert-parallel MoE on one rank: ``xl`` ``[B_l, S_l, D]`` its
+    token shard; ``p``'s expert weights its ``E / M`` experts (whole over
+    ``fsdp``); ``group`` the ``M`` ranks of the model axis.  Returns
+    (y ``[B_l, S_l, D]``, aux): aux is the local router loss averaged over
+    ``aux_groups`` (the token shards' axes), as the reference's
+    ``pmean``."""
+    e = cfg.moe
+    Bl, Sl, D = xl.shape
+    T = Bl * Sl
+    xf = xl.reshape(T, D)
+    gates, idx, aux = _router(cfg, p, xf)
+    for g in aux_groups:
+        aux = dnn.all_reduce(aux, group=g) / dist.get_world_size(g)
+    C = _capacity(T, cfg)
+    A = T * e.top_k
+    e_flat = idx.reshape(A)
+    t_flat = torch.arange(T, device=xl.device).repeat_interleave(e.top_k)
+    g_flat = gates.reshape(A)
+    order = torch.argsort(e_flat, stable=True)
+    e_s, t_s, g_s = e_flat[order], t_flat[order], g_flat[order]
+    starts = torch.searchsorted(e_s, torch.arange(e.n_experts,
+                                                  device=xl.device))
+    pos = torch.arange(A, device=xl.device) - starts[e_s]
+    keep = pos < C
+    pos_c = torch.where(keep, pos, 0)
+    src = torch.where(keep[:, None], xf[t_s], 0)
+    buf = torch.zeros((e.n_experts, C, D), dtype=xl.dtype, device=xl.device)
+    buf = buf.index_put((e_s, pos_c), src, accumulate=True)
+    E_l = e.n_experts // M
+    # dispatch: every rank sends C slots of each expert to its owner
+    recv = _all_to_all(buf, group)                    # [M·E_l, C, D]
+    recv = recv.reshape(M, E_l, C, D).transpose(0, 1).reshape(E_l, M * C, D)
+    dt = xl.dtype
+    g1 = torch.bmm(recv, p["w_gate"].to(dt))
+    h1 = torch.bmm(recv, p["w_in"].to(dt))
+    y = torch.bmm(_act(cfg, g1, h1), p["w_out"].to(dt))   # [E_l, M·C, D]
+    y = y.reshape(E_l, M, C, D).transpose(0, 1).reshape(M * E_l, C, D)
+    back = _all_to_all(y, group)                      # [E, C, D]
+    contrib = back[e_s, pos_c] * keep[:, None]
+    out = torch.zeros((T, D), dtype=dt, device=xl.device)
+    out = out.index_add(0, t_s, g_s[:, None] * contrib)
+    return out.reshape(Bl, Sl, D), aux
 
 
 def moe_ep(cfg, p, x: torch.Tensor):
-    """The reference's expert-parallel path without a sharding context:
-    the dense path (``moe.py:133-135``)."""
-    return moe_dense(cfg, p, x)
+    """Expert-parallel MoE for many-token steps (train / prefill), under a
+    sharding context: a manual region over (batch → data axes, seq →
+    ``model``) with the experts over ``model`` (reference
+    ``moe.py:128-199``).  Falls back to the dense oracle otherwise."""
+    ctx = current_ctx()
+    if ctx is None:
+        return moe_dense(cfg, p, x)
+    B, S, D = x.shape
+    e = cfg.moe
+    tp = ctx.tp_axis
+    M = mesh_axes(ctx.mesh)[tp]
+    if S % M != 0 or e.n_experts % M != 0:
+        return moe_dense(cfg, p, x)
+    dp = ctx.rules.get("batch")
+    fsdp = ctx.rules.get("fsdp")
+    x_spec = (dp, tp, None)
+    xl = to_local_as(x, x_spec)
+    wl = {"router": to_local_as(p["router"], (None, None)),
+          "w_gate": to_local_as(p["w_gate"], (tp, fsdp, None)),
+          "w_in": to_local_as(p["w_in"], (tp, fsdp, None)),
+          "w_out": to_local_as(p["w_out"], (tp, None, fsdp))}
+    if fsdp is not None:      # FSDP: gather the layer's weights before use
+        wl["w_gate"] = _gather(wl["w_gate"], fsdp, 1)
+        wl["w_in"] = _gather(wl["w_in"], fsdp, 1)
+        wl["w_out"] = _gather(wl["w_out"], fsdp, 2)
+    axes = (dp if isinstance(dp, tuple) else (dp,) if dp else ()) + (tp,)
+    yl, aux = moe_ep_local(cfg, wl, xl, M, ctx.mesh.get_group(tp),
+                           [ctx.mesh.get_group(a) for a in axes])
+    y = from_local_as(yl, x_spec)
+    if e.n_shared > 0:
+        y = y + _shared_mlp(cfg, p, x)
+    return shard(y, "batch", "seq", "embed"), aux
 
 
 def moe(cfg, p, x: torch.Tensor, *, decode: bool = False):

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
-from repro_torch.models.layers import dense_init, rmsnorm
+from repro_torch.models.layers import dense_init, randn, rmsnorm
 
 
 # ---------------------------------------------------------------------------
@@ -39,7 +39,7 @@ def init_rwkv_block(gen: torch.Generator, cfg) -> dict:
         return torch.full(shape, value, dtype=dt, device=dev)
 
     def small(shape):
-        return (torch.randn(shape, generator=gen, device=dev) * 0.01).to(dt)
+        return (randn(gen, shape) * 0.01).to(dt)
 
     tm = {
         "mu_x": full((D,), 0.5),

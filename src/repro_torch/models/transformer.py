@@ -23,14 +23,29 @@ plain functions:
   KV, Dh]`` (hybrid).  ``prefill`` and ``decode_step`` write it in place
   and return it.
 
+* ``param_specs() / cache_specs(batch, max_len)`` — the logical
+  shardings of the parameters and the cache under the active sharding
+  context (:mod:`repro_torch.distribution.sharding`), as specs (a tuple of
+  mesh axes a dim).  The parameters keep one dict a layer where the
+  reference stacks them on a leading ``L`` axis, so a layer's spec is the
+  reference's without its leading ``None``; the caches keep the
+  reference's stacked layout and its specs.
+
 The reference's ``lax.scan`` over stacked layers is a Python loop here,
-with a static layer index (the reference's unrolled mode).  Under
+with a static layer index (the reference's unrolled mode): both
+``layer_mode``s (``"scan"`` and ``"unroll"``) are that loop.  Under
 training each layer runs under ``cfg.remat`` (:func:`_remat`).
-``param_specs`` and ``layer_mode`` belong to sharding and the roofline
-and are not ported yet.
+
+Under a sharding context the dense and MoE families run sharded: the
+parameters and caches are DTensors laid out by their specs (or plain
+tensors, taken as replicated), the tokens are laid out by batch, and the
+reference's constraints stand at its places.  A sharded forward of
+``rwkv6`` and ``hybrid`` is not ported yet: it raises
+:class:`ShardedForwardNotPortedError` instead of running replicated.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, NamedTuple
 
@@ -38,7 +53,11 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import NotPortedError
 from repro_torch.device import resolve_device
+from repro_torch.distribution.sharding import (Spec, axis_size, current_ctx,
+                                               phys, plain_as_replicated,
+                                               pspec, shard, sharding_ctx)
 from repro_torch.kernels.autograd import wants_grad
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
@@ -61,6 +80,15 @@ class Model(NamedTuple):
     init_cache: Callable    # (batch, max_len) -> cache
     prefill: Callable       # (params, tokens, cache) -> (logits, cache)
     decode_step: Callable   # (params, tok[B,1], cache, pos[B]) -> (logits, cache)
+    param_specs: Callable   # () -> tree of specs
+    cache_specs: Callable   # (batch, max_len) -> tree of specs
+
+
+class ShardedForwardNotPortedError(NotPortedError):
+    """A family whose sharded forward the port does not have yet."""
+
+
+LAYER_MODES = ("scan", "unroll")
 
 
 def check_ported(cfg: ModelCfg) -> None:
@@ -101,18 +129,19 @@ def dense_block(cfg, p, x, pos):
     if cfg.mla is not None:
         q, k, v, (c_kv, k_rope) = attn._mla_qkv(cfg, p["attn"], h, pos)
         o = attn._mla_sdpa(cfg, q, k, v)
-        a = o.reshape(B, S, cfg.n_heads * cfg.mla.v_dim) @ \
+        a = attn.merge_heads(o, B, S, cfg.n_heads * cfg.mla.v_dim) @ \
             p["attn"]["wo"].to(x.dtype)
         kv = {"c_kv": c_kv, "k_rope": k_rope}
     else:
         q, k, v = attn._qkv(cfg, p["attn"], h, pos)
         o = attn.sdpa(cfg, q, k, v)
-        a = o.reshape(B, S, cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
+        a = attn.merge_heads(o, B, S, cfg.q_dim) @ \
+            p["attn"]["wo"].to(x.dtype)
         kv = {"k": k, "v": v}
-    x = x + a
+    x = shard(x + a, "batch", "act_seq", "embed")
     h = apply_norm(cfg, x, p.get("ln2s"))
     y, aux = _block_mlp(cfg, p, h, decode=False)
-    return x + y, kv, aux
+    return shard(x + y, "batch", "act_seq", "embed"), kv, aux
 
 
 def dense_block_decode(cfg, p, x, cache_l: dict, pos):
@@ -168,15 +197,48 @@ def shared_attn_decode(cfg, sp, x, k_c, v_c, pos):
 # Model
 # ---------------------------------------------------------------------------
 
-def build_model(cfg: ModelCfg, device=None) -> Model:
-    """The LM API of ``cfg`` on ``device`` (``None`` = CUDA)."""
+def build_model(cfg: ModelCfg, device=None, layer_mode: str = "scan"
+                ) -> Model:
+    """The LM API of ``cfg`` on ``device`` (``None`` = CUDA; ``"meta"``
+    builds shapes only).  ``layer_mode`` is the reference's; both modes
+    are the port's Python loop over layers."""
     check_ported(cfg)
+    if layer_mode not in LAYER_MODES:
+        raise ValueError(f"layer_mode={layer_mode!r}; one of {LAYER_MODES}")
     dev = resolve_device(device)
     if cfg.family == "rwkv6":
         return _build_rwkv(cfg, dev)
     if cfg.family == "hybrid":
         return _build_hybrid(cfg, dev)
     return _build_dense(cfg, dev)
+
+
+def _sharded(cfg, fn):
+    """``fn`` (a forward, loss, prefill or decode step) as it runs under a
+    sharding context: inside
+    :func:`~repro_torch.distribution.sharding.plain_as_replicated`; for a
+    family without a sharded forward,
+    :class:`ShardedForwardNotPortedError`."""
+    @functools.wraps(fn)
+    def run(*args):
+        if current_ctx() is None:
+            return fn(*args)
+        if cfg.family in ("rwkv6", "hybrid"):
+            raise ShardedForwardNotPortedError(
+                f"{cfg.name}: the sharded forward of the {cfg.family} family "
+                f"is not ported yet; run it outside a sharding context")
+        with plain_as_replicated():
+            return fn(*args)
+    return run
+
+
+def _api(cfg, dev, init, forward, init_cache, prefill, decode_step, specs,
+         cache_specs) -> Model:
+    forward = _sharded(cfg, forward)
+    return Model(cfg, dev, init, forward, _sharded(cfg, _loss(forward)),
+                 init_cache, _sharded(cfg, prefill),
+                 _sharded(cfg, decode_step), functools.partial(specs, cfg),
+                 functools.partial(cache_specs, cfg))
 
 
 def _check_generator(gen: torch.Generator, dev: torch.device) -> None:
@@ -233,16 +295,32 @@ def _remat(cfg, fn):
     rest in the backward, ``"dots"`` keeps its matrix products too
     (``checkpoint_dots``), ``"none"`` keeps everything.  It acts only when
     grad mode is on and a parameter of the layer requires a gradient, so
-    serving runs ``fn`` as it is."""
+    serving runs ``fn`` as it is.  Under a sharding context the recompute
+    runs under it too."""
     if cfg.remat == "none":
         return fn
-    kw = {} if cfg.remat == "full" else {"context_fn": functools.partial(
-        create_selective_checkpoint_contexts, _keep_dots)}
+
+    def contexts():
+        fwd, rec = (create_selective_checkpoint_contexts(_keep_dots)
+                    if cfg.remat == "dots" else
+                    (contextlib.nullcontext(), contextlib.nullcontext()))
+        ctx = current_ctx()
+        if ctx is None:
+            return fwd, rec
+
+        # the recompute runs in the autograd engine's thread, which sees
+        # neither this thread's sharding context nor its DTensor switch
+        @contextlib.contextmanager
+        def recompute():
+            with rec, sharding_ctx(ctx), plain_as_replicated():
+                yield
+        return fwd, recompute()
 
     def layer(p_l, *args):
         if not wants_grad(*tree_leaves(p_l)):
             return fn(p_l, *args)
-        return checkpoint(fn, p_l, *args, use_reentrant=False, **kw)
+        return checkpoint(fn, p_l, *args, use_reentrant=False,
+                          context_fn=contexts)
     return layer
 
 
@@ -277,7 +355,7 @@ def _build_dense(cfg: ModelCfg, dev: torch.device) -> Model:
             aux = aux + a
             if cache is not None:
                 for name, t in kv.items():
-                    cache[name][i, :, :S] = t.to(cache[name].dtype)
+                    attn.write_prefix(cache[name][i], t)
         return _final(params, x), aux
 
     def forward(params, tokens):
@@ -306,8 +384,8 @@ def _build_dense(cfg: ModelCfg, dev: torch.device) -> Model:
         x = _final(params, x)
         return lm_logits(cfg, params["embed"], x), cache
 
-    return Model(cfg, dev, init, forward, _loss(forward), init_cache,
-                 prefill, decode_step)
+    return _api(cfg, dev, init, forward, init_cache, prefill, decode_step,
+                _dense_specs, _dense_cache_specs)
 
 
 # -- rwkv6 ------------------------------------------------------------------
@@ -358,8 +436,8 @@ def _build_rwkv(cfg: ModelCfg, dev: torch.device) -> Model:
         x = rmsnorm(x, params["final_norm"])
         return lm_logits(cfg, params["embed"], x), cache
 
-    return Model(cfg, dev, init, forward, _loss(forward), init_cache,
-                 prefill, decode_step)
+    return _api(cfg, dev, init, forward, init_cache, prefill, decode_step,
+                _rwkv_specs, _rwkv_cache_specs)
 
 
 # -- zamba2 hybrid ----------------------------------------------------------
@@ -385,7 +463,7 @@ def _build_hybrid(cfg: ModelCfg, dev: torch.device) -> Model:
         else dropped."""
         def layer(p_l, x, st, li):
             y, new = m2.mamba2_block(cfg, p_l["m"], rmsnorm(x, p_l["ln"]), st)
-            x = x + y
+            x = shard(x + y, "batch", "act_seq", "embed")
             if every and li % every == every - 1:
                 x = shared(x, li // every)
             return x, new
@@ -446,5 +524,145 @@ def _build_hybrid(cfg: ModelCfg, dev: torch.device) -> Model:
         x = rmsnorm(x, params["final_norm"])
         return lm_logits(cfg, params["embed"], x), cache
 
-    return Model(cfg, dev, init, forward, _loss(forward), init_cache,
-                 prefill, decode_step)
+    return _api(cfg, dev, init, forward, init_cache, prefill, decode_step,
+                _hybrid_specs, _hybrid_cache_specs)
+
+
+# ---------------------------------------------------------------------------
+# Parameter / cache specs (logical → physical via the active rules)
+# ---------------------------------------------------------------------------
+
+_sp = pspec
+
+
+def _layers(cfg, layer: dict) -> list:
+    """One spec dict a layer (the reference's stacked spec without its
+    leading ``None``)."""
+    return [layer for _ in range(cfg.n_layers)]
+
+
+def _embed_specs(cfg) -> dict:
+    emb = {"tok": _sp("vocab", None)}
+    if not cfg.tie_embeddings:
+        emb["lm_head"] = _sp(None, "vocab")
+    return emb
+
+
+def _dense_specs(cfg) -> dict:
+    attn_specs = (
+        {"wq_a": _sp("fsdp", None), "q_a_norm": _sp(None),
+         "wq_b": _sp(None, "ff"), "wkv_a": _sp("fsdp", None),
+         "kv_a_norm": _sp(None), "wk_b": _sp(None, "ff"),
+         "wv_b": _sp(None, "ff"), "wo": _sp("ff", "fsdp")}
+        if cfg.mla is not None else
+        {k: v for k, v in {
+            "wq": _sp("fsdp", "ff"), "wk": _sp("fsdp", "ff"),
+            "wv": _sp("fsdp", "ff"), "wo": _sp("ff", "fsdp"),
+            "q_norm": _sp(None), "k_norm": _sp(None)}.items()
+         if not (k in ("q_norm", "k_norm") and not cfg.qk_norm)})
+    if cfg.moe is not None:
+        mlp_specs = {"router": _sp(None, None),
+                     "w_gate": _sp("expert", "fsdp", "expert_ff"),
+                     "w_in": _sp("expert", "fsdp", "expert_ff"),
+                     "w_out": _sp("expert", "expert_ff", "fsdp")}
+        if cfg.moe.n_shared > 0:
+            mlp_specs["shared"] = {"w_gate": _sp("fsdp", "ff"),
+                                   "w_in": _sp("fsdp", "ff"),
+                                   "w_out": _sp("ff", "fsdp")}
+    elif cfg.mlp in ("swiglu", "geglu"):
+        mlp_specs = {"w_gate": _sp("fsdp", "ff"), "w_in": _sp("fsdp", "ff"),
+                     "w_out": _sp("ff", "fsdp")}
+    else:
+        mlp_specs = {"w_in": _sp("fsdp", "ff"), "w_out": _sp("ff", "fsdp")}
+    layer = {"attn": attn_specs, "mlp": mlp_specs}
+    if cfg.norm == "rmsnorm":
+        layer["ln1s"] = _sp(None)
+        layer["ln2s"] = _sp(None)
+    return {"embed": _embed_specs(cfg), "layers": _layers(cfg, layer),
+            "final_norm": _sp(None)}
+
+
+def _kv_ok(cfg) -> bool:
+    """Whether the kv heads divide the TP degree (then the cache shards
+    them; otherwise its sequence dim)."""
+    return (cfg.n_kv_heads % max(axis_size("kv_heads"), 1) == 0
+            and axis_size("kv_heads") > 1)
+
+
+def _dense_cache_specs(cfg, batch=None, max_len=None) -> dict:
+    """Decode-cache shardings, divisibility-aware (reference
+    ``transformer.py:611-637``): the kv heads when they divide the TP
+    degree, else the cache's sequence dim over the model axis (decode
+    then runs the seq-sharded flash-decode).  MLA's latent cache has no
+    head dim: it always seq-shards.  ``seq_kv`` (the data axis) joins for
+    the long-context shapes."""
+    if cfg.mla is not None:
+        seq = phys("seq_kv", "seq_kv_tp")
+        return {"c_kv": Spec(None, *_sp("batch"), seq, None),
+                "k_rope": Spec(None, *_sp("batch"), seq, None)}
+    if cfg.shard_heads and _kv_ok(cfg):
+        seq, kv = phys("seq_kv"), phys("kv_heads")
+    else:
+        seq, kv = phys("seq_kv", "seq_kv_tp"), None
+    b = phys("batch")
+    return {"k": Spec(None, b, seq, kv, None),
+            "v": Spec(None, b, seq, kv, None)}
+
+
+def _rwkv_specs(cfg) -> dict:
+    tm = {"mu_x": _sp(None), "mu": _sp(None, None),
+          "mix_w1": _sp(None, None), "mix_w2": _sp(None, None, None),
+          "wr": _sp("fsdp", "ff"), "wk": _sp("fsdp", "ff"),
+          "wv": _sp("fsdp", "ff"), "wg": _sp("fsdp", "ff"),
+          "wo": _sp("ff", "fsdp"),
+          "decay_base": _sp(None), "decay_w1": _sp(None, None),
+          "decay_w2": _sp(None, None), "bonus": _sp(None),
+          "ln_scale": _sp(None), "ln_bias": _sp(None)}
+    cm = {"mu_k": _sp(None), "mu_r": _sp(None),
+          "wk": _sp("fsdp", "ff"), "wv": _sp("ff", "fsdp"),
+          "wr": _sp("fsdp", "ff")}
+    layer = {"tm": tm, "cm": cm, "ln1": _sp(None), "ln2": _sp(None)}
+    return {"embed": _embed_specs(cfg), "layers": _layers(cfg, layer),
+            "final_norm": _sp(None)}
+
+
+def _heads_over_model(n_heads: int) -> str | None:
+    """``"model"`` when the heads split over the heads axes (the
+    recurrent states' rule)."""
+    ok = n_heads % max(axis_size("heads"), 1) == 0
+    return "model" if ok and axis_size("heads") > 1 else None
+
+
+def _rwkv_cache_specs(cfg, batch=None, max_len=None) -> dict:
+    b = phys("batch")
+    h = _heads_over_model(cfg.d_model // cfg.rwkv.head_size)
+    return {"tm_shift": Spec(None, b, None), "cm_shift": Spec(None, b, None),
+            "wkv": Spec(None, b, h, None, None)}
+
+
+def _hybrid_specs(cfg) -> dict:
+    m = {"in_proj": _sp("fsdp", "ff"), "conv_w": _sp(None, None),
+         "conv_b": _sp(None), "a_log": _sp(None), "d_skip": _sp(None),
+         "dt_bias": _sp(None), "norm_scale": _sp(None),
+         "out_proj": _sp("ff", "fsdp")}
+    shared = {"ln1": _sp(None), "ln2": _sp(None),
+              "attn": {"wq": _sp("fsdp", "ff"), "wk": _sp("fsdp", "ff"),
+                       "wv": _sp("fsdp", "ff"), "wo": _sp("ff", "fsdp")},
+              "mlp": {"w_gate": _sp("fsdp", "ff"),
+                      "w_in": _sp("fsdp", "ff"),
+                      "w_out": _sp("ff", "fsdp")}}
+    return {"embed": _embed_specs(cfg),
+            "layers": _layers(cfg, {"m": m, "ln": _sp(None)}),
+            "shared": shared, "final_norm": _sp(None)}
+
+
+def _hybrid_cache_specs(cfg, batch=None, max_len=None) -> dict:
+    b = phys("batch")
+    kv_ok = _kv_ok(cfg)
+    seq = phys("seq_kv") if kv_ok else phys("seq_kv", "seq_kv_tp")
+    kv = phys("kv_heads") if kv_ok else None
+    h = _heads_over_model((cfg.ssm.expand * cfg.d_model) // cfg.ssm.head_dim)
+    return {"conv": Spec(None, b, None, None),
+            "ssm": Spec(None, b, h, None, None),
+            "attn_k": Spec(None, b, seq, kv, None),
+            "attn_v": Spec(None, b, seq, kv, None)}

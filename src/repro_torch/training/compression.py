@@ -5,13 +5,17 @@ A ``torch.distributed`` process group takes the place of the reference's
 ``pod`` mesh axis: each member quantizes ``g + err`` to int8 with a
 per-tensor scale, the members agree on the largest scale, all-reduce the
 int8 payload (summed in int32) and keep the quantization residual locally
-for the next step (error feedback — Karimireddy et al.).
+for the next step (error feedback — Karimireddy et al.).  A sharded
+leaf (a DTensor on the member's own submesh) is quantized with its whole
+tensor's scale and its shard's payload summed with the same shard of the
+other members.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
+from repro_torch.distribution.sharding import full, is_dtensor
 from repro_torch.training.tree import tree_map, tree_leaves, unflatten_like
 
 
@@ -38,13 +42,14 @@ def ef_compress_sync(grads, err, group=None):
         if g.numel() == 0:          # placeholder leaves (e.g. no-op norms)
             return g, e
         x = g.float() + e
-        _, scale = quantize(x)
+        scale = full(quantize(x)[1]).clone()
         # the largest scale across members, so the payloads share a grid
         dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
         q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
         new_e = x - dequantize(q, scale)
         qs = q.to(torch.int32)       # the int8 payload summed in int32
-        dist.all_reduce(qs, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(qs.to_local() if is_dtensor(qs) else qs,
+                        op=dist.ReduceOp.SUM, group=group)
         g_sync = qs.float() * scale / n
         return g_sync.to(g.dtype), new_e
 
@@ -54,5 +59,5 @@ def ef_compress_sync(grads, err, group=None):
 
 
 def init_error_feedback(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)

@@ -16,6 +16,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.distribution.sharding import full
 from repro_torch.training.tree import (tree_leaves, tree_map,
                                       tree_map_with_path, unflatten_like)
 
@@ -40,8 +41,9 @@ class OptState(NamedTuple):
 
 
 def init_opt_state(params) -> OptState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                  device=p.device)
+    """f32 zero moments in the parameters' layouts (a DTensor parameter's
+    moments are DTensors laid out as it is)."""
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     dev = tree_leaves(params)[0].device
     return OptState(m=tree_map(zeros, params), v=tree_map(zeros, params),
                     step=torch.zeros((), dtype=torch.int32, device=dev))
@@ -61,9 +63,10 @@ def schedule(cfg: OptCfg, step) -> torch.Tensor:
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32.  The port sums per
     layer where the reference sums per stacked leaf: the same terms in
-    another order (tests: within 1e-6 relative)."""
+    another order (tests: within 1e-6 relative).  A sharded leaf's sum is
+    its full sum, the same on every rank."""
     return torch.sqrt(torch.stack(
-        [torch.sum(x.float() ** 2) for x in tree_leaves(tree)]).sum())
+        [full(torch.sum(x.float() ** 2)) for x in tree_leaves(tree)]).sum())
 
 
 def decayed(path: tuple, p: torch.Tensor) -> bool:

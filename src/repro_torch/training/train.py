@@ -7,8 +7,17 @@ leaves (mean over ``microbatches`` sequential slices of the batch), then
 :func:`~repro_torch.training.optimizer.adamw_update`.  The step is
 functional: it returns a new :class:`TrainState` and leaves the one it was
 given as it was, which the driver's replay from its initial state needs.
-The cross-pod compressed step (``build_train_step_compressed``) waits for
-the port of ``repro.distribution.sharding``.
+Under a sharding context the parameters are DTensors (laid out by
+:func:`state_specs`): the gradients come back in their layouts (the
+data-parallel and tensor-parallel sums done) and AdamW runs on the
+shards.
+
+:func:`build_train_step_compressed` is the cross-pod step of a multi-pod
+mesh: each pod computes gradients on its sub-batch under an inner
+context on its own ``data × model`` submesh (``batch`` → ``data``), the
+pods sync them through the int8 error-feedback compressor
+(:func:`~repro_torch.training.compression.ef_compress_sync` over the
+``pod`` group), the loss is averaged over pods, then AdamW runs.
 """
 from __future__ import annotations
 
@@ -16,8 +25,15 @@ import dataclasses
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.training.compression import init_error_feedback
+from repro_torch.distribution.sharding import (ShardCtx, Spec, current_ctx,
+                                               full, is_dtensor,
+                                               param_sharding_tree,
+                                               plain_as_replicated,
+                                               sharding_ctx)
+from repro_torch.training.compression import (ef_compress_sync,
+                                              init_error_feedback)
 from repro_torch.training.optimizer import (OptCfg, OptState, adamw_update,
                                             init_opt_state)
 from repro_torch.training.tree import tree_leaves, unflatten_like
@@ -37,6 +53,50 @@ def init_train_state(model, gen: torch.Generator, *,
                       else None)
 
 
+def state_specs(model, *, compressed: bool = False) -> TrainState:
+    """The specs of a :class:`TrainState` under the active context."""
+    ps = model.param_specs()
+    return TrainState(params=ps, opt=OptState(m=ps, v=ps, step=Spec()),
+                      err=ps if compressed else None)
+
+
+def shard_train_state(state: TrainState, model, ctx) -> TrainState:
+    """``state`` (full tensors, the same on every rank) laid out by
+    :func:`state_specs` on the context's mesh (the compressed step's state
+    on each pod's ``data × model`` submesh); the step count stays a plain
+    tensor."""
+    if ctx.pod_axis is not None and state.err is not None:
+        ctx = _inner(ctx)
+    with sharding_ctx(ctx):
+        specs = state_specs(model, compressed=state.err is not None)
+    dist_ = lambda t, s: param_sharding_tree(t, s, ctx.mesh)  # noqa: E731
+    return TrainState(
+        dist_(state.params, specs.params),
+        OptState(dist_(state.opt.m, specs.opt.m),
+                 dist_(state.opt.v, specs.opt.v), state.opt.step),
+        None if state.err is None else dist_(state.err, specs.err))
+
+
+def _inner(ctx) -> ShardCtx:
+    """A multi-pod context's inner context: one pod's ``data × model``
+    submesh, with ``batch`` over ``data``."""
+    names = tuple(ctx.mesh.mesh_dim_names)
+    rules = dict(ctx.rules)
+    rules["batch"] = "data"
+    return ShardCtx(mesh=ctx.mesh[tuple(a for a in names
+                                        if a != ctx.pod_axis)],
+                    rules=rules, dp_axes=("data",), tp_axis=ctx.tp_axis,
+                    pod_axis=None)
+
+
+def _as_param(g, p):
+    """A gradient in its parameter's layout: a DTensor gradient's pending
+    sums (``Partial``) are reduced and its shards laid out as ``p``'s."""
+    if is_dtensor(g):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def value_and_grad(loss_fn, params, tokens, labels):
     """``(loss, grads)`` of ``loss_fn`` at ``params``; a leaf the loss
     does not read gets a zero gradient, as in JAX."""
@@ -44,7 +104,7 @@ def value_and_grad(loss_fn, params, tokens, labels):
     with torch.enable_grad():
         loss = loss_fn(unflatten_like(params, leaves), tokens, labels)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _as_param(g, p)
              for p, g in zip(leaves, grads)]
     return loss.detach(), unflatten_like(params, grads)
 
@@ -59,7 +119,7 @@ def _accum_grads(loss_fn, params, tokens, labels, microbatches: int):
                          f"microbatches")
     mb = B // microbatches
     loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    acc = [torch.zeros_like(p, dtype=torch.float32)
            for p in tree_leaves(params)]
     for i in range(microbatches):
         sl = slice(i * mb, (i + 1) * mb)
@@ -76,12 +136,62 @@ def build_train_step(model, opt_cfg: OptCfg, *, microbatches: int = 1):
     with ``metrics`` ``{"loss", "grad_norm", "lr"}`` (0-d tensors)."""
 
     def train_step(state: TrainState, tokens, labels):
-        loss, grads = _accum_grads(model.loss, state.params, tokens, labels,
-                                   microbatches)
-        new_p, new_opt, metrics = adamw_update(opt_cfg, state.params, grads,
-                                               state.opt)
-        metrics["loss"] = loss
+        # a plain tensor beside a sharded one (a step count, a learning
+        # rate) is the same full value on every rank
+        with plain_as_replicated():
+            loss, grads = _accum_grads(model.loss, state.params, tokens,
+                                       labels, microbatches)
+            new_p, new_opt, metrics = adamw_update(opt_cfg, state.params,
+                                                   grads, state.opt)
+        metrics["loss"] = full(loss)
         return TrainState(new_p, new_opt, state.err), metrics
+
+    return train_step
+
+
+class CompressedStepError(ValueError):
+    """The compressed step was asked for without a multi-pod context."""
+
+
+def build_train_step_compressed(model, opt_cfg: OptCfg, *,
+                                microbatches: int = 1):
+    """Cross-pod int8 error-feedback gradient sync (multi-pod meshes;
+    reference ``train.py:88-154``).
+
+    Needs an active sharding context whose mesh has a ``pod`` axis.  The
+    state is replicated over pods and laid out on each pod's ``data ×
+    model`` submesh; the batch splits over pods on its leading dim (every
+    rank is given the whole batch and takes its pod's rows).  The loss is
+    averaged per pod; the compressed sum then averages over pods, so the
+    gradients match the uncompressed step up to quantization.
+    """
+    ctx = current_ctx()
+    if ctx is None or ctx.pod_axis is None:
+        raise CompressedStepError(
+            "the compressed step needs a multi-pod mesh context (a mesh "
+            "with a 'pod' axis, e.g. --mesh multi)")
+    pod, mesh = ctx.pod_axis, ctx.mesh
+    n_pod = mesh.size(list(mesh.mesh_dim_names).index(pod))
+    pod_idx = mesh.get_local_rank(pod)
+    group = mesh.get_group(pod)
+    # inside a pod the model never names the pod axis: batch parallelism
+    # continues over the in-pod data axis
+    inner_ctx = _inner(ctx)
+
+    def train_step(state: TrainState, tokens, labels):
+        b = tokens.shape[0] // n_pod
+        rows = slice(pod_idx * b, (pod_idx + 1) * b)
+        with sharding_ctx(inner_ctx), plain_as_replicated():
+            loss, grads = _accum_grads(model.loss, state.params,
+                                       tokens[rows], labels[rows],
+                                       microbatches)
+            grads, new_err = ef_compress_sync(grads, state.err, group)
+            loss = full(loss).clone()
+            dist.all_reduce(loss, group=group)
+            new_p, new_opt, metrics = adamw_update(opt_cfg, state.params,
+                                                   grads, state.opt)
+        metrics["loss"] = loss / n_pod
+        return TrainState(new_p, new_opt, new_err), metrics
 
     return train_step
 

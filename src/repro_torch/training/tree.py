@@ -2,7 +2,7 @@
 
 A tree is nested dicts (flattened in sorted key order, as JAX flattens
 them), lists, tuples and NamedTuples; ``None`` is an empty subtree and
-anything else a leaf.  A leaf's path is the tuple of its keys: a dict's
+anything else a leaf (a sharding spec too, though it is a tuple).  A leaf's path is the tuple of its keys: a dict's
 key, a sequence's index (as a string) and a NamedTuple's field as
 ``".field"``, which is how the reference's checkpoint writes
 ``jax.tree_util``'s ``GetAttrKey``.
@@ -20,6 +20,8 @@ def _children(node):
         return [(str(k), node[k]) for k in sorted(node)]
     if _is_namedtuple(node):
         return [(f".{f}", getattr(node, f)) for f in node._fields]
+    if getattr(node, "_tree_leaf", False):
+        return None
     if isinstance(node, (list, tuple)):
         return [(str(i), c) for i, c in enumerate(node)]
     return None

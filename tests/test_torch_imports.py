@@ -53,7 +53,10 @@ def test_engine_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch.core.simulator, repro_torch.convert, "
             "repro_torch.kernels._build, "
             "repro_torch.kernels.sim_engine.ops, repro_torch.trace, "
-            "repro_torch.core.sim_ref, repro_torch.core.policies\n"
+            "repro_torch.core.sim_ref, repro_torch.core.policies, "
+            "repro_torch.distribution.sharding, repro_torch.launch.mesh, "
+            "repro_torch.launch.specs, repro_torch.launch.train, "
+            "repro_torch.training.train\n"
             "for name in ('schema', 'synth_trace', 'replay', 'cache'):\n"
             "    mod = getattr(repro_torch.trace, name)\n"
             "    assert mod.__name__ == 'repro_torch.trace.' + name, mod\n"

@@ -338,9 +338,19 @@ def test_launcher_trains_on_the_cpu(tmp_path):
     assert sorted(os.listdir(ckpt)) == ["10", "20", "30"]
 
 
+#: the named error each refusal raises in a one-process world: the
+#: production meshes need 256 and 512 ranks, the compressed step a
+#: multi-pod mesh
+REFUSALS = {("--mesh", "single"): "MeshSizeError: a 16 x 16 mesh",
+            ("--mesh", "multi"): "MeshSizeError: a 2 x 16 x 16 mesh",
+            ("--compress-pods",): "CompressedStepError"}
+
+
 @pytest.mark.parametrize("flags", [("--mesh", "single"), ("--mesh", "multi"),
                                    ("--compress-pods",)])
-def test_launcher_refuses_meshes(flags):
-    out = _launch("--smoke", "--device", "cpu", *flags)
+def test_launcher_refuses_meshes(flags, tmp_path):
+    out = _launch("--smoke", "--device", "cpu", *flags, "--ckpt-dir",
+                  str(tmp_path / "ckpt"))
     assert out.returncode != 0
-    assert "repro.distribution.sharding" in out.stderr
+    assert REFUSALS[flags] in out.stderr, out.stderr[-2000:]
+    assert "steps in" not in out.stdout           # stopped before any step

@@ -1,0 +1,362 @@
+"""One rank of a ``gloo`` process group on the CPU, for
+``tests/test_torch_distributed.py``.
+
+    python tests/torch_dist_worker.py SCENARIO RANK WORLD PORT IN.npz OUT_DIR
+
+Imports torch and ``repro_torch`` only.  ``IN.npz`` holds what the test
+made with numpy and the reference (weights as ``p/<leaf path>``, tokens,
+activations); each rank writes ``OUT_DIR/rank<r>.npz`` with what the
+test holds to the reference (full tensors).  The group's rendezvous and
+every collective time out after ``TIMEOUT_S``.
+"""
+import dataclasses
+import datetime
+import os
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import configs
+from repro_torch.distribution import sharding as sh
+from repro_torch.launch.mesh import make_ctx, make_test_mesh
+from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.common import MoECfg
+from repro_torch.models.transformer import build_model
+from repro_torch.training.checkpoint import CheckpointManager
+from repro_torch.training.optimizer import OptCfg
+from repro_torch.training.train import (_inner, build_train_step,
+                                        build_train_step_compressed,
+                                        init_train_state, shard_train_state,
+                                        value_and_grad)
+from repro_torch.training.tree import (flatten_with_paths, tree_leaves,
+                                       unflatten_like)
+
+TIMEOUT_S = 90
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class Ranks:
+    """Scenario ``name`` running on ``world`` ranks (one process each)
+    from the arrays ``inp``, started at once so that the caller's own
+    reference run overlaps them; :meth:`wait` returns each rank's output
+    arrays.  A rank that fails or outlives ``timeout`` fails the caller
+    with its error output."""
+
+    def __init__(self, name: str, world: int, inp: dict, tmp_path,
+                 timeout: float = 150):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        inp_path = os.path.join(tmp_path, "in.npz")
+        np.savez(inp_path, **inp)
+        env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+                   OMP_NUM_THREADS="1")
+        self.name, self.world, self.dir = name, world, str(tmp_path)
+        self.timeout = timeout
+        self.procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), name, str(r),
+             str(world), str(port), inp_path, self.dir], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(world)]
+
+    def wait(self) -> list:
+        try:
+            errs = [p.communicate(timeout=self.timeout)[1]
+                    for p in self.procs]
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, e) in enumerate(zip(self.procs, errs)):
+            assert p.returncode == 0, f"rank {r} of {self.name}: {e[-4000:]}"
+        out = []
+        for r in range(self.world):
+            with np.load(os.path.join(self.dir, f"rank{r}.npz")) as f:
+                out.append(dict(f))
+        return out
+
+
+def f32(name):
+    return dataclasses.replace(configs.get_smoke(name), dtype="float32")
+
+
+def load_params(like, data, prefix="p/"):
+    """``like``'s structure with the leaves of ``data`` at its paths."""
+    return unflatten_like(like, [
+        torch.from_numpy(data[prefix + "/".join(path)]).to(leaf.dtype)
+        for path, leaf in flatten_with_paths(like)])
+
+
+def save_tree(out, prefix, tree):
+    for path, leaf in flatten_with_paths(tree):
+        out[prefix + "/".join(path)] = sh.full(leaf).detach().float().numpy()
+
+
+def _ctx(shape, axes, **rule_overrides):
+    mesh = make_test_mesh(shape, axes, device_type="cpu")
+    multi = "pod" in axes
+    rules = sh.make_rules(multi_pod=multi)
+    rules.update(rule_overrides)
+    return sh.ShardCtx(mesh=mesh, rules=rules,
+                       dp_axes=("pod", "data") if multi else ("data",),
+                       pod_axis="pod" if multi else None)
+
+
+def train(data, out):
+    """3 AdamW steps of olmo-1b's smoke config (f32) on a (2, 2) mesh,
+    from the test's weights; rank 0 also runs the one-device step."""
+    cfg = f32("olmo-1b")
+    ocfg = OptCfg(lr=1e-2, warmup_steps=2, total_steps=10)
+    tokens = torch.from_numpy(data["tokens"])
+    labels = torch.from_numpy(data["labels"])
+    model = build_model(cfg, "cpu")
+    params = load_params(model.init(torch.Generator().manual_seed(0)), data)
+    ctx = _ctx((2, 2), ("data", "model"))
+    with sh.sharding_ctx(ctx):
+        state = init_train_state(model, torch.Generator().manual_seed(0))
+        state = shard_train_state(state._replace(params=params), model, ctx)
+        placed = sorted({str(leaf.placements) for leaf in
+                         tree_leaves(state.params)})
+        step = build_train_step(model, ocfg)
+        for i in range(3):
+            state, m = step(state, tokens, labels)
+            out[f"loss{i}"] = np.float32(m["loss"])
+    out["placements"] = np.array(placed)
+    save_tree(out, "sharded/", state.params)
+    if dist.get_rank() == 0:
+        s = init_train_state(model, torch.Generator().manual_seed(0))
+        s = s._replace(params=params)
+        step = build_train_step(model, ocfg)
+        for i in range(3):
+            s, m = step(s, tokens, labels)
+            out[f"single_loss{i}"] = np.float32(m["loss"])
+        save_tree(out, "single/", s.params)
+
+
+def moe(data, out):
+    """``moe_ep`` on a (2, 2) mesh against ``moe_dense``, dbrx-132b's
+    smoke config with 4 experts, top 2, capacity factor 16."""
+    cfg = dataclasses.replace(
+        configs.get_smoke("dbrx-132b"),
+        moe=MoECfg(n_experts=4, top_k=2, d_ff_expert=64,
+                   capacity_factor=16.0))
+    like = moe_mod.init_moe(torch.Generator().manual_seed(0), cfg)
+    p = load_params(like, data)
+    x = torch.from_numpy(data["x"])
+    ctx = _ctx((2, 2), ("data", "model"))
+    with sh.sharding_ctx(ctx):
+        specs = {"router": sh.pspec(None, None),
+                 "w_gate": sh.pspec("expert", "fsdp", "expert_ff"),
+                 "w_in": sh.pspec("expert", "fsdp", "expert_ff"),
+                 "w_out": sh.pspec("expert", "expert_ff", "fsdp")}
+        pd = sh.param_sharding_tree(p, specs, ctx.mesh)
+        with sh.plain_as_replicated():
+            y, aux = moe_mod.moe_ep(cfg, pd, x)
+    out["y"] = sh.full(y).float().numpy()
+    out["aux"] = np.float32(sh.full(aux))
+    y_d, aux_d = moe_mod.moe_dense(cfg, p, x)
+    out["y_dense"] = y_d.float().numpy()
+    out["aux_dense"] = np.float32(aux_d)
+
+
+def compressed(data, out):
+    """5 steps of the compressed cross-pod step on a (2, 2, 2) mesh beside
+    the exact step on the same mesh; the first compressed step's pieces
+    (each pod's gradients, the synced ones, the update) for the test's
+    exactness check."""
+    cfg = f32("olmo-1b")
+    ocfg = OptCfg(lr=5e-3, warmup_steps=2, total_steps=20)
+    tokens = torch.from_numpy(data["tokens"])
+    labels = torch.from_numpy(data["labels"])
+    model = build_model(cfg, "cpu")
+    params = load_params(model.init(torch.Generator().manual_seed(0)), data)
+    ctx = _ctx((2, 2, 2), ("pod", "data", "model"))
+    with sh.sharding_ctx(ctx):
+        base = init_train_state(model, torch.Generator().manual_seed(0),
+                                compressed=True)._replace(params=params)
+        sc = shard_train_state(base, model, ctx)
+        se = shard_train_state(base._replace(err=None), model, ctx)
+        step_c = build_train_step_compressed(model, ocfg)
+        step_e = build_train_step(model, ocfg)
+        # the first step's gradients of this rank's pod, as the step
+        # computes them (its inner context on the pod's submesh)
+        b = tokens.shape[0] // 2
+        pod = ctx.mesh.get_local_rank("pod")
+        with sh.sharding_ctx(_inner(ctx)), sh.plain_as_replicated():
+            _, g = value_and_grad(model.loss, sc.params,
+                                  tokens[pod * b:(pod + 1) * b],
+                                  labels[pod * b:(pod + 1) * b])
+        save_tree(out, "pod_grads/", g)
+        out["pod"] = np.int64(pod)
+        for i in range(5):
+            sc, mc = step_c(sc, tokens, labels)
+            se, me = step_e(se, tokens, labels)
+            out[f"loss_c{i}"] = np.float32(mc["loss"])
+            out[f"loss_e{i}"] = np.float32(me["loss"])
+            if i == 0:
+                save_tree(out, "step1/", sc.params)
+                save_tree(out, "err1/", sc.err)
+    out["placements"] = np.array(sorted({
+        f"{leaf.device_mesh.mesh_dim_names}{leaf.placements}"
+        for leaf in tree_leaves(sc.params)}))
+
+
+def remesh(data, out):
+    """Save gemma-2b's smoke parameters laid out on a (2, 4) mesh, restore
+    them onto (4, 2)."""
+    cfg = configs.get_smoke("gemma-2b")
+    model = build_model(cfg, "cpu")
+    params = load_params(model.init(torch.Generator().manual_seed(0)), data)
+    ctx_a = _ctx((2, 4), ("data", "model"))
+    with sh.sharding_ctx(ctx_a):
+        pa = sh.param_sharding_tree(params, model.param_specs(), ctx_a.mesh)
+    d = data["dir"].item()
+    mgr = CheckpointManager(d)
+    mgr.save(pa, 1, blocking=True)
+    ctx_b = _ctx((4, 2), ("data", "model"))
+    with sh.sharding_ctx(ctx_b):
+        tree_b = sh.sharding_tree(model.param_specs(), ctx_b.mesh)
+    restored, step = mgr.restore(pa, sharding_tree=tree_b)
+    out["step"] = np.int64(step)
+    same, data4 = [], []
+    for (path, a), b in zip(flatten_with_paths(params),
+                            tree_leaves(restored)):
+        same.append(bool(torch.equal(a, b.full_tensor())))
+        names = b.device_mesh.mesh_dim_names
+        data4.append(b.device_mesh.size(names.index("data")) == 4
+                     and b.placements == tree_leaves(tree_b)[len(same) - 1]
+                     .placements)
+    out["same"] = np.array(same)
+    out["on_new_mesh"] = np.array(data4)
+    save_tree(out, "restored/", restored)
+
+
+def seqdecode(data, out):
+    """qwen3-14b's smoke config (f32; kv heads 2 ∤ model 4): one decode
+    step over a seq-sharded cache on a (2, 4) mesh, from the test's
+    weights and the unsharded prefill's cache."""
+    cfg = f32("qwen3-14b")
+    model = build_model(cfg, "cpu")
+    params = load_params(model.init(torch.Generator().manual_seed(0)), data)
+    toks = torch.from_numpy(data["toks"])
+    B, S = toks.shape
+    cache = model.init_cache(B, S + 4)
+    model.prefill(params, toks, cache)
+    pos = torch.full((B,), S, dtype=torch.int32)
+    ctx = _ctx((2, 4), ("data", "model"))
+    with sh.sharding_ctx(ctx):
+        cspec = model.cache_specs(B, S + 4)
+        out["cache_spec"] = np.array(repr(cspec["k"]))
+        cs = sh.param_sharding_tree(cache, cspec, ctx.mesh)
+        logits, cs = model.decode_step(params, toks[:, :1], cs, pos)
+    out["logits"] = sh.full(logits).float().numpy()
+    save_tree(out, "cache/", cs)
+
+
+def gqapad(data, out):
+    """H 6, KV 2 on a (1, 4) mesh: the padded heads, ``sdpa`` on them and
+    a whole forward against the unsharded ones."""
+    cfg = dataclasses.replace(f32("olmo-1b"), n_heads=6, n_kv_heads=2,
+                              attn_impl="naive")
+    q, k, v = (torch.from_numpy(data[n]) for n in ("q", "k", "v"))
+    ctx = _ctx((1, 4), ("data", "model"))
+    model = build_model(cfg, "cpu")
+    params = load_params(model.init(torch.Generator().manual_seed(0)), data)
+    tokens = torch.from_numpy(data["tokens"])
+    with sh.sharding_ctx(ctx):
+        with sh.plain_as_replicated():
+            qs = sh.shard(q, "batch", "seq", "heads", None)
+            ks = sh.shard(k, "batch", "seq", "kv_heads", None)
+            vs = sh.shard(v, "batch", "seq", "kv_heads", None)
+            qp, kp, vp, _ = attn._gqa_tp_pad(cfg, qs, ks, vs)
+            o = attn.sdpa(cfg, qs, ks, vs)
+        pd = sh.param_sharding_tree(params, model.param_specs(), ctx.mesh)
+        logits, _ = model.forward(pd, tokens)
+    out["padded_shape"] = np.array([tuple(t.shape) for t in (qp, kp, vp)])
+    out["qp_placements"] = np.array(str(qp.placements))
+    out["o"] = sh.full(o).numpy()
+    out["o_ref"] = attn.sdpa(cfg, q, k, v).numpy()
+    out["logits"] = sh.full(logits).numpy()
+    out["logits_ref"] = model.forward(params, tokens)[0].numpy()
+
+
+def serve(data, out):
+    """Prefill and two decode steps of olmo-1b's smoke config under
+    ``pallas`` (the attention kernels' plain versions here) on a (2, 2)
+    mesh, parameters and cache laid out by their specs."""
+    cfg = dataclasses.replace(f32("olmo-1b"), attn_impl="pallas")
+    model = build_model(cfg, "cpu")
+    params = load_params(model.init(torch.Generator().manual_seed(0)), data)
+    toks = torch.from_numpy(data["toks"])
+    B, S = toks.shape
+    ctx = _ctx((2, 2), ("data", "model"))
+    with sh.sharding_ctx(ctx):
+        pd = sh.param_sharding_tree(params, model.param_specs(), ctx.mesh)
+        cache = sh.param_sharding_tree(model.init_cache(B, S + 2),
+                                       model.cache_specs(B, S + 2),
+                                       ctx.mesh)
+        lg, cache = model.prefill(pd, toks, cache)
+        outs = [sh.full(lg)]
+        for i in range(2):
+            pos = torch.full((B,), S + i, dtype=torch.int32)
+            lg, cache = model.decode_step(pd, toks[:, i:i + 1], cache, pos)
+            outs.append(sh.full(lg))
+    out["logits"] = torch.cat(outs, dim=1).numpy()
+    save_tree(out, "cache/", cache)
+
+
+def mla(data, out):
+    """deepseek-v2-236b's smoke config (MLA, MoE with shared experts;
+    f32): prefill through ``moe_ep`` and two decode steps over the latent
+    cache seq-sharded over ``model``, on a (2, 2) mesh, parameters and
+    cache laid out by their specs."""
+    cfg = f32("deepseek-v2-236b")
+    model = build_model(cfg, "cpu")
+    params = load_params(model.init(torch.Generator().manual_seed(0)), data)
+    toks = torch.from_numpy(data["toks"])
+    B, S = toks.shape
+    ctx = _ctx((2, 2), ("data", "model"))
+    with sh.sharding_ctx(ctx):
+        pd = sh.param_sharding_tree(params, model.param_specs(), ctx.mesh)
+        cspec = model.cache_specs(B, S + 2)
+        out["cache_spec"] = np.array(repr(cspec["c_kv"]))
+        cache = sh.param_sharding_tree(model.init_cache(B, S + 2), cspec,
+                                       ctx.mesh)
+        lg, cache = model.prefill(pd, toks, cache)
+        outs = [sh.full(lg)]
+        for i in range(2):
+            pos = torch.full((B,), S + i, dtype=torch.int32)
+            lg, cache = model.decode_step(pd, toks[:, i:i + 1], cache, pos)
+            outs.append(sh.full(lg))
+    out["logits"] = torch.cat(outs, dim=1).float().numpy()
+    save_tree(out, "cache/", cache)
+
+
+SCENARIOS = {f.__name__: f for f in (train, moe, compressed, remesh,
+                                     seqdecode, gqapad, serve, mla)}
+
+
+def main(argv):
+    name, rank, world, port, inp, out_dir = argv
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=int(rank),
+        world_size=int(world), timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    try:
+        with np.load(inp, allow_pickle=False) as f:
+            data = dict(f)
+        out = {}
+        SCENARIOS[name](data, out)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
