@@ -27,19 +27,19 @@ non-zero):
    ``sim_engine`` launch (the fused early-binding loop) and no
    ``hermes_select`` launch, with no host sync in the loop (the counts are
    zeroed just before each run and read just after), and Hermes on the
-   first N=2000 arrivals of the same inputs; then the batched engine on
-   those 2000: the plain Hermes run (``backend="torch"``, the fused
-   engine's "before"), which the fused Hermes run of the 2000 must equal
-   in every plane and the one of 12000 in its first 2000 choices (worker,
+   first N=500 arrivals of the same inputs; then the batched engine on
+   those 500: the plain Hermes run (``backend="torch"``, the fused
+   engine's "before"), which the fused Hermes run of the 500 must equal
+   in every plane and the one of 12000 in its first 500 choices (worker,
    cold, rejected), and late binding; each fused policy must take ≤ 100
    µs per arrival and ≥ 50× less than the plain Hermes run; then
-   ``sim_engine``'s device time on the 2000 (its output again equal to
+   ``sim_engine``'s device time on the 500 (its output again equal to
    the plain run's) beside that run's and the bound; 4b. the
    fused Hermes run at N=12000: its wall time beside the kernel's device
    time on the same inputs (CUDA events), the idle share they give, its
    launches and host syncs;
 5. the fused kernel against the plain batched engine on the card, equal
-   in every plane, for E/{H,LL,LOC,R}/PS at N=2000 on the fig4 cluster;
+   in every plane, for E/{H,LL,LOC,R}/PS at N=500 on the fig4 cluster;
    Hermes against the CPU, equal integer planes and floats within 1e-9;
    then every policy of phase 4, E/R/PS, E/H/FCFS and E/H/SRPT, card
    against CPU, at N=300 on the same cluster and on an overloaded 4 ×
@@ -69,18 +69,18 @@ non-zero):
    redesign (``BEFORE_REDESIGN_MS``), gemma-2b's shapes among them;
 7. the serving path at full width: a ``HermesFrontend`` on ``cuda`` (2
    workers × 2 cores, ``max_len`` 2048) serving ``olmo-1b`` (seed 0) and
-   ``musicgen-large`` (seed 1) with ``attn_impl="pallas"``, 12 alternating
-   requests, prompts of 200-1500 tokens (``default_rng(1)``), 32 new
+   ``musicgen-large`` (seed 1) with ``attn_impl="pallas"``, 6 alternating
+   requests, prompts of 200-1500 tokens (``default_rng(1)``), 16 new
    tokens each; all six launch counts are zeroed just before and must
    be Σ L × (requests + cold starts) for ``flash_attention``,
-   Σ L × (32 × requests + cold starts) for ``decode_attention``, 12 for
+   Σ L × (16 × requests + cold starts) for ``decode_attention``, 6 for
    ``hermes_select`` and 0 for the scans and ``sim_engine``; 7b. a
    profiled stretch of decode steps: the device's busy and idle share,
    its costliest kernels, and ``decode_attention``'s device time per call
    inside the step (its split and combine kernels);
-8. prefill plus 16 teacher-forced decode steps through the cache against
+8. prefill plus 8 teacher-forced decode steps through the cache against
    the plain path's full forward (``attn_impl="naive"``, same parameters)
-   over the same 793 tokens, for both models and for gemma-2b (seed 4,
+   over the same 785 tokens, for both models and for gemma-2b (seed 4,
    its attention at Dh = 256), at full width: in f32 within
    1e-4 × max |logit|, and in the served bf16 within 6e-2 × max |logit|
    (``tests/test_models.py``'s bf16 tolerance between attention
@@ -112,13 +112,13 @@ non-zero):
     20 a scenario), N = 12 000, through the fused E/H/PS, E/LL/PS and
     E/LOC/PS (one ``sim_engine`` launch, no host sync each) with fig10's
     two claims printed as observations, and late binding on the batched
-    engine at N = 1000; (b) the five scenarios in one batch
+    engine at N = 500; (b) the five scenarios in one batch
     (``resample_workloads``, load 0.7, F = 60): fused at N = 12 000, equal
-    to the plain engine on the card in every plane at N = 1000, card
+    to the plain engine on the card in every plane at N = 500, card
     against CPU at N = 300 (late binding too); (c) fig14's horizon lane,
-    1000 workers × 2 cores, 4 slots, ``azure-diurnal`` at N = 86 400 and
+    1000 workers × 2 cores, 4 slots, ``azure-diurnal`` at N = 43 200 and
     the fig4 loads: the three fused runs side by side, each kernel's
-    device time, iterations, bound and idle share, and the first 1000
+    device time, iterations, bound and idle share, and the first 500
     arrivals of each run equal to the plain engine's run of them (on the
     CPU); the
     host's generation time beside each run; the batched engine's runs
@@ -134,7 +134,7 @@ non-zero):
     ``resample_workloads``, N = 3000) and the same at N = 300, card
     against the CPU in every plane with float gaps 0; (c) fig4's zoo
     rows (phase 4's inputs; E/{JSQ2,RR,HIKU,DD,SWARM}/PS), each timed
-    by CUDA events beside its bound; the first 1000 arrivals of the
+    by CUDA events beside its bound; the first 500 arrivals of the
     five zoo policies' runs in (a) ms-trace, (b) and (c) equal to the
     batched engine's run of them on the CPU (and a fused run of just
     those equal to it in every plane); ``sim_engine`` equal to
@@ -153,7 +153,7 @@ non-zero):
     ``azure-diurnal`` × the three keep-alives × the three schedulers) at
     0.1/0.3/0.5/0.7/0.9; two timing runs on the budget lane's inputs
     (no lifecycle; FIXED_TTL without the budget); each kernel's device
-    time by CUDA events beside its bound; the first 1000 arrivals of
+    time by CUDA events beside its bound; the first 500 arrivals of
     every run of (a) and (b) equal to the batched engine's run of them on
     the CPU (and a fused run of just those equal to it in every plane and
     in the final life state); ``sim_engine`` equal to ``sim_engine_ref``
@@ -176,7 +176,7 @@ non-zero):
     fleet, loads 0.5/0.65/0.8 × E/{H,LL,SWARM}/PS) and the frontier lane
     (seeds 1-3 × static W ∈ {5, 6, 7, 8} and the ``TARGET_P99``
     autoscaler, target 3.0, ``min_workers`` 2, cooldown 2 s), its two
-    claims printed, not gated; the first 1000 arrivals of each of the 51
+    claims printed, not gated; the first 800 arrivals of each of the 51
     runs equal to the batched engine's run of them on the CPU (and a fused
     run of just those equal to it in every plane, the telemetry, the
     autoscaler's state and ``prov_core_s``; an autoscaler's prefix at the
@@ -237,12 +237,12 @@ non-zero):
     cores, ``max_len`` 2048, ``H``) serving ``dbrx-132b`` (seed 5) and
     ``deepseek-v2-236b`` (seed 6) at their published widths and bf16
     parameters, cut to 2 layers, ``attn_impl="pallas"`` (dbrx runs the
-    flash and decode kernels, deepseek's MLA the reference's einsums), 12
+    flash and decode kernels, deepseek's MLA the reference's einsums), 6
     alternating requests of 200-1500 prompt tokens (``default_rng(3)``),
-    32 new tokens each, with phase 7's exact launch counts of all six
+    16 new tokens each, with phase 7's exact launch counts of all six
     kernels; GB of weights and the device peak; a profiled stretch of
-    their decode steps; (b) prefill plus 16 teacher-forced decode steps
-    against the full forward over the same 793 tokens and parameters
+    their decode steps; (b) prefill plus 8 teacher-forced decode steps
+    against the full forward over the same 785 tokens and parameters
     (dbrx: ``pallas`` against ``naive``; deepseek: the absorbed latent
     decode against the decompressed forward), bf16 at 2 layers within
     6e-2 × max |logit| and f32 at 1 layer within 1e-4 × max |logit| with
@@ -300,7 +300,7 @@ non-zero):
     card with no platform overheads (``hermes_select`` once an arrival),
     under fig12's budgeted FIXED_TTL with telemetry and under a
     ``two-gen`` fleet with ``TARGET_P99``, 1000 arrivals each, launched
-    here; (c) the planes: phase 14's fused runs of the first 1000 arrivals
+    here; (c) the planes: phase 14's fused runs of the first 500 arrivals
     of fig12's six lanes (the life plane: its budget lane under the three
     keep-alives, its balancer lane), phase 15's of fig13's 24 runs (a
     ``two-gen`` fleet, static fleets and ``TARGET_P99``, with telemetry:
@@ -331,7 +331,23 @@ non-zero):
     aux within 1e-3, no token dropped (drops at the published 1.25
     counted); (e) the compressed step on (pod 2 x data 1 x model 1), 3
     steps: the loss falls, the first update within 1e-6 × max |p| of
-    AdamW on the int8 sync of the two pods' gradients; the phase ≤ 30 s.
+    AdamW on the int8 sync of the two pods' gradients; the phase ≤ 30 s;
+22. the sharded forward of the recurrent families on phase 21's two
+    ranks, after 21e, each sharded run against rank 0's one-device run of
+    the same code from the same weights (built on the card from the
+    seed): (a) rwkv6-3b at published widths (40 heads of 64), 2 layers,
+    f32: a prefill of 777 and 8 decode steps, the WKV scan in a manual
+    region on each rank's 20 local heads (``rwkv6_wkv`` once a layer a
+    rank in the prefill, counted); (b) zamba2-2.7b at published widths
+    (80 SSD heads of 64), 6 layers (its shared block once), f32,
+    ``pallas``: the same, ``mamba2_ssd`` on 40 local heads once a layer,
+    ``flash_attention`` once and ``decode_attention`` once a decode step on
+    16; logits within 1e-4 × max |logit|, the carried state allclose 1e-3;
+    no DTensor reaches a kernel's entry point; (c) each model's loss and
+    gradients on a 2 × 64 batch (``ScanGrad`` on local heads, remat as
+    published), each rank's gradient shards against its own one-device
+    run's: the loss within 2e-3, every leaf within 1e-3 × its max |value|;
+    DTensor's collectives counted; the phase ≤ 15 s.
 
 TF32 is off for matrix products and cuDNN throughout.  The line before the
 last is ``{"kernels": [...]}``; the last line is
@@ -368,8 +384,13 @@ N_MAIN = 12_000
 #: the batched engine's runs (the plain Hermes "before" and late binding)
 #: take ~7 ms an arrival on the host, so they run the first N_BATCHED
 #: arrivals of the main workload, to keep the whole check inside its time
-N_BATCHED = 2_000
-N_CHECK = 2_000
+N_BATCHED = 500
+#: phase 5 holds the fused E/{H,LL,LOC,R}/PS runs to the plain engine on
+#: fig4's cluster over this many arrivals: by then the tasks in flight
+#: reach 90 % of their steady count under H, LL and R at every load, and
+#: 80 % under LOC, whose workers share cores from the start
+#: (``tools/fig4_in_flight.py``)
+N_CHECK = 3000
 N_SHORT = 300
 SEED = 1
 
@@ -956,8 +977,12 @@ def end_to_end(torch, np, report, cluster, pool, oracle=None):
                                        or policy in fused):
                 oracle.hold("20b", key, policy, cl, wbs, out, counts)
 
-    plain = {k: out for k, (out, _) in zip(jobs, plain_done.get())}
+    done = dict(zip(jobs, plain_done.get()))
+    plain = {k: out for k, (out, _) in done.items()}
     plain_s = time.perf_counter() - t0
+    log(f"N={N_CHECK}: the plain runs' walls, s: " + ", ".join(
+        f"{k[0].split()[0]} on {k[1]} {done[k][1]:.1f}"
+        for k in jobs if k[0] in fig4_key.values()))
     for policy in fused:
         same(kern[policy], plain[fig4_key[policy], "cuda"],
              f"{policy.name} fig4 N={N_CHECK}")
@@ -1045,11 +1070,11 @@ SERVED = (("olmo-1b", 0), ("musicgen-large", 1))
 CHECKED_DENSE = (*SERVED, ("gemma-2b", 4))
 #: phase 10's models and weight seeds
 RECURRENT = (("rwkv6-3b", 2), ("zamba2-2.7b", 3))
-N_REQUESTS = 12
-N_NEW = 32
+N_REQUESTS = 6
+N_NEW = 16
 MAX_LEN = 2048
 PROMPT_MIN, PROMPT_MAX = 200, 1500
-CHECK_PROMPT, CHECK_STEPS = 777, 16
+CHECK_PROMPT, CHECK_STEPS = 777, 8
 #: decode steps in each profiled stretch (phases 7b, 10b and 18a)
 PROFILE_STEPS = 2
 #: phase 8's bound on max |Δ logit| / max |logit| for each dtype
@@ -1267,7 +1292,7 @@ def weights_gb(torch, cfg) -> float:
 
 def serving_path(torch, np, report, served, prompt_seed, key,
                  n_layers=None):
-    """Phases 7, 10 and 18a: 12 requests through ``HermesFrontend`` at
+    """Phases 7, 10 and 18a: 6 requests through ``HermesFrontend`` at
     full width (``n_layers`` cuts the depth), with every kernel's launches
     counted over the run."""
     import dataclasses
@@ -1742,13 +1767,17 @@ FIG10_PENALTY = 0.5
 N_FIG10 = 12_000
 #: depth of phase 12's batched-engine runs: late binding, and the plain
 #: runs that hold the fused ones
-N_TRACE_PLAIN = 1_000
+N_TRACE_PLAIN = 500
 #: the mixed batch: every scenario at this load and seed ``SEED``
 MIXED_LOAD = 0.7
 #: fig14's horizon lane (benchmarks/fig14_stream.py:57-66): one synthetic
 #: Azure-schema day on 1000 workers × 2 cores, capacity factor 2 (4 slots)
 HORIZON = dict(n_workers=1000, cores=2, capacity_factor=2)
 HORIZON_N = 86_400
+#: phase 12's run of the horizon lane: half the day (phase 17 streams the
+#: whole day), as the three fused runs of the whole day take ~5 s each of
+#: card time alone
+TRACE_HORIZON_N = HORIZON_N // 2
 TRACE_PHASE_S = 60.0
 SCRIPT_S = 600.0
 #: worker processes for the batched engine's check runs.  Each run is
@@ -1952,7 +1981,7 @@ def trace_replay(torch, np, report, pool):
     mixed_main = generate("mixed", lambda: mixed(N_FIG10))
     mixed_check, mixed_short = mixed(N_TRACE_PLAIN), mixed(N_SHORT)
     lane = generate("horizon azure-diurnal", lambda: replicate_workload(
-        WORKLOADS["azure-diurnal"], lane_cl, LOADS, HORIZON_N,
+        WORKLOADS["azure-diurnal"], lane_cl, LOADS, TRACE_HORIZON_N,
         seeds=(SEED,)))
     for key, s in gen_s.items():
         log(f"host generation, {key}: {s:.3f} s")
@@ -2146,7 +2175,8 @@ def trace_replay(torch, np, report, pool):
         fig10=dict(loads=FIG10_LOADS, seeds=FIG10_SEEDS, n=N_FIG10,
                    n_late=N_TRACE_PLAIN, penalty=FIG10_PENALTY,
                    observed=observed),
-        horizon=dict(cluster=HORIZON, n=HORIZON_N, loads=LOADS, seed=SEED,
+        horizon=dict(cluster=HORIZON, n=TRACE_HORIZON_N, loads=LOADS,
+                     seed=SEED,
                      timing=lane_timing),
         runs=runs, gen_s=gen_s, plain_runs_s=plain_s,
         card_vs_cpu_max_gap=gaps, sim_engine_launches=launches,
@@ -2167,7 +2197,7 @@ N_FIG11 = 6_000
 FIG11_SEED = 0
 FIG11_MIXED = ("ms-trace", "azure-diurnal", "azure-bursty")
 #: depth of the plain runs that hold phase 13's fused runs
-N_ZOO_PLAIN = 1_000
+N_ZOO_PLAIN = 500
 ZOO_PHASE_S = 60.0
 
 
@@ -2451,7 +2481,7 @@ LIFE_PRESET = "openwhisk"
 LIFE_KEEPALIVES = ("NONE", "FIXED_TTL", "HYBRID_HIST")
 FIG7_WORKLOADS = ("ms-trace", "azure-diurnal")
 #: depth of the plain runs that hold phase 14's fused runs
-N_LIFE_PLAIN = 1_000
+N_LIFE_PLAIN = 500
 LIFE_PHASE_S = 60.0
 
 
@@ -2710,7 +2740,7 @@ FIG13_STATIC = (5, 6, 7, 8)
 FIG13_TARGET = 3.0
 N_FIG13 = 6_000
 #: depth of the plain runs that hold phase 15's fused runs
-N_OBS_PLAIN = 1_000
+N_OBS_PLAIN = 800
 OBS_PHASE_S = 60.0
 TEL_FIELDS = ("slow_hist", "lat_hist", "n_cold", "n_warm", "n_evict",
               "n_reject", "busy_time", "depth_time", "qlen_time",
@@ -5030,8 +5060,9 @@ SHARD_LAYERS = 2
 SHARD_STEPS = 2
 SHARD_LOSS_TOL = 2e-3
 SHARD_PARAM_TOL = 1e-3
-#: 21b: a request of phase 7's lengths, phase 7's dtype and phase 8's bound
-SHARD_PROMPT = CHECK_PROMPT
+#: 21b: a request of phase 7's prompt length and 32 decode steps, phase
+#: 7's dtype and phase 8's bound
+SHARD_PROMPT, SHARD_DECODE = CHECK_PROMPT, 32
 #: 21c: gemma-2b's prompt, decode steps, cache length and
 #: tests/test_distributed.py:172-202's bound
 SEQ_PROMPT, SEQ_STEPS, SEQ_LEN = 511, 4, 1024
@@ -5046,14 +5077,28 @@ MOE_AUX_TOL = 1e-3
 POD_STEPS = 3
 POD_TOL = 1e-6
 SHARD_PHASE_S = 30.0
+#: phase 22: the recurrent families at published widths, depth cut (the
+#: hybrid to 6 layers, so that its shared block runs once, as in 19b);
+#: phase 9's served prompt, 8 decode steps, f32 and phase 8's model bound,
+#: 21c's state bound; 22c: tests/test_distributed.py:25-67's loss bound
+#: and phase 19b's gradient bound scaled to each leaf
+RECURRENT_SHARDED = (("22a", "rwkv6-3b", 2), ("22b", "zamba2-2.7b", 6))
+REC_PROMPT, REC_STEPS = CHECK_PROMPT, 8
+REC_STATE_TOL = SEQ_TOL
+REC_LOSS_TOL = SHARD_LOSS_TOL
+REC_GRAD_TOL = 1e-3
+REC_PHASE_S = 15.0
 
 
 def shard_rank(rank, port, conn, dev="cuda", cfg_of=None):
-    """One rank of phase 21, in a spawned process: joins the gloo group,
-    imports the port, makes the (data 1 x model 2) mesh and probes gloo on
-    it (:func:`_probe_gloo`), says it is ready, and runs
-    :func:`sharded_checks` when the main process says go (``"stop"`` ends
-    it).  Top-level, so that spawn can run it."""
+    """One rank of phases 21 and 22, in a spawned process: joins the gloo
+    group, imports the port, makes the (data 1 x model 2) mesh and probes
+    gloo on it (:func:`_probe_gloo`), says it is ready, and runs
+    :func:`sharded_checks` when the main process says go, then
+    :func:`recurrent_checks` at the next go (``"stop"`` ends it).  Between
+    ready and the first go it builds phase 22's weights
+    (:func:`recurrent_weights`), beside the main process's phases 18-20.
+    Top-level, so that spawn can run it."""
     import datetime
     import traceback
     t0 = time.perf_counter()
@@ -5077,10 +5122,14 @@ def shard_rank(rank, port, conn, dev="cuda", cfg_of=None):
                               device_type=dev)
         _probe_gloo(torch, dist, sh, mesh, rank, dev)
         conn.send(("ready", time.perf_counter() - t0))
-        if conn.recv() != "go":
-            return
-        conn.send(("done", sharded_checks(torch, np, rank, conn, dev,
-                                          cfg_of or _published, mesh)))
+        cfg_of = cfg_of or _published
+        weights = recurrent_weights(torch, cfg_of, dev)
+        for checks, kw in ((sharded_checks, {}),
+                           (recurrent_checks, dict(weights=weights))):
+            if conn.recv() != "go":
+                return
+            conn.send(("done", checks(torch, np, rank, conn, dev, cfg_of,
+                                      mesh, **kw)))
     except BaseException:                                # noqa: BLE001
         conn.send(("error", traceback.format_exc()))
     finally:
@@ -5101,6 +5150,13 @@ def _allclose_excess(torch, got, want, tol):
     return float(((got.float() - want.float()).abs()
                   - tol * want.float().abs()).max()) if want.numel() \
         else -math.inf
+
+
+def _leaf_ratio(got, want, scale) -> float:
+    """max |got − want| over ``scale``, the whole leaf's max |value| (an
+    all-zero leaf holds only an all-zero ``got``)."""
+    gap = float((got - want).abs().max()) if want.numel() else 0.0
+    return gap / scale if scale else (0.0 if gap == 0 else math.inf)
 
 
 def _probe_gloo(torch, dist, sh, mesh, rank, dev):
@@ -5163,6 +5219,31 @@ def _probe_gloo(torch, dist, sh, mesh, rank, dev):
         named(what, fn)
 
 
+def _rank_helpers(torch, conn, dev, secs):
+    """A rank's ``stage(name)`` (tells the main process, and times the
+    stage before it into ``secs``), ``sync()``, ``free()`` and ``gen(seed)``
+    (a generator on ``dev``)."""
+    t_stage = [time.perf_counter(), None]
+
+    def stage(name):
+        if t_stage[1]:
+            secs[t_stage[1]] = time.perf_counter() - t_stage[0]
+        t_stage[:] = [time.perf_counter(), name]
+        conn.send(("stage", name))
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def free():
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+
+    def gen(seed=SHARD_SEED):
+        return torch.Generator(dev).manual_seed(seed)
+    return stage, sync, free, gen
+
+
 def sharded_checks(torch, np, rank, conn, dev, cfg_of, mesh):
     """Phase 21 on this rank: 21a-e, each sharded run beside rank 0's
     one-device run of the same code from the same weights.  Returns this
@@ -5187,24 +5268,7 @@ def sharded_checks(torch, np, rank, conn, dev, cfg_of, mesh):
                                             shard_train_state, value_and_grad)
     from repro_torch.training.tree import tree_leaves, unflatten_like
     out, secs = {}, {}
-    t_stage = [time.perf_counter(), None]
-
-    def stage(name):
-        if t_stage[1]:
-            secs[t_stage[1]] = time.perf_counter() - t_stage[0]
-        t_stage[:] = [time.perf_counter(), name]
-        conn.send(("stage", name))
-
-    def sync():
-        if dev == "cuda":
-            torch.cuda.synchronize()
-
-    def free():
-        if dev == "cuda":
-            torch.cuda.empty_cache()
-
-    def gen(seed=SHARD_SEED):
-        return torch.Generator(dev).manual_seed(seed)
+    stage, sync, free, gen = _rank_helpers(torch, conn, dev, secs)
 
     # 21a: the sharded train step
     stage("21a")
@@ -5267,7 +5331,7 @@ def sharded_checks(torch, np, rank, conn, dev, cfg_of, mesh):
     cfg = cfg_of("olmo-1b", n_layers=SHARD_LAYERS, attn_impl="pallas")
     model = build_model(cfg, dev)
     params = model.init(gen())
-    n = SHARD_PROMPT + N_NEW
+    n = SHARD_PROMPT + SHARD_DECODE
     toks = torch.as_tensor(np.random.default_rng(SHARD_SEED).integers(
         0, cfg.vocab, (1, n)), device=dev)
 
@@ -5462,6 +5526,182 @@ def sharded_checks(torch, np, rank, conn, dev, cfg_of, mesh):
     return out
 
 
+def recurrent_weights(torch, cfg_of, dev):
+    """Phase 22's configs and weights, built on ``dev`` from the seed
+    before the go, beside the main process's phases: ``{arch: (cfg,
+    params)}``.  On the card they come from the card's generator: with
+    these weights the f32 floor of 22c's rwkv6-3b gradients lies well
+    below REC_GRAD_TOL (``tools/recurrent_grad_floor.py``)."""
+    from repro_torch.models.transformer import build_model
+    built = {}
+    for _, arch, n_layers in RECURRENT_SHARDED:
+        cfg = cfg_of(arch, n_layers=n_layers, dtype="float32",
+                     attn_impl="pallas")
+        built[arch] = (cfg, build_model(cfg, dev).init(
+            torch.Generator(dev).manual_seed(SHARD_SEED)))
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return built
+
+
+def recurrent_checks(torch, np, rank, conn, dev, cfg_of, mesh, weights):
+    """Phase 22 on this rank: the sharded forward of the recurrent families
+    (22a rwkv6-3b, 22b zamba2-2.7b: a prefill and decode steps under
+    ``pallas``, against rank 0's one-device run of the same code from the
+    same weights; 22c both models' loss and gradients from those weights,
+    each rank's shards against its own one-device run's, so that no
+    gradient crosses gloo).  ``weights`` are :func:`recurrent_weights`'s;
+    this phase drops them.  Returns this rank's numbers (rank 0's hold
+    the forward's gaps, each rank its shards' gradient gaps)."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import lcg_batch, place
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.models.transformer import build_model
+    from repro_torch.training.train import value_and_grad
+    from repro_torch.training.tree import tree_leaves
+    out, secs = {}, {}
+    stage, sync, free, _ = _rank_helpers(torch, conn, dev, secs)
+    counters = _counters()
+    # each kernel's entry point noting the heads it was given (every one
+    # takes [B, T, H, ...] but decode, which takes [B, H, Dh])
+    heads = {}
+    entries = ((wkv_ops, "wkv6", "rwkv6_wkv", 2),
+               (ssd_ops, "ssd", "mamba2_ssd", 2),
+               (fa_ops, "flash_attention", "flash_attention", 2),
+               (da_ops, "decode_attention", "decode_attention", 1))
+    originals = [getattr(mod, fn) for mod, fn, _, _ in entries]
+
+    def noting(fn, kernel, dim):
+        def entry(*args, **kw):
+            heads.setdefault(kernel, set()).add(args[0].shape[dim])
+            if any(sh.is_dtensor(a) for a in args):
+                out.setdefault("dtensor_entries", []).append(kernel)
+            return fn(*args, **kw)
+        return entry
+
+    def launches():
+        return {k: c.launches for k, c in counters.items() if c.launches}
+
+    def zero_counts():
+        sync()
+        heads.clear()
+        for c in counters.values():
+            c.launches = 0
+        sh.ROUTED_CALLS.clear()
+
+    built = {}
+    for (mod, fn, kernel, dim), orig in zip(entries, originals):
+        setattr(mod, fn, noting(orig, kernel, dim))
+    try:
+        for tag, arch, n_layers in RECURRENT_SHARDED:
+            stage(tag)
+            cfg, params = weights.pop(arch)
+            model = build_model(cfg, dev)
+            n = REC_PROMPT + REC_STEPS
+            toks = torch.as_tensor(np.random.default_rng(SHARD_SEED).integers(
+                0, cfg.vocab, (1, n)), device=dev)
+            state = "wkv" if cfg.family == "rwkv6" else "ssm"
+
+            def serve(pp, cache):
+                lg, cache = model.prefill(pp, toks[:, :REC_PROMPT], cache)
+                outs = [sh.full(lg)]
+                for i in range(REC_PROMPT, n):
+                    lg, cache = model.decode_step(
+                        pp, toks[:, i:i + 1], cache,
+                        torch.full((1,), i, dtype=torch.int32, device=dev))
+                    outs.append(sh.full(lg))
+                return torch.cat(outs, dim=1).float(), sh.full(cache[state])
+
+            ctx = make_ctx(mesh, cfg)
+            with sh.sharding_ctx(ctx):
+                pd = sh.param_sharding_tree(params, model.param_specs(), mesh)
+                cspec = model.cache_specs(1, n)
+                cache = sh.param_sharding_tree(model.init_cache(1, n), cspec,
+                                               mesh)
+                zero_counts()
+                got, got_state = serve(pd, cache)
+                sync()
+                out[tag] = dict(
+                    launches=launches(),
+                    local_heads={k: sorted(v) for k, v in heads.items()},
+                    collectives=dict(sh.ROUTED_CALLS),
+                    cache_spec=repr(cspec[state]))
+            del cache
+            if rank == 0:
+                want, want_state = serve(params, model.init_cache(1, n))
+                out[tag].update(
+                    max_abs_err=float((got - want).abs().max()),
+                    max_abs_logit=float(want.abs().max()),
+                    finite=bool(got.isfinite().all()),
+                    shape=list(got.shape), vocab=cfg.vocab,
+                    state_gap=float((got_state - want_state).abs().max()),
+                    state_excess=_allclose_excess(torch, got_state,
+                                                  want_state, REC_STATE_TOL),
+                    max_abs_state=float(want_state.abs().max()))
+            built[arch] = (cfg, params, pd)
+            del got, got_state
+            free()
+    finally:
+        for (mod, fn, _, _), orig in zip(entries, originals):
+            setattr(mod, fn, orig)
+
+    # 22c: the loss and its gradients through ScanGrad on local heads (the
+    # config's attn_impl: the attention kernels refuse a gradient)
+    stage("22c")
+    out["22c"] = {}
+    for _, arch, n_layers in RECURRENT_SHARDED:
+        cfg, params, pd = built.pop(arch)
+        cfg = dataclasses.replace(cfg, attn_impl=cfg_of(arch).attn_impl)
+        model = build_model(cfg, dev)
+        tokens, labels = place(*lcg_batch(0, CHECK_BATCH, CHECK_SEQ,
+                                          cfg.vocab), device=dev)
+        t0 = time.perf_counter()
+        with sh.sharding_ctx(make_ctx(mesh, cfg)):
+            zero_counts()
+            with sh.plain_as_replicated():
+                loss, g = value_and_grad(model.loss, pd, tokens, labels)
+            loss = float(sh.full(loss))
+            sync()
+            res = dict(loss=loss, launches=launches(),
+                       collectives=dict(sh.ROUTED_CALLS))
+        t1 = time.perf_counter()
+        want_loss, want = value_and_grad(model.loss, params, tokens, labels)
+        sync()
+        t2 = time.perf_counter()
+        ratios = [_leaf_ratio(*_shard_pair(a, b), float(b.abs().max()))
+                  for a, b in zip(tree_leaves(g), tree_leaves(want))
+                  if b.numel()]
+        res.update(one_device=float(want_loss),
+                   loss_gap=abs(loss - float(want_loss)),
+                   grad_ratio=max(ratios), leaves=len(ratios),
+                   secs=dict(sharded=t1 - t0, one_device=t2 - t1,
+                             compare=time.perf_counter() - t2))
+        out["22c"][arch] = res
+        del params, pd, g, want
+        free()
+    stage("end")
+    out["secs"] = secs
+    return out
+
+
+def _shard_pair(got, full):
+    """This rank's shard of the leaf ``got`` and the slice of the full
+    tensor ``full`` that the shard holds (no communication; a plain leaf
+    and ``full`` as they are)."""
+    from repro_torch.distribution import sharding as sh
+    if not sh.is_dtensor(got):
+        return got, full
+    from torch.distributed.tensor import distribute_tensor
+    return got.to_local(), distribute_tensor(
+        full, got.device_mesh, got.placements, src_data_rank=None).to_local()
+
+
 @contextlib.contextmanager
 def shard_ranks(dev="cuda", cfg_of=None):
     """Phase 21's two rank processes, started before phase 18 so that
@@ -5494,6 +5734,38 @@ def shard_ranks(dev="cuda", cfg_of=None):
                 p.join()
 
 
+def _ranks_run(torch, ranks, phase, limit_s):
+    """Says go to the waiting ranks and returns each rank's result,
+    failing the phase, named by the stage it was in, where a rank fails,
+    dies or runs past four times ``limit_s``."""
+    procs, conns = ranks
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for c in conns:
+        c.send("go")
+    results, stage = [None] * SHARD_WORLD, ["go"] * SHARD_WORLD
+    deadline = time.perf_counter() + 4 * limit_s
+    while any(r is None for r in results):
+        for r, c in enumerate(conns):
+            if results[r] is not None:
+                continue
+            if c.poll(0.02):
+                kind, val = c.recv()
+                if kind == "stage":
+                    stage[r] = val
+                elif kind == "error":
+                    raise SmokeFailure(f"{phase}: rank {r} failed in "
+                                       f"{stage[r]}: {val[-3000:]}")
+                else:
+                    results[r] = val
+            elif not procs[r].is_alive():
+                raise SmokeFailure(f"{phase}: rank {r} died (exit "
+                                   f"{procs[r].exitcode}) in {stage[r]}")
+        check(time.perf_counter() < deadline,
+              f"{phase}: the ranks did not finish (stages {stage})")
+    return results
+
+
 def sharded_execution(torch, report, ranks):
     """Phase 21: the sharded paths on two ranks of the card (21a-e), each
     against the one-device run of the same code.  Returns the attention
@@ -5507,30 +5779,7 @@ def sharded_execution(torch, report, ranks):
         check(kind == "ready", f"21: rank {r} failed to start: {val}")
         ready.append(val)
     wait_s = time.perf_counter() - t_phase
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    for c in conns:
-        c.send("go")
-    results, stage = [None] * SHARD_WORLD, ["go"] * SHARD_WORLD
-    deadline = time.perf_counter() + 4 * SHARD_PHASE_S
-    while any(r is None for r in results):
-        for r, c in enumerate(conns):
-            if results[r] is not None:
-                continue
-            if c.poll(0.02):
-                kind, val = c.recv()
-                if kind == "stage":
-                    stage[r] = val
-                elif kind == "error":
-                    raise SmokeFailure(f"21: rank {r} failed in {stage[r]}: "
-                                       f"{val[-3000:]}")
-                else:
-                    results[r] = val
-            elif not procs[r].is_alive():
-                raise SmokeFailure(f"21: rank {r} died (exit "
-                                   f"{procs[r].exitcode}) in {stage[r]}")
-        check(time.perf_counter() < deadline,
-              f"21: the ranks did not finish (stages {stage})")
+    results = _ranks_run(torch, ranks, "21", SHARD_PHASE_S)
     r0 = results[0]
     a, b, c_, d, e = (r0[k] for k in ("21a", "21b", "21c", "21d", "21e"))
     log(f"21: the ranks were ready {['%.1f s' % s for s in ready]} after "
@@ -5561,20 +5810,21 @@ def sharded_execution(torch, report, ranks):
     launches = {k: sum(r["launches"][k] for r in results)
                 for k in ("flash_attention", "decode_attention")}
     log(f"21b: olmo-1b at published widths, {SHARD_LAYERS} layers, bf16, "
-        f"pallas: prefill of {SHARD_PROMPT} + {N_NEW} decode steps sharded "
+        f"pallas: prefill of {SHARD_PROMPT} + {SHARD_DECODE} decode steps "
+        f"sharded "
         f"against one device: max |Δ| {b['max_abs_err']:.4e}, max |logit| "
         f"{b['max_abs_logit']:.4f}, ratio {ratio:.3e} (bound {tol:g}); "
         f"launches a rank {[r['launches'] for r in results]}, the kernels' "
         f"local heads {[r['local_heads'] for r in results]}; DTensor's "
-        f"collectives over the prefill and {N_NEW} steps "
+        f"collectives over the prefill and {SHARD_DECODE} steps "
         f"{r0['collectives_21b']}")
-    check(b["finite"] and b["shape"] == [1, N_NEW + 1, b["vocab"]],
+    check(b["finite"] and b["shape"] == [1, SHARD_DECODE + 1, b["vocab"]],
           f"21b: logits {b}")
     check(ratio <= tol, f"21b: sharded != one device ({ratio:.3e})")
     heads = b["local_heads"]
     for r in results:
         check(r["launches"] == {"flash_attention": SHARD_LAYERS,
-                                "decode_attention": SHARD_LAYERS * N_NEW},
+                                "decode_attention": SHARD_LAYERS * SHARD_DECODE},
               f"21b: launches {r['launches']}")
         check(r["local_heads"] == {"flash_attention": [heads],
                                    "decode_attention": [heads]},
@@ -5618,6 +5868,92 @@ def sharded_execution(torch, report, ranks):
                              ranks=results, launches=launches)
     check(phase_s <= SHARD_PHASE_S, f"phase 21 took {phase_s:.1f} s (limit "
                                     f"{SHARD_PHASE_S:.0f} s)")
+    return launches
+
+
+def sharded_recurrent(torch, report, ranks):
+    """Phase 22: the sharded forward of rwkv6-3b and zamba2-2.7b on phase
+    21's two ranks (22a-c), each against the one-device run of the same
+    code.  Returns the kernels' launches of 22a and 22b's sharded runs,
+    summed over the ranks."""
+    t_phase = time.perf_counter()
+    results = _ranks_run(torch, ranks, "22", REC_PHASE_S)
+    r0 = results[0]
+    log(f"22: seconds a stage on rank 0 "
+        f"{ {k: round(v, 2) for k, v in r0['secs'].items()} }")
+    check(not any(r.get("dtensor_entries") for r in results),
+          f"22: a DTensor reached a kernel's entry point: "
+          f"{[r.get('dtensor_entries') for r in results]}")
+    tol = MODEL_TOL["float32"]
+    launches = {}
+    for tag, arch, n_layers in RECURRENT_SHARDED:
+        a = r0[tag]
+        cfg = _published(arch)
+        ratio = a["max_abs_err"] / a["max_abs_logit"]
+        if cfg.family == "rwkv6":
+            scan_heads = cfg.d_model // cfg.rwkv.head_size
+            want = {"rwkv6_wkv": n_layers}
+            want_heads = {"rwkv6_wkv": [scan_heads // SHARD_WORLD]}
+        else:
+            scan_heads = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+            n_attn = n_layers // cfg.hybrid_attn_every
+            want = {"mamba2_ssd": n_layers, "flash_attention": n_attn,
+                    "decode_attention": n_attn * REC_STEPS}
+            want_heads = {"mamba2_ssd": [scan_heads // SHARD_WORLD],
+                          "flash_attention": [cfg.n_heads // SHARD_WORLD],
+                          "decode_attention": [cfg.n_heads // SHARD_WORLD]}
+        log(f"{tag}: {arch} at published widths ({scan_heads} scan heads), "
+            f"{n_layers} layers, f32, pallas, (data 1 x model "
+            f"{SHARD_WORLD}): prefill of {REC_PROMPT} + {REC_STEPS} decode "
+            f"steps sharded against one device: max |Δ| "
+            f"{a['max_abs_err']:.4e}, max |logit| {a['max_abs_logit']:.4f}, "
+            f"ratio {ratio:.3e} (bound {tol:g}); the carried state "
+            f"{a['cache_spec']}: max |Δ| {a['state_gap']:.3e}, allclose "
+            f"excess {a['state_excess']:.3e} (bound {REC_STATE_TOL:g}), max "
+            f"|state| {a['max_abs_state']:.3f}; launches a rank "
+            f"{[r[tag]['launches'] for r in results]}, the kernels' local "
+            f"heads {[r[tag]['local_heads'] for r in results]}; DTensor's "
+            f"collectives {a['collectives']}")
+        check(a["finite"] and a["shape"] == [1, REC_STEPS + 1, a["vocab"]],
+              f"{tag}: logits {a}")
+        check(ratio <= tol, f"{tag}: sharded != one device ({ratio:.3e})")
+        check(a["state_excess"] <= REC_STATE_TOL,
+              f"{tag}: state gap {a['state_excess']}")
+        check("'model'" in a["cache_spec"],
+              f"{tag}: the state's heads are not split: {a['cache_spec']}")
+        for r in results:
+            check(r[tag]["launches"] == want,
+                  f"{tag}: launches {r[tag]['launches']}, expected {want}")
+            check(r[tag]["local_heads"] == want_heads,
+                  f"{tag}: the kernels saw heads {r[tag]['local_heads']}, "
+                  f"expected {want_heads}")
+            for k, v in r[tag]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    for _, arch, n_layers in RECURRENT_SHARDED:
+        c = r0["22c"][arch]
+        ratio = max(r["22c"][arch]["grad_ratio"] for r in results)
+        loss_gap = max(r["22c"][arch]["loss_gap"] for r in results)
+        log(f"22c: {arch}, {n_layers} layers, f32, a {CHECK_BATCH} x "
+            f"{CHECK_SEQ} batch: loss {c['loss']:.6f} against one device "
+            f"{c['one_device']:.6f} (gap {loss_gap:.3e}, bound "
+            f"{REC_LOSS_TOL:g}); the largest gradient gap over its leaf's "
+            f"max |value| {ratio:.3e} over {c['leaves']} leaves, each rank's "
+            f"shards (bound {REC_GRAD_TOL:g}); launches a rank (forward and "
+            f"remat recompute) "
+            f"{[r['22c'][arch]['launches'] for r in results]}; DTensor's "
+            f"collectives {c['collectives']}; seconds on rank 0 "
+            f"{ {k: round(v, 2) for k, v in c['secs'].items()} }")
+        check(loss_gap <= REC_LOSS_TOL, f"22c {arch}: loss gap {loss_gap}")
+        check(ratio <= REC_GRAD_TOL, f"22c {arch}: gradient gap {ratio}")
+        for r in results:
+            for k, v in r["22c"][arch]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 22: {phase_s:.1f} s")
+    report["sharded_recurrent"] = dict(phase_s=phase_s, ranks=results,
+                                       launches=launches)
+    check(phase_s <= REC_PHASE_S, f"phase 22 took {phase_s:.1f} s (limit "
+                                  f"{REC_PHASE_S:.0f} s)")
     return launches
 
 
@@ -5724,6 +6060,10 @@ def main() -> int:
                     oracle_launches = numpy_oracle(torch, np, report, oracle)
                 with Phase("21 sharded execution on two ranks", report):
                     shard_launches = sharded_execution(torch, report, ranks)
+                with Phase("22 the sharded recurrent forward", report):
+                    for k, v in sharded_recurrent(torch, report,
+                                                  ranks).items():
+                        shard_launches[k] = shard_launches.get(k, 0) + v
         total_s = time.perf_counter() - t_start
         check(total_s <= SCRIPT_S, f"the script took {total_s:.1f} s (limit "
                                    f"{SCRIPT_S:.0f} s)")
@@ -5765,8 +6105,10 @@ def main() -> int:
     # zamba2-2.7b's scans at T = 777, bf16; launches from the paths that
     # serve them (phases 7 and 18 for attention, phase 10 for the scans,
     # phase 18 for the launcher's rwkv-tiny), train them (phase 19b:
-    # the scans' forwards and remat recomputes) and serve sharded (phase
-    # 21b: attention on each rank's local heads); the error the largest of
+    # the scans' forwards and remat recomputes) and run sharded (phase
+    # 21b: attention on each rank's local heads; phase 22: the scans and
+    # zamba2's attention on local heads, its gradients' forwards and remat
+    # recomputes among them); the error the largest of
     # the headline shape's and, for attention, dbrx-132b's shapes (phase 18)
     for name, path, rows, n in (
             ("flash_attention", "flash_attention/kernel.py:63",

@@ -308,12 +308,29 @@ def shard(x, *logical: str | None):
     return redistribute(x, pspec(*logical), ctx.mesh)
 
 
-def to_local_as(x, spec):
+def to_local_as(x, spec, work=None):
     """This rank's shard of ``x`` laid out by the physical ``spec`` (the
-    entry of a manual region); without a context, ``x``."""
-    if _ctx.get() is None:
+    entry of a manual region); without a context, ``x``.
+
+    ``work`` is the spec of the region's work (its activations).  On a
+    mesh axis that ``work`` splits and ``spec`` does not, each rank uses
+    the whole of ``x`` on its own part of the work (a weight on its slice
+    of the batch, channels shared by its local heads), so the gradient a
+    rank takes back is a part of the whole: it leaves the region as
+    ``Partial`` and is summed over that axis."""
+    ctx = _ctx.get()
+    if ctx is None:
         return x
-    return redistribute(x, spec).to_local()
+    d = redistribute(x, spec)
+    split = {a for e in (work or ()) if e
+             for a in ((e,) if isinstance(e, str) else e)}
+    if not split:
+        return d.to_local()
+    from torch.distributed.tensor import Partial
+    names = ctx.mesh.mesh_dim_names
+    return d.to_local(grad_placements=[
+        Partial() if names[i] in split and not p.is_shard()
+        and ctx.mesh.size(i) > 1 else p for i, p in enumerate(d.placements)])
 
 
 def from_local_as(t, spec, shape=None):
@@ -336,6 +353,23 @@ def from_local_as(t, spec, shape=None):
     stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(t.contiguous(), mesh, pl, run_check=False,
                               shape=shape, stride=stride)
+
+
+def heads_over_model(n_heads: int) -> str | None:
+    """``"model"`` when ``n_heads`` split evenly over the heads axes (the
+    recurrent states' rule), else ``None``."""
+    ok = n_heads % max(axis_size("heads"), 1) == 0
+    return "model" if ok and axis_size("heads") > 1 else None
+
+
+def head_region(n_heads: int) -> tuple:
+    """``(batch, heads)``: the physical axes of a manual region on each
+    rank's local heads of ``n_heads`` (``heads`` is ``None`` where they do
+    not split: every rank then runs all of them); ``(None, None)`` without
+    a context."""
+    if _ctx.get() is None:
+        return None, None
+    return pspec("batch")[0], heads_over_model(n_heads)
 
 
 def axis_index(axes) -> int:

@@ -279,7 +279,9 @@ def _sdpa_sharded(cfg, q, k, v):
     q_spec = (b, None, hp if q_sh else None, None)
     kv_spec = (b, None, hp if kv_sh else None, None)
     ql = to_local_as(q, q_spec)
-    kl, vl = to_local_as(k, kv_spec), to_local_as(v, kv_spec)
+    # where the kv heads stay whole, each rank's query heads take a part of
+    # their gradient, summed over model on the way back
+    kl, vl = to_local_as(k, kv_spec, q_spec), to_local_as(v, kv_spec, q_spec)
     if q_sh and not kv_sh:
         n = ql.shape[2]
         lo = axis_index(phys("heads")) * n

@@ -10,12 +10,31 @@ Prefill and the full forward (T > 1) run the chunked scan through
 :func:`repro_torch.kernels.mamba2_ssd.ops.ssd`: the CUDA kernel on the
 card, its plain chunked form on the CPU.  Decode (T == 1) is the plain
 one-step recurrence with a rolling conv window, as in the reference.
+
+Under a sharding context (:mod:`repro_torch.distribution.sharding`) the
+projections are DTensor products.  ``in_proj``'s output columns ``[z |
+xbc | dt]`` are split over ``ff`` at no head boundary (zamba2-2.7b's
+10 448 columns in two halves cut inside ``xbc``), and the ``B``, ``C``
+channels are shared by every head, so the block gathers the projection
+whole over
+``model`` and runs its slices and the causal conv on full columns (the
+conv's carry stays whole, as the cache spec says).  The scan then runs in
+a manual region on each rank's local heads, where the reference
+constrains ``xin`` to heads: the rank's heads of ``xin``, ``Δ``, ``A``,
+``D`` and the carried state (laid out as the cache spec says), with
+``B`` and ``C`` whole.  The region closes with ``y`` split over ``d_in``
+on head boundaries; the gated RMSNorm, whose mean runs over all of
+``d_in``, is a DTensor reduction over that split (one all-reduce), and
+``out_proj``'s rows split the same way.  Where the heads do not divide
+the ``model`` axis every rank runs all of them.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distribution.sharding import (from_local_as, head_region,
+                                               shard, to_local_as, whole_dim)
 from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
 from repro_torch.models.layers import dense_init, randn
 
@@ -82,6 +101,19 @@ def ssd_step(x, dt_h, bvec, cvec, a, h):
     return y.to(x.dtype), h_new
 
 
+def _ssd_heads(chunk, x, dt_h, bmat, cmat, a, d_skip, h):
+    """The SSD scan and the ``D`` skip on the heads of ``x``
+    (``[B,T,H,P]``), ``dt_h``, ``a``, ``d_skip`` and the state ``h`` →
+    ``(y [B,T,H,P], h_out)``: all heads on one device, a rank's local heads
+    under a sharding context."""
+    if x.shape[1] == 1:
+        y, h_out = ssd_step(x[:, 0], dt_h[:, 0], bmat[:, 0], cmat[:, 0], a, h)
+        y = y[:, None]
+    else:
+        y, h_out = ssd_chunked(x, dt_h, bmat, cmat, a, h, chunk)
+    return y + x * d_skip.to(x.dtype)[None, None, :, None], h_out
+
+
 # ---------------------------------------------------------------------------
 # Block forward
 # ---------------------------------------------------------------------------
@@ -105,7 +137,7 @@ def mamba2_block(cfg, p, x, state: dict):
     N, P = s.d_state, s.head_dim
     B, T, D = x.shape
     dt = x.dtype
-    proj = x @ p["in_proj"].to(dt)
+    proj = whole_dim(x @ p["in_proj"].to(dt), -1)
     z = proj[..., :d_in]
     xbc = proj[..., d_in:d_in + d_in + 2 * N]
     dt_raw = proj[..., -H:]
@@ -116,18 +148,21 @@ def mamba2_block(cfg, p, x, state: dict):
     cmat = xbc[..., d_in + N:]
     dt_h = F.softplus(dt_raw.float() + p["dt_bias"].float())
     a = -torch.exp(p["a_log"].float())
-    if T == 1:
-        y, ssm = ssd_step(xin[:, 0], dt_h[:, 0], bmat[:, 0], cmat[:, 0], a,
-                          state["ssm"])
-        y = y[:, None]
-    else:
-        y, ssm = ssd_chunked(xin, dt_h, bmat, cmat, a, state["ssm"], s.chunk)
-    y = y + xin * p["d_skip"].to(dt)[None, None, :, None]
-    y = y.reshape(B, T, d_in)
+    # the reference constrains xin to ("batch", "seq", "heads"): the scan
+    # and the skip on each rank's local heads
+    b, h = head_region(H)
+    act, st = (b, None, h, None), (b, h, None, None)
+    y, ssm = _ssd_heads(
+        s.chunk, to_local_as(xin, act), to_local_as(dt_h, (b, None, h)),
+        *(to_local_as(m, (b, None, None), act) for m in (bmat, cmat)),
+        to_local_as(a, (h,), act), to_local_as(p["d_skip"], (h,), act),
+        to_local_as(state["ssm"], st))
+    y = from_local_as(y.reshape(*y.shape[:2], -1), (b, None, h))
+    ssm = from_local_as(ssm, st)
     # gated RMSNorm (Mamba-2): norm(y · silu(z))
     y = y * F.silu(z)
     yf = y.float()
     y = (yf * torch.rsqrt(torch.mean(yf * yf, -1, keepdim=True) + 1e-6)
          ).to(dt) * p["norm_scale"].to(dt)
     out = y @ p["out_proj"].to(dt)
-    return out, {"conv": conv_out, "ssm": ssm}
+    return shard(out, "batch", "seq", "embed"), {"conv": conv_out, "ssm": ssm}

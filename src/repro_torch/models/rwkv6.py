@@ -13,14 +13,26 @@ card, its plain chunked form on the CPU.  Decode (T == 1) is the plain
 one-step recurrence, as in the reference.
 
 State per layer: the token-shift carries of the time-mix and channel-mix
-and the ``[H, K, K]`` f32 WKV state.  The reference's ``shard`` calls
-have no meaning on one card and are left out.
+and the ``[H, K, K]`` f32 WKV state.
+
+Under a sharding context (:mod:`repro_torch.distribution.sharding`) the
+projections are DTensor products and the reference's constraints stand
+at its places.  Where the reference constrains ``r``, ``k``, ``v`` and
+``lw`` to heads, the port opens a manual region on each rank's local
+heads: the scan (the kernel sees plain local tensors), the per-head group
+norm and the gate run there, on the rank's slice of ``u``, of the norm's
+scale and bias and of the carried state (laid out as the cache spec
+says), and the region closes before ``wo``, whose rows split the same
+way.  Where the heads do not divide the ``model`` axis every rank runs
+all of them.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distribution.sharding import (from_local_as, head_region,
+                                               shard, to_local_as)
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.models.layers import dense_init, randn, rmsnorm
 
@@ -129,11 +141,34 @@ def _ddlerp(tm, x, x_prev):
     return x[None] + xx[None] * (tm["mu"].to(dt)[:, None, None] + delta)
 
 
+def _wkv_heads(K, r, k, v, lw, g, u, scale, bias, s, chunk):
+    """The WKV scan, its per-head group norm and the gate on the heads of
+    ``r``, ``k``, ``v``, ``lw``, ``g`` (``[B,T,H·K]``), ``u``, ``scale``,
+    ``bias`` (``[H·K]``) and the state ``s`` (``[B,H,K,K]`` f32) → ``(y
+    [B,T,H·K], s_out)``: all heads on one device, a rank's local heads
+    under a sharding context."""
+    B, T, HK = r.shape
+    dt = r.dtype
+    hs = (B, T, HK // K, K)
+    r_, k_, v_, lw_ = (a.reshape(hs) for a in (r, k, v, lw))
+    u = u.float().reshape(HK // K, K)
+    if T == 1:
+        y, s_out = wkv_step(r_[:, 0], k_[:, 0], v_[:, 0], lw_[:, 0], u, s)
+        y = y[:, None]
+    else:
+        y, s_out = wkv_chunked(r_, k_, v_, lw_, u, s, chunk)
+    y = y.reshape(hs)
+    mu = y.mean(-1, keepdim=True)
+    var = ((y - mu) ** 2).mean(-1, keepdim=True)
+    y = (y - mu) * torch.rsqrt(var + 64e-5)
+    y = y.reshape(B, T, HK) * scale.to(dt) + bias.to(dt)
+    return y.to(dt) * g, s_out
+
+
 def time_mix(cfg, tm, x, shift_in, wkv_in, chunk: int = 32):
     """x: ``[B,T,D]`` → ``(out, shift_out, wkv_out)``."""
-    B, T, D = x.shape
+    D = x.shape[2]
     K = cfg.rwkv.head_size
-    H = D // K
     dt = x.dtype
     xr, xk, xv, xw, xg = _ddlerp(tm, x, _shifted(x, shift_in))
     r = xr @ tm["wr"].to(dt)
@@ -145,23 +180,18 @@ def time_mix(cfg, tm, x, shift_in, wkv_in, chunk: int = 32):
         xw.float() @ tm["decay_w1"].float()) @ tm["decay_w2"].float()
     lw = -torch.exp(w_hat)                                 # log w ≤ 0
 
-    hs = (B, T, H, K)
-    r_, k_, v_, lw_ = (a.reshape(hs) for a in (r, k, v, lw))
-    u = tm["bonus"].float().reshape(H, K)
-    if T == 1:
-        y, s_out = wkv_step(r_[:, 0], k_[:, 0], v_[:, 0], lw_[:, 0], u,
-                            wkv_in)
-        y = y[:, None]
-    else:
-        y, s_out = wkv_chunked(r_, k_, v_, lw_, u, wkv_in, chunk)
-    # per-head group norm, then gate and output projection
-    y = y.reshape(B, T, H, K)
-    mu = y.mean(-1, keepdim=True)
-    var = ((y - mu) ** 2).mean(-1, keepdim=True)
-    y = (y - mu) * torch.rsqrt(var + 64e-5)
-    y = y.reshape(B, T, D) * tm["ln_scale"].to(dt) + tm["ln_bias"].to(dt)
-    out = (y.to(dt) * g) @ tm["wo"].to(dt)
-    return out, x[:, -1], s_out
+    # the reference constrains r, k, v, lw to ("batch", "seq", "heads"):
+    # the scan, the group norm and the gate on each rank's local heads
+    b, h = head_region(D // K)
+    act, st = (b, None, h), (b, h, None, None)
+    y, s_out = _wkv_heads(
+        K, *(to_local_as(a, act) for a in (r, k, v, lw, g)),
+        *(to_local_as(tm[n], (h,), act)
+          for n in ("bonus", "ln_scale", "ln_bias")),
+        to_local_as(wkv_in, st), chunk)
+    out = from_local_as(y, act) @ tm["wo"].to(dt)
+    return shard(out, "batch", "seq", "embed"), x[:, -1], \
+        from_local_as(s_out, st)
 
 
 def channel_mix(cfg, cm, x, shift_in):
@@ -170,10 +200,11 @@ def channel_mix(cfg, cm, x, shift_in):
     xx = _shifted(x, shift_in) - x
     xk = x + xx * cm["mu_k"].to(dt)
     xr = x + xx * cm["mu_r"].to(dt)
-    k = torch.square(torch.relu(xk @ cm["wk"].to(dt)))
+    k = torch.square(torch.relu(shard(xk @ cm["wk"].to(dt),
+                                      "batch", "seq", "ff")))
     kv = k @ cm["wv"].to(dt)
     r = torch.sigmoid(xr @ cm["wr"].to(dt))
-    return r * kv, x[:, -1]
+    return shard(r * kv, "batch", "seq", "embed"), x[:, -1]
 
 
 def rwkv_block(cfg, p, x, state: dict, chunk: int = 32):
@@ -182,7 +213,8 @@ def rwkv_block(cfg, p, x, state: dict, chunk: int = 32):
     h = rmsnorm(x, p["ln1"])
     att, tm_shift, wkv = time_mix(cfg, p["tm"], h, state["tm_shift"],
                                   state["wkv"], chunk)
-    x = x + att
+    x = shard(x + att, "batch", "act_seq", "embed")
     h = rmsnorm(x, p["ln2"])
     ff, cm_shift = channel_mix(cfg, p["cm"], h, state["cm_shift"])
-    return x + ff, {"tm_shift": tm_shift, "cm_shift": cm_shift, "wkv": wkv}
+    x = shard(x + ff, "batch", "act_seq", "embed")
+    return x, {"tm_shift": tm_shift, "cm_shift": cm_shift, "wkv": wkv}

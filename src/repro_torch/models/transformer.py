@@ -36,12 +36,13 @@ with a static layer index (the reference's unrolled mode): both
 ``layer_mode``s (``"scan"`` and ``"unroll"``) are that loop.  Under
 training each layer runs under ``cfg.remat`` (:func:`_remat`).
 
-Under a sharding context the dense and MoE families run sharded: the
-parameters and caches are DTensors laid out by their specs (or plain
-tensors, taken as replicated), the tokens are laid out by batch, and the
-reference's constraints stand at its places.  A sharded forward of
-``rwkv6`` and ``hybrid`` is not ported yet: it raises
-:class:`ShardedForwardNotPortedError` instead of running replicated.
+Under a sharding context every family runs sharded: the parameters and
+caches are DTensors laid out by their specs (or plain tensors, taken as
+replicated), the tokens are laid out by batch, and the reference's
+constraints stand at its places.  Attention, the MoE dispatch and the
+recurrent scans (``rwkv6``'s WKV, the hybrid's SSD) are manual regions
+on each rank's local heads or experts; ``prefill`` and ``decode_step``
+write a sharded cache on the shards that hold it.
 """
 from __future__ import annotations
 
@@ -53,11 +54,13 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch import NotPortedError
 from repro_torch.device import resolve_device
 from repro_torch.distribution.sharding import (Spec, axis_size, current_ctx,
-                                               phys, plain_as_replicated,
-                                               pspec, shard, sharding_ctx)
+                                               full, heads_over_model,
+                                               is_dtensor, phys,
+                                               plain_as_replicated, pspec,
+                                               shard, sharding_ctx, spec_of,
+                                               to_local_as)
 from repro_torch.kernels.autograd import wants_grad
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
@@ -82,10 +85,6 @@ class Model(NamedTuple):
     decode_step: Callable   # (params, tok[B,1], cache, pos[B]) -> (logits, cache)
     param_specs: Callable   # () -> tree of specs
     cache_specs: Callable   # (batch, max_len) -> tree of specs
-
-
-class ShardedForwardNotPortedError(NotPortedError):
-    """A family whose sharded forward the port does not have yet."""
 
 
 LAYER_MODES = ("scan", "unroll")
@@ -179,7 +178,8 @@ def shared_attn_block(cfg, sp, x, pos):
     q, k, v = attn._qkv(cfg, sp["attn"], h, pos)
     o = attn.sdpa(cfg, q, k, v)
     B, S = x.shape[:2]
-    x = x + o.reshape(B, S, cfg.q_dim) @ sp["attn"]["wo"].to(x.dtype)
+    x = x + attn.merge_heads(o, B, S, cfg.q_dim) @ \
+        sp["attn"]["wo"].to(x.dtype)
     x = x + mlp(cfg, sp["mlp"], rmsnorm(x, sp["ln2"]))
     return x, (k, v)
 
@@ -213,20 +213,14 @@ def build_model(cfg: ModelCfg, device=None, layer_mode: str = "scan"
     return _build_dense(cfg, dev)
 
 
-def _sharded(cfg, fn):
+def _sharded(fn):
     """``fn`` (a forward, loss, prefill or decode step) as it runs under a
     sharding context: inside
-    :func:`~repro_torch.distribution.sharding.plain_as_replicated`; for a
-    family without a sharded forward,
-    :class:`ShardedForwardNotPortedError`."""
+    :func:`~repro_torch.distribution.sharding.plain_as_replicated`."""
     @functools.wraps(fn)
     def run(*args):
         if current_ctx() is None:
             return fn(*args)
-        if cfg.family in ("rwkv6", "hybrid"):
-            raise ShardedForwardNotPortedError(
-                f"{cfg.name}: the sharded forward of the {cfg.family} family "
-                f"is not ported yet; run it outside a sharding context")
         with plain_as_replicated():
             return fn(*args)
     return run
@@ -234,10 +228,10 @@ def _sharded(cfg, fn):
 
 def _api(cfg, dev, init, forward, init_cache, prefill, decode_step, specs,
          cache_specs) -> Model:
-    forward = _sharded(cfg, forward)
-    return Model(cfg, dev, init, forward, _sharded(cfg, _loss(forward)),
-                 init_cache, _sharded(cfg, prefill),
-                 _sharded(cfg, decode_step), functools.partial(specs, cfg),
+    forward = _sharded(forward)
+    return Model(cfg, dev, init, forward, _sharded(_loss(forward)),
+                 init_cache, _sharded(prefill),
+                 _sharded(decode_step), functools.partial(specs, cfg),
                  functools.partial(cache_specs, cfg))
 
 
@@ -273,8 +267,14 @@ def _layer_state(state: dict, i: int) -> dict:
 
 
 def _write_state(state: dict, i: int, new: dict) -> None:
+    """Layer ``i``'s new state into ``state`` in place: a sharded cache on
+    the shards that hold it, each rank its own slice."""
     for k, v in new.items():
-        state[k][i].copy_(v)
+        if is_dtensor(state[k]):
+            state[k].to_local()[i].copy_(
+                to_local_as(v, spec_of(state[k])[1:]))
+        else:
+            state[k][i].copy_(full(v))
 
 
 # -- rematerialisation (training only) ---------------------------------------
@@ -503,8 +503,8 @@ def _build_hybrid(cfg: ModelCfg, dev: torch.device) -> Model:
 
         def shared(x, ai):
             x, (k, v) = shared_attn_block(cfg, params["shared"], x, pos)
-            cache["attn_k"][ai, :, :S] = k.to(cache["attn_k"].dtype)
-            cache["attn_v"][ai, :, :S] = v.to(cache["attn_v"].dtype)
+            attn.write_prefix(cache["attn_k"][ai], k)
+            attn.write_prefix(cache["attn_v"][ai], v)
             return x
 
         x = _run(params, _embed_in(cfg, params, tokens), state, shared,
@@ -626,16 +626,9 @@ def _rwkv_specs(cfg) -> dict:
             "final_norm": _sp(None)}
 
 
-def _heads_over_model(n_heads: int) -> str | None:
-    """``"model"`` when the heads split over the heads axes (the
-    recurrent states' rule)."""
-    ok = n_heads % max(axis_size("heads"), 1) == 0
-    return "model" if ok and axis_size("heads") > 1 else None
-
-
 def _rwkv_cache_specs(cfg, batch=None, max_len=None) -> dict:
     b = phys("batch")
-    h = _heads_over_model(cfg.d_model // cfg.rwkv.head_size)
+    h = heads_over_model(cfg.d_model // cfg.rwkv.head_size)
     return {"tm_shift": Spec(None, b, None), "cm_shift": Spec(None, b, None),
             "wkv": Spec(None, b, h, None, None)}
 
@@ -661,7 +654,7 @@ def _hybrid_cache_specs(cfg, batch=None, max_len=None) -> dict:
     kv_ok = _kv_ok(cfg)
     seq = phys("seq_kv") if kv_ok else phys("seq_kv", "seq_kv_tp")
     kv = phys("kv_heads") if kv_ok else None
-    h = _heads_over_model((cfg.ssm.expand * cfg.d_model) // cfg.ssm.head_dim)
+    h = heads_over_model((cfg.ssm.expand * cfg.d_model) // cfg.ssm.head_dim)
     return {"conv": Spec(None, b, None, None),
             "ssm": Spec(None, b, h, None, None),
             "attn_k": Spec(None, b, seq, kv, None),

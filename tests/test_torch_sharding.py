@@ -13,8 +13,7 @@ same ``shape`` and ``axis_names`` on the reference's side, whose
   leading ``None``; the caches keep the stacked layout);
 * ``launch/specs.py``'s ``meta`` shapes against ``jax.eval_shape`` and its
   input specs against the reference's;
-* the named errors: ``--mesh single`` on a one-process world, a sharded
-  forward of ``rwkv6`` and ``hybrid``.
+* the named errors: ``--mesh single`` on a one-process world.
 """
 import contextlib
 import dataclasses
@@ -23,7 +22,6 @@ import itertools
 import jax
 import jax.numpy as jnp
 import pytest
-import torch
 from jax.sharding import PartitionSpec as P
 
 from repro import configs as jconfigs
@@ -234,24 +232,6 @@ def test_compress_pods_needs_the_multi_pod_mesh(tmp_path):
     with pytest.raises(CompressedStepError):
         launcher.main(["--smoke", "--device", "cpu", "--compress-pods",
                        "--steps", "2", "--ckpt-dir", str(tmp_path)])
-
-
-@pytest.mark.parametrize("arch", ("rwkv6-3b", "zamba2-2.7b"))
-def test_sharded_recurrent_forward_raises(arch):
-    cfg = configs.get_smoke(arch)
-    model = ttr.build_model(cfg, "cpu")
-    params = model.init(torch.Generator().manual_seed(0))
-    tokens = torch.zeros((2, 8), dtype=torch.int64)
-    ctx = tmesh.make_ctx(tmesh.production_shape(), cfg)
-    with tsh.sharding_ctx(ctx):
-        for call in (lambda: model.forward(params, tokens),
-                     lambda: model.loss(params, tokens, tokens),
-                     lambda: model.prefill(params, tokens,
-                                           model.init_cache(2, 8))):
-            with pytest.raises(ttr.ShardedForwardNotPortedError):
-                call()
-    logits, _ = model.forward(params, tokens)        # unsharded: runs
-    assert logits.shape == (2, 8, cfg.vocab)
 
 
 def test_layer_modes():

@@ -22,13 +22,15 @@ def f32(name, jax_side=False):
     return dataclasses.replace(mod.get_smoke(name), dtype="float32")
 
 
-def ref_params(name, **kw):
-    """The reference's init (key 0) of ``name``'s f32 smoke config: (its
-    tree, the port's tree, the worker's arrays; a bf16 leaf crosses as
-    f32, which holds it exactly)."""
+def ref_params(name, jit=False, **kw):
+    """The reference's init (key 0) of ``name``'s f32 smoke config, run
+    eagerly or, with ``jit``, compiled (faster; other values from the same
+    key): (its tree, the port's tree, the worker's arrays; a bf16 leaf
+    crosses as f32, which holds it exactly)."""
     jcfg = dataclasses.replace(f32(name, True), **kw)
     with jax.enable_x64(False):
-        jp = jtr.build_model(jcfg).init(jax.random.key(0))
+        init = jtr.build_model(jcfg).init
+        jp = (jax.jit(init) if jit else init)(jax.random.key(0))
     tp = params_from_reference(dataclasses.replace(f32(name), **kw), jp,
                                "cpu")
     return jp, tp, {"p/" + "/".join(path): leaf.float().numpy()

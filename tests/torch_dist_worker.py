@@ -22,6 +22,8 @@ import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.distribution import sharding as sh
+from repro_torch.kernels.mamba2_ssd import ops as ssd_ops
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.launch.mesh import make_ctx, make_test_mesh
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -108,56 +110,79 @@ def _ctx(shape, axes, **rule_overrides):
                        pod_axis="pod" if multi else None)
 
 
-def train(data, out):
-    """3 AdamW steps of olmo-1b's smoke config (f32) on a (2, 2) mesh,
-    from the test's weights; rank 0 also runs the one-device step."""
-    cfg = f32("olmo-1b")
-    ocfg = OptCfg(lr=1e-2, warmup_steps=2, total_steps=10)
+def train(data, out, arch=None, key=""):
+    """The inputs' ``steps`` (else 3) AdamW steps of a smoke config (f32;
+    ``arch``, else the inputs' ``arch``, else olmo-1b; with ``fsdp`` on
+    where the inputs ask; at their ``lr``, else 1e-2) on a (2, 2) mesh
+    under ``make_ctx``, from the test's weights (``p/``, or ``p.<arch>/``
+    for a named ``arch``); rank 0 also runs the one-device steps.  The
+    outputs' names start with ``key``."""
+    prefix = "p/" if arch is None else f"p.{arch}/"
+    arch = arch or (str(data["arch"]) if "arch" in data else "olmo-1b")
+    cfg = dataclasses.replace(f32(arch),
+                              fsdp=bool(data.get("fsdp", False)))
+    ocfg = OptCfg(lr=float(data.get("lr", 1e-2)), warmup_steps=2,
+                  total_steps=10)
+    n_steps = int(data.get("steps", 3))
     tokens = torch.from_numpy(data["tokens"])
     labels = torch.from_numpy(data["labels"])
     model = build_model(cfg, "cpu")
-    params = load_params(model.init(torch.Generator().manual_seed(0)), data)
-    ctx = _ctx((2, 2), ("data", "model"))
+    params = load_params(model.init(torch.Generator().manual_seed(0)), data,
+                         prefix)
+    ctx = make_ctx(make_test_mesh((2, 2), ("data", "model"),
+                                  device_type="cpu"), cfg)
+    out[key + "fsdp"] = np.array(str(ctx.rules["fsdp"]))
     with sh.sharding_ctx(ctx):
         state = init_train_state(model, torch.Generator().manual_seed(0))
         state = shard_train_state(state._replace(params=params), model, ctx)
         placed = sorted({str(leaf.placements) for leaf in
                          tree_leaves(state.params)})
         step = build_train_step(model, ocfg)
-        for i in range(3):
+        for i in range(n_steps):
             state, m = step(state, tokens, labels)
-            out[f"loss{i}"] = np.float32(m["loss"])
-    out["placements"] = np.array(placed)
-    save_tree(out, "sharded/", state.params)
+            out[f"{key}loss{i}"] = np.float32(m["loss"])
+    out[key + "placements"] = np.array(placed)
+    save_tree(out, key + "sharded/", state.params)
     if dist.get_rank() == 0:
         s = init_train_state(model, torch.Generator().manual_seed(0))
         s = s._replace(params=params)
         step = build_train_step(model, ocfg)
-        for i in range(3):
+        for i in range(n_steps):
             s, m = step(s, tokens, labels)
-            out[f"single_loss{i}"] = np.float32(m["loss"])
-        save_tree(out, "single/", s.params)
+            out[f"{key}single_loss{i}"] = np.float32(m["loss"])
+        save_tree(out, key + "single/", s.params)
 
 
 def moe(data, out):
-    """``moe_ep`` on a (2, 2) mesh against ``moe_dense``, dbrx-132b's
-    smoke config with 4 experts, top 2, capacity factor 16."""
+    """``moe_ep`` on a (2, 2) mesh under ``make_ctx`` against
+    ``moe_dense``, dbrx-132b's smoke config with 4 experts, top 2,
+    capacity factor 16 (and ``fsdp`` on where the inputs ask: the expert
+    weights' ``d_model`` dim over ``data``, gathered before use; the
+    gathers counted), the weights laid out by the model's specs."""
     cfg = dataclasses.replace(
-        configs.get_smoke("dbrx-132b"),
+        configs.get_smoke("dbrx-132b"), fsdp=bool(data.get("fsdp", False)),
         moe=MoECfg(n_experts=4, top_k=2, d_ff_expert=64,
                    capacity_factor=16.0))
     like = moe_mod.init_moe(torch.Generator().manual_seed(0), cfg)
     p = load_params(like, data)
     x = torch.from_numpy(data["x"])
-    ctx = _ctx((2, 2), ("data", "model"))
+    ctx = make_ctx(make_test_mesh((2, 2), ("data", "model"),
+                                  device_type="cpu"), cfg)
+    gathers = []
+    gather0 = moe_mod._gather
+
+    def gather(w, axis, dim):
+        gathers.append(axis)
+        return gather0(w, axis, dim)
+
+    moe_mod._gather = gather
     with sh.sharding_ctx(ctx):
-        specs = {"router": sh.pspec(None, None),
-                 "w_gate": sh.pspec("expert", "fsdp", "expert_ff"),
-                 "w_in": sh.pspec("expert", "fsdp", "expert_ff"),
-                 "w_out": sh.pspec("expert", "expert_ff", "fsdp")}
+        specs = build_model(cfg, "meta").param_specs()["layers"][0]["mlp"]
         pd = sh.param_sharding_tree(p, specs, ctx.mesh)
+        out["w_in_placements"] = np.array(str(pd["w_in"].placements))
         with sh.plain_as_replicated():
             y, aux = moe_mod.moe_ep(cfg, pd, x)
+    out["gathers"] = np.array(gathers)
     out["y"] = sh.full(y).float().numpy()
     out["aux"] = np.float32(sh.full(aux))
     y_d, aux_d = moe_mod.moe_dense(cfg, p, x)
@@ -338,8 +363,127 @@ def mla(data, out):
     save_tree(out, "cache/", cache)
 
 
+def recurrent(data, out):
+    """For each of ``meshes`` (``data × model`` shapes over this world)
+    and its ``archs`` (comma-separated), the smoke configs in ``dtypes``
+    (``attn_impl="pallas"``, the kernels' plain versions here), parameters
+    and caches laid out by their specs: the full forward over ``toks``,
+    then a prefill of its first ``S`` tokens and a teacher-forced decode
+    step for each of the rest; the logits and the final cache, full on
+    every rank, and the heads each scan was given, under ``<mesh>/``."""
+    toks = torch.from_numpy(data["toks"])
+    B, n = toks.shape
+    S = int(data["S"])
+    seen = {}
+
+    def record(mod, name):
+        """The scan entry point ``mod.name`` noting the heads it was given
+        and whether any input was a DTensor."""
+        fn = getattr(mod, name)
+
+        def scan(*args, **kw):
+            seen.setdefault(name, set()).add(
+                (args[0].shape[2], any(sh.is_dtensor(a) for a in args)))
+            return fn(*args, **kw)
+        setattr(mod, name, scan)
+
+    record(wkv_ops, "wkv6")
+    record(ssd_ops, "ssd")
+    for shape, archs in zip(data["meshes"], data["mesh_archs"]):
+        shape = tuple(int(a) for a in shape)
+        mesh = make_test_mesh(shape, ("data", "model"), device_type="cpu")
+        tag = "x".join(map(str, shape)) + "/"
+        seen.clear()
+        for arch in str(archs).split(","):
+            for dtype in data["dtypes"]:
+                cfg = dataclasses.replace(configs.get_smoke(arch),
+                                          dtype=dtype, attn_impl="pallas")
+                model = build_model(cfg, "cpu")
+                params = load_params(
+                    model.init(torch.Generator().manual_seed(0)), data,
+                    f"p.{arch}/")
+                key = f"{tag}{arch}/{dtype}/"
+                with sh.sharding_ctx(make_ctx(mesh, cfg)):
+                    pd = sh.param_sharding_tree(params, model.param_specs(),
+                                                mesh)
+                    cspec = model.cache_specs(B, n)
+                    cache = sh.param_sharding_tree(model.init_cache(B, n),
+                                                   cspec, mesh)
+                    out[key + "forward"] = sh.full(
+                        model.forward(pd, toks)[0]).float().numpy()
+                    lg, cache = model.prefill(pd, toks[:, :S], cache)
+                    served = [sh.full(lg)]
+                    for i in range(S, n):
+                        lg, cache = model.decode_step(
+                            pd, toks[:, i:i + 1], cache,
+                            torch.full((B,), i, dtype=torch.int32))
+                        served.append(sh.full(lg))
+                out[key + "served"] = torch.cat(served, dim=1).float().numpy()
+                out[key + "cache_specs"] = np.array(
+                    [f"{k}: {v!r}" for k, v in sorted(cspec.items())])
+                save_tree(out, key + "cache/", cache)
+        for name, calls in seen.items():
+            out[f"{tag}scan/{name}"] = np.array(sorted(calls))
+
+
+def recurrent_train(data, out):
+    """For each of ``archs`` (comma-separated; smoke configs, f32): the
+    loss and gradients of one sharded ``value_and_grad`` on a (2, 2) mesh
+    under ``make_ctx``, parameters laid out by their specs (under
+    ``grad.<arch>/``, full on every rank), then :func:`train`'s AdamW
+    steps (under ``train.<arch>/``)."""
+    tokens = torch.from_numpy(data["tokens"])
+    labels = torch.from_numpy(data["labels"])
+    mesh = make_test_mesh((2, 2), ("data", "model"), device_type="cpu")
+    for arch in str(data["archs"]).split(","):
+        cfg = f32(arch)
+        model = build_model(cfg, "cpu")
+        params = load_params(model.init(torch.Generator().manual_seed(0)),
+                             data, f"p.{arch}/")
+        with sh.sharding_ctx(make_ctx(mesh, cfg)):
+            pd = sh.param_sharding_tree(params, model.param_specs(), mesh)
+            with sh.plain_as_replicated():
+                loss, g = value_and_grad(model.loss, pd, tokens, labels)
+            out[f"grad.{arch}/loss"] = np.float32(sh.full(loss))
+            save_tree(out, f"grad.{arch}/g/", g)
+        train(data, out, arch, f"train.{arch}/")
+
+
+def decode_rules(data, out):
+    """dbrx-132b's smoke config (f32, ``fsdp`` on): a prefill on one
+    device, then two decode steps on a (2, 2) mesh under ``make_ctx`` with
+    a decode ``shape_cfg`` (FSDP off, the expert weights' ff dim over
+    ``data``), parameters and cache laid out by their specs."""
+    cfg = dataclasses.replace(f32("dbrx-132b"), fsdp=True)
+    model = build_model(cfg, "cpu")
+    params = load_params(model.init(torch.Generator().manual_seed(0)), data)
+    toks = torch.from_numpy(data["toks"])
+    B, S = toks.shape
+    cache = model.init_cache(B, S + 2)
+    model.prefill(params, toks, cache)
+    mesh = make_test_mesh((2, 2), ("data", "model"), device_type="cpu")
+    ctx = make_ctx(mesh, cfg, configs.smoke_shape(configs.SHAPES[
+        "decode_32k"]))
+    out["rules"] = np.array([f"{k}={ctx.rules[k]}" for k in
+                             ("fsdp", "expert_ff", "act_seq", "seq_kv")])
+    with sh.sharding_ctx(ctx):
+        pd = sh.param_sharding_tree(params, model.param_specs(), mesh)
+        out["w_in_placements"] = np.array(str(
+            pd["layers"][0]["mlp"]["w_in"].placements))
+        cs = sh.param_sharding_tree(cache, model.cache_specs(B, S + 2), mesh)
+        outs = []
+        for i in range(2):
+            pos = torch.full((B,), S + i, dtype=torch.int32)
+            lg, cs = model.decode_step(pd, toks[:, i:i + 1], cs, pos)
+            outs.append(sh.full(lg))
+    out["logits"] = torch.cat(outs, dim=1).numpy()
+    save_tree(out, "cache/", cs)
+
+
 SCENARIOS = {f.__name__: f for f in (train, moe, compressed, remesh,
-                                     seqdecode, gqapad, serve, mla)}
+                                     seqdecode, gqapad, serve, mla,
+                                     recurrent, recurrent_train,
+                                     decode_rules)}
 
 
 def main(argv):
