@@ -347,7 +347,26 @@ non-zero):
     gradients on a 2 × 64 batch (``ScanGrad`` on local heads, remat as
     published), each rank's gradient shards against its own one-device
     run's: the loss within 2e-3, every leaf within 1e-3 × its max |value|;
-    DTensor's collectives counted; the phase ≤ 15 s.
+    DTensor's collectives counted; the phase ≤ 15 s;
+23. sharded MoE training on phase 21's two ranks, after phase 22: one
+    dbrx-132b MoE layer at published widths (d 6144, 16 experts top 4,
+    d_ff 10752), f32, 256 tokens, capacity factor 16 (21d's), the loss a
+    fixed projection of the output plus the router's aux: its gradients
+    through ``moe_ep`` on each rank's 8 local experts against the rank's
+    own one-device gradients from the same weights (one leaf at a time;
+    no gradient crosses gloo): every routing choice equal, no token
+    dropped, the loss within 2e-3, every leaf within 1e-3 × its max
+    |value|; DTensor's collectives counted; the phase ≤ 10 s;
+24. the dry-run census (``repro_torch.launch.dryrun``) on the host, in
+    four spawned processes of its own started before phase 21, beside
+    phases 21-23 (torch's fake process group, one world a process,
+    nothing allocated on any device): olmo-1b's
+    ``decode_32k`` at full depth on the 16 × 16 and 2 × 16 × 16 meshes and
+    dbrx-132b's ``train_4k`` through the two-point fit, each ``ok``, its
+    per-rank peak against the card's memory; the roofline's three terms
+    (``repro_torch.roofline.analysis``, the H100's data-sheet rates) of
+    19a's step on one device (a 1 × 1 world) beside 19a's measured ms, as
+    measured ÷ bound; the phase ≤ 20 s.
 
 TF32 is off for matrix products and cuDNN throughout.  The line before the
 last is ``{"kernels": [...]}``; the last line is
@@ -440,6 +459,8 @@ def environment(torch, report):
         f"{torch.cuda.device_count()} visible")
     check(cap == (9, 0), f"needs a Hopper card (9, 0), got {cap}")
     report["card"] = card
+    report["total_memory"] = torch.cuda.get_device_properties(0).total_memory
+    log(f"device 0 memory: {report['total_memory'] / 1e9:.2f} GB")
 
 
 def ptxas_resources(text: str) -> list[tuple[str, str, str]]:
@@ -5088,17 +5109,23 @@ REC_STATE_TOL = SEQ_TOL
 REC_LOSS_TOL = SHARD_LOSS_TOL
 REC_GRAD_TOL = 1e-3
 REC_PHASE_S = 15.0
+#: phase 23: one dbrx-132b MoE layer's gradients at published widths, f32,
+#: 21d's capacity factor; 22c's bounds
+MOE_GRAD_TOKENS = (1, 256)
+MOE_GRAD_TOL = REC_GRAD_TOL
+MOE_GRAD_PHASE_S = 10.0
 
 
 def shard_rank(rank, port, conn, dev="cuda", cfg_of=None):
-    """One rank of phases 21 and 22, in a spawned process: joins the gloo
+    """One rank of phases 21-23, in a spawned process: joins the gloo
     group, imports the port, makes the (data 1 x model 2) mesh and probes
     gloo on it (:func:`_probe_gloo`), says it is ready, and runs
     :func:`sharded_checks` when the main process says go, then
-    :func:`recurrent_checks` at the next go (``"stop"`` ends it).  Between
-    ready and the first go it builds phase 22's weights
-    (:func:`recurrent_weights`), beside the main process's phases 18-20.
-    Top-level, so that spawn can run it."""
+    :func:`recurrent_checks` and :func:`moe_grad_checks` at the next two
+    (``"stop"`` ends it).  Between ready and the first go it builds phase
+    22's weights (:func:`recurrent_weights`), beside the main process's
+    phases 18-20; they are dropped after phase 22.  Top-level, so that
+    spawn can run it."""
     import datetime
     import traceback
     t0 = time.perf_counter()
@@ -5123,13 +5150,16 @@ def shard_rank(rank, port, conn, dev="cuda", cfg_of=None):
         _probe_gloo(torch, dist, sh, mesh, rank, dev)
         conn.send(("ready", time.perf_counter() - t0))
         cfg_of = cfg_of or _published
-        weights = recurrent_weights(torch, cfg_of, dev)
-        for checks, kw in ((sharded_checks, {}),
-                           (recurrent_checks, dict(weights=weights))):
+        steps = [(sharded_checks, {}),
+                 (recurrent_checks, dict(weights=recurrent_weights(
+                     torch, cfg_of, dev))),
+                 (moe_grad_checks, {})]
+        for checks, kw in steps:
             if conn.recv() != "go":
                 return
-            conn.send(("done", checks(torch, np, rank, conn, dev, cfg_of,
-                                      mesh, **kw)))
+            done = checks(torch, np, rank, conn, dev, cfg_of, mesh, **kw)
+            kw.clear()
+            conn.send(("done", done))
     except BaseException:                                # noqa: BLE001
         conn.send(("error", traceback.format_exc()))
     finally:
@@ -5690,6 +5720,88 @@ def recurrent_checks(torch, np, rank, conn, dev, cfg_of, mesh, weights):
     return out
 
 
+def moe_grad_checks(torch, np, rank, conn, dev, cfg_of, mesh):
+    """Phase 23 on this rank: the loss (a fixed projection of one
+    dbrx-132b MoE layer's output plus its aux) and its gradients through
+    ``moe_ep`` on the rank's local experts, against the rank's own
+    one-device gradients from the same weights, one leaf at a time (each
+    rank's shards against the same slice of the whole leaf, so that no
+    gradient crosses gloo).  Returns this rank's numbers."""
+    import dataclasses
+
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import build_model
+    secs = {}
+    stage, sync, free, gen = _rank_helpers(torch, conn, dev, secs)
+    free()
+    stage("23 weights")
+    pub = cfg_of("dbrx-132b", dtype="float32", param_dtype="float32")
+    cfg = dataclasses.replace(pub, moe=dataclasses.replace(
+        pub.moe, capacity_factor=MOE_EP_CF))
+    p = moe_mod.init_moe(gen(SHARD_SEED + 3), cfg)
+    B, S = MOE_GRAD_TOKENS
+    D = cfg.d_model
+    x = torch.randn((B, S, D), generator=gen(SHARD_SEED + 4), device=dev)
+    proj = torch.randn((B, S, D), generator=gen(SHARD_SEED + 5), device=dev)
+    names = list(p)
+    ctx = make_ctx(mesh, cfg)
+    x_spec = sh.Spec(ctx.rules["batch"], ctx.tp_axis, None)
+    sync()
+    stage("23 sharded")
+    with sh.sharding_ctx(ctx):
+        specs = build_model(cfg, "meta").param_specs()["layers"][0]["mlp"]
+        pd = {k: sh.distribute(p[k], sh.NamedSharding(mesh, specs[k]))
+              .requires_grad_() for k in names}
+        sh.ROUTED_CALLS.clear()
+        with sh.plain_as_replicated():
+            y, aux = moe_mod.moe_ep(cfg, pd, x)
+            loss = (y * proj).sum() + aux
+            # each gradient in its parameter's layout (the router's comes
+            # back as a partial sum over the token axes)
+            grads = {k: g.redistribute(pd[k].device_mesh, pd[k].placements)
+                     for k, g in zip(names, torch.autograd.grad(
+                         loss, [pd[k] for k in names]))}
+        sync()
+        collectives = dict(sh.ROUTED_CALLS)
+        loss = float(sh.full(loss.detach()))
+        xl = sh.to_local_as(x, x_spec)
+    # the routing of this rank's tokens, by its own product with the router
+    T_l = xl.shape[0] * xl.shape[1]
+    _, idx_l, _ = moe_mod._router(cfg, p, xl.reshape(T_l, D))
+    counts = torch.bincount(idx_l.flatten(), minlength=cfg.moe.n_experts)
+    drops = int((counts - moe_mod._capacity(T_l, cfg)).clamp_min(0).sum())
+    del pd, y, aux
+    free()
+    stage("23 one device")
+    _, idx_d, _ = moe_mod._router(cfg, p, x.reshape(B * S, D))
+    lo = ctx.mesh.get_local_rank(ctx.tp_axis) * T_l // B
+    mine = idx_d.reshape(B, S, -1)[:, lo:lo + T_l // B].reshape(T_l, -1)
+    same = (idx_l.sort(-1).values == mine.sort(-1).values).all(-1)
+    ratios, one_loss = {}, None
+    for k in names:
+        leaf = p[k].requires_grad_()
+        y1, aux1 = moe_mod.moe(cfg, {**p, k: leaf}, x)
+        l1 = (y1 * proj).sum() + aux1
+        (g,) = torch.autograd.grad(l1, [leaf])
+        leaf.requires_grad_(False)
+        one_loss = float(l1.detach())
+        got, want = _shard_pair(grads[k], g)
+        ratios[k] = _leaf_ratio(got, want, float(g.abs().max()))
+        del y1, aux1, l1, g, got, want
+        free()
+    sync()
+    stage("end")
+    return {"23": dict(loss=loss, one_device=one_loss,
+                       loss_gap=abs(loss - one_loss), ratios=ratios,
+                       flips=int((~same).sum()), tokens=T_l, drops=drops,
+                       capacity=moe_mod._capacity(T_l, cfg),
+                       local_experts=int(grads["w_in"].to_local().shape[0]),
+                       collectives=collectives),
+            "secs": secs}
+
+
 def _shard_pair(got, full):
     """This rank's shard of the leaf ``got`` and the slice of the full
     tensor ``full`` that the shard holds (no communication; a plain leaf
@@ -5957,6 +6069,156 @@ def sharded_recurrent(torch, report, ranks):
     return launches
 
 
+def sharded_moe_grads(torch, report, ranks):
+    """Phase 23: one dbrx-132b MoE layer's gradients through ``moe_ep`` on
+    phase 21's two ranks against each rank's one-device gradients."""
+    t_phase = time.perf_counter()
+    results = _ranks_run(torch, ranks, "23", MOE_GRAD_PHASE_S)
+    for r, res in enumerate(results):
+        c = res["23"]
+        worst = max(c["ratios"], key=c["ratios"].get)
+        ratios = {k: float(f"{v:.3e}") for k, v in c["ratios"].items()}
+        log(f"23: rank {r}: dbrx-132b's MoE layer at published widths, f32, "
+            f"{c['local_experts']} local experts, {c['tokens']} of its "
+            f"tokens (capacity {c['capacity']}, {c['drops']} dropped), "
+            f"{c['flips']} routing flips; loss {c['loss']:.6f} against one "
+            f"device {c['one_device']:.6f} (gap {c['loss_gap']:.3e}, bound "
+            f"{REC_LOSS_TOL:g}); the gradient gap over each leaf's max "
+            f"|value| {ratios} (worst {worst}, bound {MOE_GRAD_TOL:g}); "
+            f"DTensor's "
+            f"collectives {c['collectives']}; seconds "
+            f"{ {k: round(v, 2) for k, v in res['secs'].items()} }")
+        check(c["flips"] == 0, f"23: rank {r}: {c['flips']} routing flips")
+        check(c["drops"] == 0, f"23: rank {r}: {c['drops']} tokens dropped")
+        check(c["local_experts"] == 16 // SHARD_WORLD,
+              f"23: rank {r} holds {c['local_experts']} experts")
+        check(c["loss_gap"] <= REC_LOSS_TOL,
+              f"23: rank {r}: loss gap {c['loss_gap']}")
+        check(c["ratios"][worst] <= MOE_GRAD_TOL,
+              f"23: rank {r}: gradient gap {c['ratios']}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 23: {phase_s:.1f} s")
+    report["sharded_moe_grads"] = dict(phase_s=phase_s, ranks=results)
+    check(phase_s <= MOE_GRAD_PHASE_S, f"phase 23 took {phase_s:.1f} s "
+                                       f"(limit {MOE_GRAD_PHASE_S:.0f} s)")
+
+
+#: phase 24: the census's work, split over four processes: olmo-1b's
+#: decode at full depth on both meshes; dbrx-132b's train step traced at 1
+#: and at 2 layers (the two-point fit's traces, combined here) and its
+#: arguments at full depth; 19a's step on one device
+CENSUS_FIT = ("dbrx-132b", "train_4k", False)
+CENSUS_JOBS = ((("olmo-1b", "decode_32k", False, 16),
+                ("olmo-1b", "decode_32k", True, 16)),
+               ((*CENSUS_FIT, 1),), ((*CENSUS_FIT, 2), "args"), ("19a",))
+CENSUS_PHASE_S = 20.0
+
+
+def census_job(cells) -> list:
+    """Phase 24's work in a spawned process of its own (a fake world
+    cannot share a process with a real one): each cell's census row, at
+    the depth it names; for ``"19a"`` the census of phase 19a's step on
+    one device; for ``"args"`` the fitted cell's arguments at full depth.
+    Top-level, so that spawn can run it."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeCfg
+    from repro_torch.launch import dryrun
+    rows = []
+    for cell in cells:
+        if cell == "19a":
+            rows.append(dryrun.run_one_device(
+                configs.get(TRAIN_ARCH),
+                ShapeCfg("19a", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                microbatches=TRAIN_MICRO).row())
+        elif cell == "args":
+            arch, shape, multi = CENSUS_FIT
+            rows.append(dryrun.arg_census(arch, shape, multi_pod=multi))
+        else:
+            arch, shape, multi, n_layers = cell
+            rows.append(dryrun.run_cell(arch, shape, multi_pod=multi,
+                                        n_layers=n_layers).row())
+    return rows
+
+
+@contextlib.contextmanager
+def census_jobs():
+    """Phase 24's processes, started before phase 21 so that the census's
+    host work runs beside phases 21-23 (whose work is on the card and in
+    gloo); yields ``(their start time, the pending results)``."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(len(CENSUS_JOBS))
+    try:
+        yield time.perf_counter(), pool.map_async(census_job, CENSUS_JOBS)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def census(report, pending):
+    """Phase 24: the dry-run census on the host beside the card's numbers
+    (each cell ok and its per-rank peak against the card's memory; 19a's
+    measured step against the roofline's bound of its work).  ``pending``
+    is :func:`census_jobs`'s."""
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import fitted
+    from repro_torch.roofline import analysis as roof
+    t_phase = time.perf_counter()
+    t_start, results = pending
+    results.wait(4 * CENSUS_PHASE_S)
+    check(results.ready(), "24: the census did not finish")
+    (s16, s512), (one_l,), (two_l, args), (one,) = results.get()
+    census_s = time.perf_counter() - t_start
+    # the fitted cell: its traces at 1 and 2 layers to the full depth
+    full = configs.get(CENSUS_FIT[0]).n_layers
+    rows = [s16, s512, dict(two_l, **fitted(one_l, two_l, 1, full, args),
+                            n_layers=full,
+                            seconds=one_l["seconds"] + two_l["seconds"]),
+            one]
+    total = report["total_memory"]
+    for r in rows:
+        c = r["collectives"]
+        log(f"24: {r['arch']} {r['shape']} on {r['mesh']} ({r['n_layers']} "
+            f"layers; {r['seconds']:.1f} s of host time): {r['status']} "
+            f"{r['reason'][:200]}; a rank's {r['flops']:.4e} FLOPs, "
+            f"{r['bytes_accessed']:.4e} bytes, peak "
+            f"{r['peak_memory_bytes'] / 1e9:.2f} GB (arguments "
+            f"{r['arg_bytes'] / 1e9:.2f}, parameters "
+            f"{r['param_bytes'] / 1e9:.3f}) against the card's "
+            f"{total / 1e9:.2f} GB; collectives "
+            f"{c.get('total', 0) / 1e6:.3f} MB "
+            f"({c.get('cross_node', 0) / 1e6:.3f} across nodes, "
+            f"{c.get('cross_pod', 0) / 1e6:.3f} across pods)")
+        check(r["status"] == "ok", f"24: {r['arch']} {r['shape']} "
+                                   f"{r['mesh']}: {r['reason']}")
+        check(r["flops"] > 0 and r["peak_memory_bytes"] > 0, f"24: {r}")
+    t_comp, t_mem = (one["flops"] / roof.PEAK_FLOPS,
+                     one["bytes_accessed"] / roof.HBM_BW)
+    bound = max(t_comp, t_mem)
+    ms = report["train_full_width"]["ms_per_step"]
+    log(f"24: 19a's step on one device ({TRAIN_ARCH}, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} in {TRAIN_MICRO} microbatches, {one['n_layers']} "
+        f"layers): compute {t_comp * 1e3:.3f} ms, memory "
+        f"{t_mem * 1e3:.3f} ms, collective 0 ms (one device; H100 "
+        f"data-sheet rates) -> bound {bound * 1e3:.3f} ms by "
+        f"{'bytes' if t_mem >= t_comp else 'operations'}; measured in 19a "
+        f"{ms:.1f} ms, {ms / 1e3 / bound:.2f} x the bound; the census's "
+        f"peak {one['peak_memory_bytes'] / 1e9:.2f} GB against 19a's "
+        f"{report['train_full_width']['max_memory_allocated_gb']:.2f} GB")
+    phase_s = time.perf_counter() - t_phase
+    log(f"phase 24: {phase_s:.1f} s (the census's processes ran "
+        f"{census_s:.1f} s from their start before phase 21 to their last "
+        f"result)")
+    report["census"] = dict(phase_s=phase_s, census_s=census_s, rows=rows,
+                            train_19a=dict(
+                                t_compute_ms=t_comp * 1e3,
+                                t_memory_ms=t_mem * 1e3,
+                                bound_ms=bound * 1e3, measured_ms=ms,
+                                ratio=ms / 1e3 / bound))
+    check(phase_s <= CENSUS_PHASE_S, f"phase 24 took {phase_s:.1f} s "
+                                     f"(limit {CENSUS_PHASE_S:.0f} s)")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run it from the root of a checkout of the repo",
@@ -6058,12 +6320,19 @@ def main() -> int:
                                                   train_tmp, train_jobs)
                 with Phase("20 the numpy oracle against the card", report):
                     oracle_launches = numpy_oracle(torch, np, report, oracle)
-                with Phase("21 sharded execution on two ranks", report):
-                    shard_launches = sharded_execution(torch, report, ranks)
-                with Phase("22 the sharded recurrent forward", report):
-                    for k, v in sharded_recurrent(torch, report,
-                                                  ranks).items():
-                        shard_launches[k] = shard_launches.get(k, 0) + v
+                # phase 24's census runs on the host beside phases 21-23
+                with census_jobs() as pending:
+                    with Phase("21 sharded execution on two ranks", report):
+                        shard_launches = sharded_execution(torch, report,
+                                                           ranks)
+                    with Phase("22 the sharded recurrent forward", report):
+                        for k, v in sharded_recurrent(torch, report,
+                                                      ranks).items():
+                            shard_launches[k] = shard_launches.get(k, 0) + v
+                    with Phase("23 sharded MoE training", report):
+                        sharded_moe_grads(torch, report, ranks)
+                    with Phase("24 the dry-run census on the host", report):
+                        census(report, pending)
         total_s = time.perf_counter() - t_start
         check(total_s <= SCRIPT_S, f"the script took {total_s:.1f} s (limit "
                                    f"{SCRIPT_S:.0f} s)")

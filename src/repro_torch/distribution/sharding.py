@@ -145,39 +145,6 @@ class Spec(tuple):
         return f"Spec{tuple.__repr__(self)}"
 
 
-@contextlib.contextmanager
-def plain_as_replicated():
-    """Inside: a plain tensor met beside a DTensor (a position index, a
-    mask, a learning rate, an unsharded weight) is taken as the same full
-    value on every rank (torch's ``implicit_replication``).  Unlike
-    torch's context, which resets the switch to off when it ends, this one
-    restores what it found, so it nests, and it can be entered again in
-    the autograd engine's thread, where a rematerialised layer
-    recomputes."""
-    from torch.distributed.tensor import DTensor
-    disp = DTensor._op_dispatcher
-    prev = disp._allow_implicit_replication
-    disp._allow_implicit_replication = True
-    try:
-        yield
-    finally:
-        disp._allow_implicit_replication = prev
-
-
-class Spec(tuple):
-    """A spec: one entry a tensor dim, each ``None``, a mesh axis name or a
-    tuple of them (the reference's ``PartitionSpec``).  A leaf of the
-    port's trees (:mod:`repro_torch.training.tree`), not a sequence."""
-
-    _tree_leaf = True
-
-    def __new__(cls, *entries):
-        return super().__new__(cls, entries)
-
-    def __repr__(self) -> str:
-        return f"Spec{tuple.__repr__(self)}"
-
-
 _replicating: contextvars.ContextVar[bool] = contextvars.ContextVar(
     "repro_torch_plain_as_replicated", default=False)
 
@@ -325,12 +292,34 @@ def to_local_as(x, spec, work=None):
     split = {a for e in (work or ()) if e
              for a in ((e,) if isinstance(e, str) else e)}
     if not split:
-        return d.to_local()
+        return _contiguous_grad(d.to_local())
     from torch.distributed.tensor import Partial
     names = ctx.mesh.mesh_dim_names
-    return d.to_local(grad_placements=[
+    return _contiguous_grad(d.to_local(grad_placements=[
         Partial() if names[i] in split and not p.is_shard()
-        and ctx.mesh.size(i) > 1 else p for i, p in enumerate(d.placements)])
+        and ctx.mesh.size(i) > 1 else p
+        for i, p in enumerate(d.placements)]))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _contiguous_grad(t):
+    """``t``, with the gradient a region computes for it made contiguous
+    before it leaves the region: ``to_local``'s backward wraps the local
+    gradient as the DTensor's shard as it is, and DTensor views a shard by
+    its global layout (a transposed local gradient failed the ``view`` in
+    the backward of the projection before it)."""
+    return _ContiguousGrad.apply(t) if t.requires_grad else t
 
 
 def from_local_as(t, spec, shape=None):

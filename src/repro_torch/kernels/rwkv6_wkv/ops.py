@@ -16,14 +16,20 @@ from . import kernel
 from .ref import wkv6_chunked_ref
 
 
+#: devices whose tensors take the plain chunked form: the CPU, and
+#: ``meta``, whose tensors hold only shapes (the dry-run census traces
+#: the scan there; nothing runs)
+_PLAIN = ("cpu", "meta")
+
+
 def wkv6(r, k, v, lw, u, s0=None, *, chunk: int = 32):
     """r, k, v, lw: ``[B,T,H,K]``; u: ``[H,K]``; s0: ``[B,H,K,K]`` f32 or
     ``None`` → ``(y [B,T,H,K], state [B,H,K,K])``.
 
-    CPU tensors take the plain chunked form; CUDA tensors launch the
+    CPU and meta tensors take the plain chunked form; CUDA tensors launch the
     kernel, which raises on anything it does not take.
     """
-    forward = wkv6_chunked_ref if r.device.type == "cpu" else kernel.wkv6
+    forward = wkv6_chunked_ref if r.device.type in _PLAIN else kernel.wkv6
     if wants_grad(r, k, v, lw, u, s0):
         return ScanGrad.apply(forward, wkv6_chunked_ref, chunk, r, k, v, lw,
                               u, s0)

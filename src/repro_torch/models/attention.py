@@ -59,7 +59,7 @@ from repro_torch.distribution.sharding import (all_reduce, axis_index,
                                                from_local_as, is_dtensor,
                                                n_shards, phys, pspec, shard,
                                                spec_of, to_local_as,
-                                               whole_dim)
+                                               tp_size, whole_dim)
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import apply_rope, dense_init, rmsnorm, zeros
@@ -105,10 +105,16 @@ def split_heads(x, *shape):
 
 
 def merge_heads(o, *shape):
-    """``o`` ``[..., H, Dh]`` → ``shape`` ``[..., H·Dh]``, its heads
-    gathered first where they are split unevenly."""
-    if o.shape[-2] % n_shards(o, -2):
-        o = whole_dim(o, -2)
+    """``o`` ``[..., H, Dh]`` → ``shape`` ``[..., H·Dh]``.  Where ``H``
+    does not split evenly over the model axis (the heads kept whole, or
+    split unevenly), the heads are gathered and merged on each rank's own
+    tensor: the gradient then comes back whole over the merged dim, which
+    DTensor could not unflatten into heads if it came back split over
+    model without whole heads in each piece."""
+    if is_dtensor(o) and o.shape[-2] % tp_size():
+        spec = (*spec_of(o)[:-2], None, None)
+        ol = to_local_as(o, spec)
+        return from_local_as(ol.reshape(*ol.shape[:-2], -1), spec[:-1])
     return o.reshape(*shape)
 
 

@@ -122,11 +122,10 @@ def sinusoidal_at(pos: torch.Tensor, d_model: int) -> torch.Tensor:
     dim = torch.arange(0, d_model, 2, dtype=torch.float32,
                        device=pos.device)[None, :]
     ang = pos[:, None].float() / torch.pow(10000.0, dim / d_model)
-    pe = torch.zeros((pos.shape[0], d_model), dtype=torch.float32,
-                     device=pos.device)
-    pe[:, 0::2] = torch.sin(ang)
-    pe[:, 1::2] = torch.cos(ang)
-    return pe
+    # interleaved by a stack, not written into a buffer: ``pos`` may be a
+    # DTensor (a decode step's positions split over the batch)
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(
+        pos.shape[0], d_model)
 
 
 def sinusoidal_pe(seq: int, d_model: int, offset: int = 0, device=None
@@ -196,8 +195,10 @@ def embed(cfg, p: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def lm_logits(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The logits of ``x`` ``[B, S, D]``, its sequence gathered first
+    where a sequence-parallel residual split it (a no-op otherwise)."""
     w = p["tok"].T if cfg.tie_embeddings else p["lm_head"]
-    logits = x @ w.to(x.dtype)
+    logits = shard(x, "batch", "seq", "embed") @ w.to(x.dtype)
     if cfg.logit_softcap > 0.0:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c

@@ -118,17 +118,24 @@ def moe_dense(cfg, p, x: torch.Tensor):
         tp = ctx.tp_axis
         M = mesh_axes(ctx.mesh)[tp]
         ep = tp if e.n_experts % M == 0 else None
-        xf = to_local_as(x, (None, None, None)).reshape(B * S, D)
+        # with the experts split, each rank's gradient of the tokens and
+        # the router is its experts' share (and 1 / M of the aux's)
+        work = (ep,)
+        xf = to_local_as(x, (None, None, None), work).reshape(B * S, D)
         gates, idx, aux = _router(
-            cfg, {"router": to_local_as(p["router"], (None, None))}, xf)
+            cfg, {"router": to_local_as(p["router"], (None, None), work)},
+            xf)
         wl = {k: to_local_as(p[k], (ep, None, None))
               for k in ("w_gate", "w_in", "w_out")}
         lo = (ctx.mesh.get_local_rank(tp) * (e.n_experts // M) if ep
               else 0)
         y = _experts_dense(cfg, wl, xf, gates, idx, lo)
         if ep:
-            y = dnn.all_reduce(y, group=ctx.mesh.get_group(tp))
+            group = ctx.mesh.get_group(tp)
+            y = _SumShares.apply(y, group)
+            aux = _RankMean.apply(aux, (group,))
         y = from_local_as(y.reshape(B, S, D), (None, None, None))
+        aux = from_local_as(aux, ())
     if e.n_shared > 0:
         y = y + _shared_mlp(cfg, p, x)
     return shard(y, "batch", "seq", "embed"), aux
@@ -140,11 +147,38 @@ def _capacity(t_local: int, cfg) -> int:
     return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
 
 
+class _AllGather(torch.autograd.Function):
+    """The shards of ``group`` concatenated along ``dim``; the backward
+    sums each shard's gradient over the group back to its owner (a
+    reduce-scatter).  torch's ``distributed.nn`` all-gather takes its
+    backward's group ranks for global ranks over gloo, which fails on any
+    group but the world."""
+
+    @staticmethod
+    def forward(ctx, w, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n = dist.get_world_size(group)
+        w0 = w.movedim(dim, 0).contiguous()
+        out = w0.new_empty((n * w0.shape[0], *w0.shape[1:]))
+        dist.all_gather_into_tensor(out, w0, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        g0 = g.movedim(ctx.dim, 0).contiguous()
+        out = g0.new_empty((g0.shape[0] // n, *g0.shape[1:]))
+        dist.reduce_scatter_tensor(out, g0, group=ctx.group)
+        return out.movedim(0, ctx.dim), None, None
+
+
 def _gather(w, axis: str, dim: int):
     """The FSDP all-gather of an expert weight's shards over ``axis``
-    along ``dim`` (differentiable)."""
+    along ``dim`` (differentiable; ``w`` itself on an axis of size 1)."""
     group = current_ctx().mesh.get_group(axis)
-    return torch.cat(dnn.all_gather(w.contiguous(), group=group), dim=dim)
+    if dist.get_world_size(group) == 1:
+        return w
+    return _AllGather.apply(w, group, dim)
 
 
 def _all_to_all(x, group):
@@ -152,6 +186,43 @@ def _all_to_all(x, group):
     ``group``; the blocks received, in rank order (differentiable)."""
     return dnn.all_to_all_single(torch.empty_like(x), x.contiguous(),
                                  group=group)
+
+
+class _SumShares(torch.autograd.Function):
+    """The sum over ``group`` of each rank's share of a value.  The sum
+    leaves the region replicated, so each share's gradient is the
+    replicated cotangent itself: the backward sends nothing (an all-reduce
+    there would count it once a rank)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _RankMean(torch.autograd.Function):
+    """The mean over ``groups`` of a value each rank holds (the
+    reference's ``pmean``).  It leaves the region replicated, so each
+    rank's value takes ``1 / n`` of the replicated cotangent, with no
+    collective."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        t = t.clone()
+        ctx.n = 1
+        for g in groups:
+            dist.all_reduce(t, group=g)
+            ctx.n *= dist.get_world_size(g)
+        return t / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
 
 
 def moe_ep_local(cfg, p, xl, M: int, group, aux_groups=()):
@@ -166,8 +237,8 @@ def moe_ep_local(cfg, p, xl, M: int, group, aux_groups=()):
     T = Bl * Sl
     xf = xl.reshape(T, D)
     gates, idx, aux = _router(cfg, p, xf)
-    for g in aux_groups:
-        aux = dnn.all_reduce(aux, group=g) / dist.get_world_size(g)
+    if aux_groups:
+        aux = _RankMean.apply(aux, tuple(aux_groups))
     C = _capacity(T, cfg)
     A = T * e.top_k
     e_flat = idx.reshape(A)
@@ -217,10 +288,12 @@ def moe_ep(cfg, p, x: torch.Tensor):
     fsdp = ctx.rules.get("fsdp")
     x_spec = (dp, tp, None)
     xl = to_local_as(x, x_spec)
-    wl = {"router": to_local_as(p["router"], (None, None)),
-          "w_gate": to_local_as(p["w_gate"], (tp, fsdp, None)),
-          "w_in": to_local_as(p["w_in"], (tp, fsdp, None)),
-          "w_out": to_local_as(p["w_out"], (tp, None, fsdp))}
+    # the router and the experts are used whole on each rank's tokens:
+    # their gradients leave the region as partial sums over the token axes
+    wl = {"router": to_local_as(p["router"], (None, None), x_spec),
+          "w_gate": to_local_as(p["w_gate"], (tp, fsdp, None), x_spec),
+          "w_in": to_local_as(p["w_in"], (tp, fsdp, None), x_spec),
+          "w_out": to_local_as(p["w_out"], (tp, None, fsdp), x_spec)}
     if fsdp is not None:      # FSDP: gather the layer's weights before use
         wl["w_gate"] = _gather(wl["w_gate"], fsdp, 1)
         wl["w_in"] = _gather(wl["w_in"], fsdp, 1)
@@ -228,10 +301,13 @@ def moe_ep(cfg, p, x: torch.Tensor):
     axes = (dp if isinstance(dp, tuple) else (dp,) if dp else ()) + (tp,)
     yl, aux = moe_ep_local(cfg, wl, xl, M, ctx.mesh.get_group(tp),
                            [ctx.mesh.get_group(a) for a in axes])
-    y = from_local_as(yl, x_spec)
+    # the tokens back in the residual's layout before the shared experts
+    # join: the gradient of their product then comes back with the
+    # sequence whole (torch 2.11's DTensor cannot flatten a split one)
+    y = shard(from_local_as(yl, x_spec), "batch", "seq", "embed")
     if e.n_shared > 0:
         y = y + _shared_mlp(cfg, p, x)
-    return shard(y, "batch", "seq", "embed"), aux
+    return shard(y, "batch", "seq", "embed"), from_local_as(aux, ())
 
 
 def moe(cfg, p, x: torch.Tensor, *, decode: bool = False):

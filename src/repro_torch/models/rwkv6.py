@@ -210,11 +210,18 @@ def channel_mix(cfg, cm, x, shift_in):
 def rwkv_block(cfg, p, x, state: dict, chunk: int = 32):
     """One RWKV-6 layer.  state: ``{tm_shift, cm_shift, wkv}`` of this
     layer → ``(x, new state)``."""
-    h = rmsnorm(x, p["ln1"])
+    # the normed inputs with their sequence whole (a no-op but under a
+    # sequence-parallel residual): the token shift and the projections
+    # read the whole sequence
+    h = shard(rmsnorm(x, p["ln1"]), "batch", "seq", "embed")
     att, tm_shift, wkv = time_mix(cfg, p["tm"], h, state["tm_shift"],
                                   state["wkv"], chunk)
-    x = shard(x + att, "batch", "act_seq", "embed")
-    h = rmsnorm(x, p["ln2"])
+    # each output in the residual's layout before it is added: its
+    # gradient then comes back laid out as the output was
+    x = shard(x + shard(att, "batch", "act_seq", "embed"), "batch",
+              "act_seq", "embed")
+    h = shard(rmsnorm(x, p["ln2"]), "batch", "seq", "embed")
     ff, cm_shift = channel_mix(cfg, p["cm"], h, state["cm_shift"])
-    x = shard(x + ff, "batch", "act_seq", "embed")
+    x = shard(x + shard(ff, "batch", "act_seq", "embed"), "batch",
+              "act_seq", "embed")
     return x, {"tm_shift": tm_shift, "cm_shift": cm_shift, "wkv": wkv}

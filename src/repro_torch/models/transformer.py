@@ -119,11 +119,31 @@ def _block_mlp(cfg, p, x, *, decode: bool):
     return mlp(cfg, p["mlp"], x), _zero(x)
 
 
+def _residual(t):
+    """A block's output ``[B, S, D]`` in the residual's layout before it is
+    added to it (a no-op but under a sequence-parallel residual): the
+    gradient then comes back to the block's last product laid out as that
+    product's output was, not split over the sequence (see
+    :func:`_whole_seq`)."""
+    return shard(t, "batch", "act_seq", "embed")
+
+
+def _whole_seq(h):
+    """``h`` ``[B, S, D]`` laid out with its sequence whole (a no-op but
+    under a sequence-parallel residual): the sequence gathered before the
+    projections that read it, as a sequence-parallel layer does, rather
+    than left to DTensor, which cannot flatten a batch and a sequence both
+    split (torch 2.11) or gathers the weights instead."""
+    return shard(h, "batch", "seq", "embed")
+
+
 def dense_block(cfg, p, x, pos):
     """Full-seq block.  Returns ``(x, kv, aux)``: ``kv`` is the layer's
     cache entries over the sequence by cache name (``k``/``v``, or MLA's
-    ``c_kv``/``k_rope``)."""
-    h = apply_norm(cfg, x, p.get("ln1s"))
+    ``c_kv``/``k_rope``).  Under a sequence-parallel residual
+    (``act_seq``) each normed input is gathered over the sequence before
+    its projections (:func:`_whole_seq`)."""
+    h = _whole_seq(apply_norm(cfg, x, p.get("ln1s")))
     B, S = x.shape[:2]
     if cfg.mla is not None:
         q, k, v, (c_kv, k_rope) = attn._mla_qkv(cfg, p["attn"], h, pos)
@@ -137,10 +157,10 @@ def dense_block(cfg, p, x, pos):
         a = attn.merge_heads(o, B, S, cfg.q_dim) @ \
             p["attn"]["wo"].to(x.dtype)
         kv = {"k": k, "v": v}
-    x = shard(x + a, "batch", "act_seq", "embed")
-    h = apply_norm(cfg, x, p.get("ln2s"))
+    x = shard(x + _residual(a), "batch", "act_seq", "embed")
+    h = _whole_seq(apply_norm(cfg, x, p.get("ln2s")))
     y, aux = _block_mlp(cfg, p, h, decode=False)
-    return shard(x + y, "batch", "act_seq", "embed"), kv, aux
+    return shard(x + _residual(y), "batch", "act_seq", "embed"), kv, aux
 
 
 def dense_block_decode(cfg, p, x, cache_l: dict, pos):
@@ -174,13 +194,14 @@ def init_hybrid_shared(gen: torch.Generator, cfg) -> dict:
 
 def shared_attn_block(cfg, sp, x, pos):
     """Full-seq shared block.  Returns ``(x, (k, v))``."""
-    h = rmsnorm(x, sp["ln1"])
+    h = _whole_seq(rmsnorm(x, sp["ln1"]))
     q, k, v = attn._qkv(cfg, sp["attn"], h, pos)
     o = attn.sdpa(cfg, q, k, v)
     B, S = x.shape[:2]
-    x = x + attn.merge_heads(o, B, S, cfg.q_dim) @ \
-        sp["attn"]["wo"].to(x.dtype)
-    x = x + mlp(cfg, sp["mlp"], rmsnorm(x, sp["ln2"]))
+    x = x + _residual(attn.merge_heads(o, B, S, cfg.q_dim) @
+                      sp["attn"]["wo"].to(x.dtype))
+    x = x + _residual(mlp(cfg, sp["mlp"],
+                          _whole_seq(rmsnorm(x, sp["ln2"]))))
     return x, (k, v)
 
 
@@ -462,8 +483,9 @@ def _build_hybrid(cfg: ModelCfg, dev: torch.device) -> Model:
         each layer's new state is written back into ``state`` in place,
         else dropped."""
         def layer(p_l, x, st, li):
-            y, new = m2.mamba2_block(cfg, p_l["m"], rmsnorm(x, p_l["ln"]), st)
-            x = shard(x + y, "batch", "act_seq", "embed")
+            y, new = m2.mamba2_block(cfg, p_l["m"],
+                                     _whole_seq(rmsnorm(x, p_l["ln"])), st)
+            x = shard(x + _residual(y), "batch", "act_seq", "embed")
             if every and li % every == every - 1:
                 x = shared(x, li // every)
             return x, new

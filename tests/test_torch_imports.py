@@ -56,7 +56,9 @@ def test_engine_import_leaves_jax_and_reference_out():
             "repro_torch.core.sim_ref, repro_torch.core.policies, "
             "repro_torch.distribution.sharding, repro_torch.launch.mesh, "
             "repro_torch.launch.specs, repro_torch.launch.train, "
-            "repro_torch.training.train\n"
+            "repro_torch.training.train, repro_torch.launch.dryrun, "
+            "repro_torch.roofline.analysis, repro_torch.roofline.report, "
+            "repro_torch.roofline.hillclimb\n"
             "for name in ('schema', 'synth_trace', 'replay', 'cache'):\n"
             "    mod = getattr(repro_torch.trace, name)\n"
             "    assert mod.__name__ == 'repro_torch.trace.' + name, mod\n"

@@ -480,10 +480,50 @@ def decode_rules(data, out):
     save_tree(out, "cache/", cs)
 
 
+def moe_train(data, out):
+    """For each of ``cases`` (``<arch>/<D>x<M>/<fsdp0|fsdp1>/<batch key>``;
+    smoke configs): on a ``D × M`` ``data × model`` mesh under
+    ``make_ctx`` (``fsdp`` as the case says), parameters laid out by their
+    specs from the test's weights (``p.<arch>/``) and the batch
+    ``tokens.<key>``, ``labels.<key>``: one sharded ``value_and_grad``
+    (under ``<case>/grad/``, full on every rank), then ``steps`` AdamW
+    steps at ``lr`` (the losses and the parameters under
+    ``<case>/``).  The parameters are f32 too."""
+    ocfg = OptCfg(lr=float(data["lr"]), warmup_steps=2, total_steps=10)
+    for case in (str(c) for c in data["cases"]):
+        arch, shape, fsdp, key = case.split("/")
+        cfg = dataclasses.replace(f32(arch), param_dtype="float32",
+                                  fsdp=fsdp == "fsdp1")
+        tokens = torch.from_numpy(data["tokens." + key])
+        labels = torch.from_numpy(data["labels." + key])
+        model = build_model(cfg, "cpu")
+        params = load_params(model.init(torch.Generator().manual_seed(0)),
+                             data, f"p.{arch}/")
+        mesh = make_test_mesh(tuple(int(a) for a in shape.split("x")),
+                              ("data", "model"), device_type="cpu")
+        ctx = make_ctx(mesh, cfg)
+        with sh.sharding_ctx(ctx):
+            pd = sh.param_sharding_tree(params, model.param_specs(), mesh)
+            with sh.plain_as_replicated():
+                loss, g = value_and_grad(model.loss, pd, tokens, labels)
+            out[f"{case}/grad/loss"] = np.float32(sh.full(loss))
+            save_tree(out, f"{case}/grad/g/", g)
+            state = init_train_state(model, torch.Generator().manual_seed(0))
+            state = shard_train_state(state._replace(params=params), model,
+                                      ctx)
+            out[f"{case}/placements"] = np.array(sorted({
+                str(leaf.placements) for leaf in tree_leaves(state.params)}))
+            step = build_train_step(model, ocfg)
+            for i in range(int(data["steps"])):
+                state, m = step(state, tokens, labels)
+                out[f"{case}/loss{i}"] = np.float32(m["loss"])
+        save_tree(out, f"{case}/params/", state.params)
+
+
 SCENARIOS = {f.__name__: f for f in (train, moe, compressed, remesh,
                                      seqdecode, gqapad, serve, mla,
                                      recurrent, recurrent_train,
-                                     decode_rules)}
+                                     decode_rules, moe_train)}
 
 
 def main(argv):

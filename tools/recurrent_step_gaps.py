@@ -11,8 +11,11 @@ ranks, rank 0 also the port's one-device steps) beside the reference's
 each pair of runs (sharded, one-device, reference) the losses and the
 elements of the parameters beyond ``allclose(rtol=atol=1e-3)``, with the
 worst ``|gap| - 1e-3 |want|`` and the reference's clipped first moment
-there.  ``tests/test_torch_distributed_recurrent_train.py`` holds one
-step; this shows what more steps do.
+there; and the reference against itself from every weight one ulp up
+(its own rounding spread over the same steps).
+``tests/test_torch_distributed_recurrent_train.py`` holds one step and
+``tests/test_torch_recurrent_step_spread.py`` three, within twice that
+spread.
 """
 from __future__ import annotations
 
@@ -70,27 +73,38 @@ def main(argv=None) -> int:
                                     jnp.asarray(labels))
                     losses.append(float(m["loss"]))
                     m1 = m1 or jax.tree.map(np.asarray, state.opt.m)
+                # the reference against itself: every weight one ulp up
+                up = jtrain.init_train_state(model, jax.random.key(0))
+                up = up._replace(params=jax.tree.map(
+                    lambda x: jnp.asarray(np.nextafter(
+                        np.asarray(x), np.float32(np.inf))), jps[arch]))
+                for _ in range(args.steps):
+                    up, _ = step(up, jnp.asarray(tokens),
+                                 jnp.asarray(labels))
                 ref[arch] = losses, *(
                     [leaf.numpy() for _, leaf in flatten_with_paths(
                         params_from_reference(f32(arch), jax.tree.map(
                             np.asarray, t), "cpu"))]
-                    for t in (state.params, m1))
+                    for t in (state.params, m1, up.params))
         r0 = ranks.wait()[0]
     for arch in ARCHS:
         k, tp = f"train.{arch}/", tps[arch]
-        losses, ref_p, ref_m1 = ref[arch]
+        losses, ref_p, ref_m1, ref_up = ref[arch]
         paths = ["/".join(p) for p, _ in flatten_with_paths(tp)]
         runs = {"sharded": leaves(r0, k + "sharded/", tp),
                 "one-device": leaves(r0, k + "single/", tp),
-                "reference": ref_p}
+                "reference": ref_p, "reference one ulp up": ref_up}
         print(f"{arch}, {args.steps} steps at lr {args.lr:g}: losses sharded "
               f"{[float(r0[f'{k}loss{i}']) for i in range(args.steps)]}, "
               f"one-device "
               f"{[float(r0[f'{k}single_loss{i}']) for i in range(args.steps)]}"
               f", reference {losses}")
         for a, b in (("sharded", "one-device"), ("sharded", "reference"),
-                     ("one-device", "reference")):
+                     ("one-device", "reference"),
+                     ("reference one ulp up", "reference")):
             n, worst = 0, (-np.inf, None)
+            gap = max(float(np.abs(x - y).max())
+                      for x, y in zip(runs[a], runs[b]))
             for path, got, want, m1 in zip(paths, runs[a], runs[b], ref_m1):
                 exc = np.abs(got - want) - 1e-3 * np.abs(want)
                 n += int((exc > 1e-3).sum())
@@ -99,8 +113,8 @@ def main(argv=None) -> int:
                     worst = (float(exc[i]), f"{path}{list(map(int, i))}, "
                              f"first moment {m1[i]:.3e} (leaf max "
                              f"{np.abs(m1).max():.3e})")
-            print(f"  {a} vs {b}: {n} elements beyond allclose 1e-3; worst "
-                  f"excess {worst[0]:.3e} at {worst[1]}")
+            print(f"  {a} vs {b}: max |gap| {gap:.3e}; {n} elements beyond "
+                  f"allclose 1e-3; worst excess {worst[0]:.3e} at {worst[1]}")
     return 0
 
 
